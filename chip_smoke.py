@@ -6,31 +6,52 @@
 Phases, each printing JSON lines on standard output:
 
 1. device: the card's name and power limit (nvidia-smi), PyTorch and CUDA.
-2. build: compile every kernel of the main path from the sources in this
-   checkout (nvcc, sm_90a) and report the compiler's register counts.
-3. parity: each kernel against its plain PyTorch version on the same
-   tables, at 160x90, 8 spp, depth 8 for the README scene, the spheres of
-   the reference scene (all four materials and an aperture), a constant
-   sky, the "zero" NaN policy without the clamp, and the book cover; then
-   at the main path's full size.  Tolerance: at most 0.5% of pixels differ
-   by more than 1e-3, more than 99% within 1e-4, means within 2e-3.
-4. main path: ``render(readme_scene(16/9), RenderConfig(1280, 720,
+2. build: compile every kernel of the main paths from the sources in this
+   checkout (nvcc, sm_90a, one process per source, all at once) and report
+   the compiler's register counts and spills.
+3. forward parity: the sphere megakernel against its plain PyTorch version
+   on the same tables, at 160x90, 8 spp, depth 8 for the README scene, the
+   spheres of the reference scene (all four materials and an aperture), a
+   constant sky, the "zero" NaN policy without the clamp, and the book
+   cover; then at the main path's full size.  Tolerance: at most 0.5% of
+   pixels differ by more than 1e-3, more than 99% within 1e-4, means within
+   2e-3.
+4. forward main path: ``render(readme_scene(16/9), RenderConfig(1280, 720,
    spp=250, max_depth=50))`` and the 100-sphere book cover at the same
    configuration, one warm-up and the minimum of 3 timed runs each, with
    the kernels' launch counts set to 0 just before and read just after.
-5. the kernels line and the result line.
+5. backward parity: the backward megakernel against its plain version
+   (autograd of the plain tracer) on the same tables, at 160x90, 4 spp,
+   depth 6, compared on the scene's leaves (``render_grad_scene``), for the
+   README scene, the reference spheres, a constant sky, an emissive sphere
+   whose albedo clamps, 40 random spheres and the book cover; and on the
+   table rows both read for 200 random spheres (the backward takes 256).
+   Tolerance per leaf, max|a - b| / max|b|: those of tests/test_megagrad.py,
+   and for the book cover, fuzzy metal like the README scene, the README's
+   (8e-2 and a cosine above 0.9999).
+6. gradient main path: ``render_grad_sampled`` of the README scene and the
+   book cover at the main path's configuration with loss mean(img^2), one
+   warm-up and the minimum of 3, counts set to 0 just before and read just
+   after; then the backward kernel alone by CUDA events, and the plain
+   gradient against it at 320x180, 16 spp, depth 50 (the plain gradient at
+   the full size takes too long to run here).
+7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
+   main path's configuration; the loss must fall.
+8. the kernels line and the result line.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
-other than nvidia-smi and nvcc, both waited for.
+other than nvidia-smi and nvcc, all waited for.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -41,7 +62,16 @@ PEAK_HBM_BYTES = 3.35e12
 # the discriminant, a sqrt, two divides and the root selection) is about
 # 25 FP32 operations.
 FLOPS_PER_SPHERE_TEST = 25
+# The backward's reverse walk: FP32 operations of one bounce in
+# csrc/megagrad.cu::bounce_adjoint (the forward recompute of the winner's
+# hit and the adjoint of a metal bounce, counted from the code).
+FLOPS_PER_REVERSE_BOUNCE = 200
 TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
+KERNELS = ("megakernel", "megagrad")
+GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
+               "spheres.fuzz", "spheres.ior", "camera.look_from",
+               "camera.look_at", "camera.vfov_deg", "camera.aperture_deg",
+               "camera.focus_dist", "sky.const_colour")
 
 
 def emit(obj) -> None:
@@ -94,6 +124,61 @@ def kernel_ms(fn, reps: int = 3) -> float:
     return best
 
 
+def build_all():
+    """Build every kernel library at once, one nvcc each: name -> (path,
+    seconds, the compiler's register and spill lines)."""
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        secs = time.perf_counter() - t0
+        log = lib.with_suffix(".log")
+        ptxas = ([ln.strip() for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+                 if log.exists() else [])
+        return name, (lib, secs, ptxas)
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(pool.map(one, KERNELS))
+
+
+def random_spheres(base, n: int, seed: int = 42):
+    """n random Lambertian and metal spheres with base's camera and sky
+    (tests/test_megagrad.py::test_large_sphere_count)."""
+    import numpy as np
+    import opencl_ray_tracer_tpu_torch as ot
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+    return dataclasses.replace(base, spheres=ot.Spheres(
+        center=f32(np.stack([rng.uniform(-3, 3, n), rng.uniform(0.3, 0.8, n),
+                             rng.uniform(-3, 3, n)], 1)),
+        radius=f32(rng.uniform(0.2, 0.45, n)),
+        albedo=f32(rng.uniform(0.1, 0.9, (n, 3))),
+        fuzz=f32(rng.uniform(0.0, 0.3, n)), ior=f32(np.full(n, 1.5)),
+        mat_type=torch.tensor(rng.integers(0, 2, n), dtype=torch.int32)))
+
+
+def leaf_errors(got, want) -> dict:
+    """Per scene leaf: max|a - b| / max|b| (scale floor 1e-6) and
+    max|a - b|; and the cosine of the stacked centre, albedo and radius
+    gradients."""
+    import numpy as np
+    from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    rel = {k: float(np.abs(a[k] - b[k]).max())
+           / max(float(np.abs(b[k]).max()), 1e-6) for k in GRAD_LEAVES}
+    absd = max(float(np.abs(a[k] - b[k]).max()) for k in GRAD_LEAVES)
+    keys = ("spheres.center", "spheres.albedo", "spheres.radius")
+    va = np.concatenate([a[k].ravel() for k in keys]).astype(np.float64)
+    vb = np.concatenate([b[k].ravel() for k in keys]).astype(np.float64)
+    cos = float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
+    return rel, absd, cos
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -101,6 +186,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
     from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
 
     dev = torch.device("cuda")
@@ -120,13 +206,11 @@ def main() -> None:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    lib = mk.build()
-    build_s = time.perf_counter() - t0
-    log = lib.with_suffix(".log")
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log.exists() else [])
-    emit({"phase": "build", "kernel": "sphere_megakernel",
-          "seconds": build_s, "library": lib.name, "ptxas": ptxas})
+    built = build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"library": lib.name, "seconds": secs,
+                             "ptxas": ptxas}
+                      for name, (lib, secs, ptxas) in built.items()}})
 
     def tables(scene):
         scene = scene.to(dev)
@@ -212,8 +296,8 @@ def main() -> None:
               "size": "1280x720x250/d50",
               **{k: v for k, v in entry.items() if k != "image"}})
 
-    # ---- 4. the main path, through render() ----
-    mk.LAUNCHES = 0
+    # ---- 4. the forward main path, through render() ----
+    mk.LAUNCHES = mg.LAUNCHES = 0
     main_runs = {}
     for name, scene in (("readme", ot.readme_scene(16 / 9)),
                         ("book_cover", ot.book_cover_scene(
@@ -240,8 +324,196 @@ def main() -> None:
     if launches < 1:
         fail("the main path launched no sphere megakernel")
 
-    # ---- 5. kernels line, result line ----
+    # ---- 5. backward parity, small ----
+    grad_cfg = ot.RenderConfig(width=160, height=90, spp=4, max_depth=6,
+                               nan_policy="zero")
+    reference = ot.reference_scene(16 / 9)
+    alb = reference.spheres.albedo.clone()
+    alb[5] = torch.tensor([2.5, 0.9, 2.5])     # the emissive sphere
+    grad_cases = {
+        "readme": (readme, 8e-2),
+        "reference_spheres": (reference, 5e-3),
+        "const_sky": (dataclasses.replace(
+            reference, sky=ot.Sky.constant((0.6, 0.7, 0.9))), 1e-3),
+        "emissive_clamp": (dataclasses.replace(
+            reference, spheres=dataclasses.replace(reference.spheres,
+                                                   albedo=alb)), 5e-3),
+        "random_40": (random_spheres(reference, 40), 2e-2),
+        "book_cover": (ot.book_cover_scene(aspect_ratio=16 / 9), 8e-2),
+    }
+
+
+    def grad_pair(scene, cfg, seed):
+        """Backward kernel and plain version on the same tables and image
+        cotangent (loss mean(img^2)): table cotangents of both, counts,
+        the plain version's host seconds, the scene on the card and the
+        kernel's launch."""
+        scene = scene.to(dev)
+        cam, sph, n, sky_kind, flags = tables(scene)
+        n_pix = cfg.width * cfg.height
+        img = torch.stack(mk.render_spheres(cam, sph, n, cfg, sky_kind,
+                                            flags, seed, n_pix), -1)
+        g = (2.0 / img.numel() / cfg.spp) * img.T.contiguous()
+
+        def launch(counts=None):
+            return mg.render_grad_tables(cam, sph, n, cfg, sky_kind, flags,
+                                         g[0], g[1], g[2], seed, n_pix,
+                                         counts=counts)
+
+        kc = torch.zeros(2, dtype=torch.int64, device=dev)
+        pc = torch.zeros(2, dtype=torch.int64, device=dev)
+        k = launch(kc)
+        torch.cuda.synchronize()
+        t_plain, p = timed(lambda: mg.render_grad_tables_plain(
+            cam, sph, n, cfg, sky_kind, flags, g[0], g[1], g[2], seed,
+            n_pix, counts=pc), reps=1)
+        return k, p, kc.tolist(), pc.tolist(), t_plain, scene, launch
+
+    grad_parity = {}
+    for name, (scene, rtol) in grad_cases.items():
+        k, p, kc, pc, t_plain, scene, _ = grad_pair(scene, grad_cfg,
+                                                    seed=7)
+        if not (torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()):
+            fail(f"grad {name}: kernel output is not finite")
+        rel, absd, cos = leaf_errors(mg.table_grads_to_scene(scene, *k),
+                                     mg.table_grads_to_scene(scene, *p))
+        emit({"phase": "grad_parity", "case": name, "size": "160x90x4/d6",
+              "rel_err": rel, "max_rel_err": max(rel.values()),
+              "max_abs_err": absd, "cosine": cos, "tolerance": rtol,
+              "kernel_replay_bounces": kc[0], "kernel_reverse_bounces": kc[1],
+              "plain_bounces": pc[0], "plain_s": t_plain})
+        fuzzy = name in ("readme", "book_cover")
+        if max(rel.values()) >= rtol or (fuzzy and cos <= 0.9999):
+            fail(f"grad {name}: kernel and plain version disagree: {rel}, "
+                 f"cosine {cos}")
+        grad_parity[name] = max(rel.values())
+
+    # 200 spheres: beyond the forward kernel's 128, so tables only, on the
+    # rows both versions read (centres, albedo, fuzz; the camera slots)
+    scene = random_spheres(reference, 200).to(dev)
+    cam, sph = mk.camera_table(scene), mk.sphere_table(scene)
+    n_small = grad_cfg.width * grad_cfg.height
+    g = torch.full((3, n_small), 1.0 / n_small / grad_cfg.spp, device=dev)
+    args = (cam, sph, 200, grad_cfg, scene.sky.kind,
+            mk.specialize_flags(scene), g[0], g[1], g[2], 7, n_small)
+    kcam, ksph = mg.render_grad_tables(*args)
+    pcam, psph = mg.render_grad_tables_plain(*args)
+    rows = [mk.F_CX, mk.F_CY, mk.F_CZ, mk.F_ALR, mk.F_ALG, mk.F_ALB,
+            mk.F_FUZZ]
+    slots = list(mg.CAM_SLOTS[:12])
+    rel200 = {"sphere_rows": float((ksph[rows] - psph[rows]).abs().max()
+                                   / psph[rows].abs().max()),
+              "camera_slots": float((kcam[0, slots] - pcam[0, slots]).abs()
+                                    .max() / pcam[0, slots].abs().max())}
+    emit({"phase": "grad_parity", "case": "random_200_tables",
+          "size": "160x90x4/d6", "rel_err": rel200, "tolerance": 2e-2})
+    if max(rel200.values()) >= 2e-2:
+        fail(f"grad random_200_tables: kernel and plain disagree: {rel200}")
+
+    # ---- 6. the gradient main path, through render_grad_sampled() ----
+    def loss_fn(img):
+        return torch.mean(img ** 2)
+
+    mk.LAUNCHES = mg.LAUNCHES = 0
+    grad_runs = {}
+    for name, scene in (("readme", ot.readme_scene(16 / 9)),
+                        ("book_cover", ot.book_cover_scene(
+                            aspect_ratio=16 / 9))):
+        ot.render_grad_sampled(scene, bench, loss_fn, seed=0)  # warm-up
+        secs, out = timed(lambda: ot.render_grad_sampled(scene, bench,
+                                                         loss_fn, seed=0))
+        grad_runs[name] = (secs, out)
+    grad_launches = {"sphere_megakernel": mk.LAUNCHES,
+                     "sphere_megagrad": mg.LAUNCHES}
+    for name, (secs, (loss, img, grads)) in grad_runs.items():
+        finite = all(bool(torch.isfinite(getattr(grads.spheres, f)).all())
+                     for f in ("center", "radius", "albedo", "fuzz", "ior"))
+        if not (finite and torch.isfinite(loss)
+                and torch.equal(img, main_runs[name][1])
+                and float(grads.spheres.albedo.abs().max()) > 0):
+            fail(f"gradient main path {name}: loss {float(loss)}, finite "
+                 f"{finite}, image equal to render(): "
+                 f"{torch.equal(img, main_runs[name][1])}")
+        emit({"phase": "grad_main_path", "case": name,
+              "size": "1280x720x250/d50", "seconds": secs,
+              "fwd_bwd_ms": 1e3 * secs, "loss": float(loss),
+              "launches_so_far": grad_launches})
+    if min(grad_launches.values()) < 1:
+        fail(f"the gradient main path skipped a kernel: {grad_launches}")
+
+    # ---- 6b. the backward kernel alone at the main path's size ----
+    grad_full = {}
+    for name, scene in (("readme", readme),
+                        ("book_cover", ot.book_cover_scene(
+                            aspect_ratio=16 / 9))):
+        cam, sph, n, sky_kind, flags = tables(scene.to(dev))
+        img = main_runs[name][1]
+        g = (2.0 / img.numel() / bench.spp) * img.reshape(-1, 3).T.contiguous()
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        launch = lambda c=None: mg.render_grad_tables(  # noqa: E731
+            cam, sph, n, bench, sky_kind, flags, g[0], g[1], g[2], 0, n_pix,
+            counts=c)
+        launch(counts)
+        torch.cuda.synchronize()
+        ms = kernel_ms(launch)
+        replay, reverse = counts.tolist()
+        flops = (replay * n * FLOPS_PER_SPHERE_TEST
+                 + reverse * FLOPS_PER_REVERSE_BOUNCE)
+        io_bytes = (2 * (cam.numel() + sph.numel()) + 3 * n_pix) * 4
+        bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS,
+                             io_bytes / PEAK_HBM_BYTES)
+        grad_full[name] = dict(
+            kernel_ms=ms, replay_bounces=replay, reverse_bounces=reverse,
+            replay_bounces_per_sample=replay / (n_pix * bench.spp),
+            reverse_bounces_per_sample=reverse / (n_pix * bench.spp),
+            n_spheres=n, flops=flops, bytes=io_bytes, bound_ms=bound_ms,
+            share_of_bound=bound_ms / ms)
+        emit({"phase": "grad_full_size_kernel", "case": name,
+              "size": "1280x720x250/d50", **grad_full[name]})
+
+    # ---- 6c. plain gradient against the kernel, README, 320x180x16/d50 ----
+    mid = ot.RenderConfig(width=320, height=180, spp=16, max_depth=50,
+                          nan_policy="zero")
+    k, p, kc, pc, t_plain, scene, launch = grad_pair(readme, mid, seed=0)
+    rel, absd, cos = leaf_errors(mg.table_grads_to_scene(scene, *k),
+                                 mg.table_grads_to_scene(scene, *p))
+    mid_ms = kernel_ms(launch)
+    emit({"phase": "grad_plain_vs_kernel", "case": "readme",
+          "size": "320x180x16/d50", "rel_err": rel,
+          "max_rel_err": max(rel.values()), "max_abs_err": absd,
+          "cosine": cos, "plain_ms": 1e3 * t_plain, "kernel_ms": mid_ms,
+          "kernel_replay_bounces": kc[0], "plain_bounces": pc[0]})
+    if max(rel.values()) >= 8e-2 or cos <= 0.9999:
+        fail(f"grad readme at 320x180x16/d50: kernel and plain disagree: "
+             f"{rel}, cosine {cos}")
+
+    # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
+    true = ot.readme_scene(16 / 9)
+    target = ot.render(true, bench, seed=0)
+    init = dataclasses.replace(true, spheres=dataclasses.replace(
+        true.spheres, albedo=true.spheres.albedo + 0.1))
+    stamps = [time.perf_counter()]
+
+    def on_step(i, loss, scene):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    mk.LAUNCHES = mg.LAUNCHES = 0
+    _, losses = ot.fit_scene(target, init, bench,
+                             param_paths=("spheres.albedo",), steps=5,
+                             sample_new_noise=False, grad_backend="auto",
+                             callback=on_step)
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    emit({"phase": "fit", "size": "1280x720x250/d50", "losses": losses,
+          "seconds_per_step": step_s,
+          "launches": {"sphere_megakernel": mk.LAUNCHES,
+                       "sphere_megagrad": mg.LAUNCHES}})
+    if not losses[-1] < losses[0] or mg.LAUNCHES < 5:
+        fail(f"fit: loss did not fall or skipped the kernels: {losses}")
+
+    # ---- 8. kernels line, result line ----
     r = full["readme"]
+    gr = grad_full["readme"]
     emit({"kernels": [{
         "name": "sphere_megakernel",
         "route": "cuda",
@@ -259,6 +531,26 @@ def main() -> None:
         "library_ms": None,
         "readme_ms": 1e3 * main_runs["readme"][0],
         "book_cover_ms": 1e3 * main_runs["book_cover"][0],
+        "launches_in_gradient_path": grad_launches["sphere_megakernel"],
+    }, {
+        "name": "sphere_megagrad",
+        "route": "cuda",
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megagrad.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megagrad.py:187 "
+                    "_make_grad_kernel (sphere variant)",
+        "launches": grad_launches["sphere_megagrad"],
+        "max_abs_err": absd,
+        "max_rel_err": max(rel.values()),
+        "parity_max_rel_err": max(grad_parity.values()),
+        "ms": gr["kernel_ms"],
+        "plain_ms": 1e3 * t_plain,
+        "plain_size": "320x180x16/d50 (kernel there: %.3f ms)" % mid_ms,
+        "bound_ms": gr["bound_ms"],
+        "bound_by": ("operations" if gr["flops"] / PEAK_FP32_FLOPS
+                     >= gr["bytes"] / PEAK_HBM_BYTES else "bytes"),
+        "library_ms": None,
+        "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
+        "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

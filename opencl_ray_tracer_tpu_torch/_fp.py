@@ -31,3 +31,11 @@ def dot3(a, b):
     """Dot product over the last axis of size 3, as an fma chain."""
     return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1],
                                          a[..., 0] * b[..., 0]))
+
+
+def clip01(x):
+    """Clamp to [0, 1] as ``jnp.clip`` (min of max): NaN passes, and at a
+    tie with 0 or 1 the gradient is halved, where ``torch.clamp`` would pass
+    it whole."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 1.0)

@@ -8,19 +8,13 @@ JAX package's Pallas ``kernels/megakernel.py::_make_kernel``.
 signature, built from the tracer modules; the wrapper runs it for tensors
 on the CPU and nowhere else.
 
-The library is compiled with ``nvcc`` at first use from the source in this
-package into ``_build/`` beside the package, keyed on a hash of the source
-and flags, and loaded with ctypes.
+The library is compiled with ``nvcc`` at first use (``_build.py``) and
+loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
@@ -31,6 +25,7 @@ from ..scene import (BoundingBoxes, Scene, Sky, Spheres, Triangles,
 from ..scene import materials as mat
 from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
 from ..tracer.wavefront import render_rows_wavefront
+from . import _build
 
 LANES = 128
 MAX_SPHERES = 128
@@ -58,54 +53,14 @@ FLAG_SKY_CONST = 128
 # Launches of the CUDA kernel since the count was last set to 0.
 LAUNCHES = 0
 
-_SRC = pathlib.Path(__file__).parent / "csrc" / "megakernel.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC"]
-_LIB = None
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel library if it is not built yet; its path.  The
-    compiler's report (registers, spills) is kept beside it as ``.log``."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"megakernel_{key}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"sphere_megakernel_launch": (
+    [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, ctypes.c_uint32,
+     ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float, _I, _P], _I)}
 
 
 def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.sphere_megakernel_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, p, p, p, p, i, i, ctypes.c_uint32,
-                       ctypes.c_uint32, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _build.load("megakernel", _SYMBOLS)
 
 
 def unsupported_reason(scene: Scene) -> str | None:
@@ -128,17 +83,26 @@ def supports(scene: Scene, cfg: RenderConfig) -> bool:
     return unsupported_reason(scene) is None
 
 
-def specialize_flags(scene: Scene):
+def specialize_flags(scene: Scene, conservative: bool = False):
     """Material presence: (has_metal, has_diel, has_emit, has_fuzz,
-    has_aperture), read from the scene's values on the host."""
+    has_aperture), read from the scene's values on the host.
+
+    The fuzz and aperture bits prune code on values (fuzz > 0, aperture >
+    0), which an optimizer may change.  ``conservative`` sets them from
+    what the values could become: has_fuzz = has_metal and has_aperture =
+    True, so one set of flags serves every step of a fit.  The image does
+    not change: a zero fuzz or aperture adds exactly zero."""
     types = scene.spheres.mat_type.cpu()
-    fuzz = scene.spheres.fuzz.cpu()
     is_metal = types == mat.METAL
-    return (bool(is_metal.any()),
-            bool((types == mat.DIELECTRIC).any()),
-            bool((types == mat.EMISSIVE).any()),
-            bool((fuzz[is_metal] > 0).any()),
-            float(scene.camera.aperture_deg) > 0.0)
+    has_metal = bool(is_metal.any())
+    if conservative:
+        has_fuzz, has_aperture = has_metal, True
+    else:
+        fuzz = scene.spheres.fuzz.detach().cpu()
+        has_fuzz = bool((fuzz[is_metal] > 0).any())
+        has_aperture = float(scene.camera.aperture_deg.detach()) > 0.0
+    return (has_metal, bool((types == mat.DIELECTRIC).any()),
+            bool((types == mat.EMISSIVE).any()), has_fuzz, has_aperture)
 
 
 def camera_table(scene: Scene) -> torch.Tensor:
@@ -249,14 +213,10 @@ def render_spheres(cam, sph, n_spheres: int, cfg: RenderConfig,
     return out[0], out[1], out[2]
 
 
-def render_spheres_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
-                         sky_kind: int, flags, seed: int, n_pix: int,
-                         pix_offset: int = 0, sample_base: int = 0,
-                         bounces=None):
-    """The plain PyTorch version of ``render_spheres``, on the tables'
-    device: the wavefront tracer over the scene the tables hold.  ``flags``
-    only prune the kernel's code; the result does not depend on them."""
-    dev = cam.device
+def scene_from_tables(cam, sph, n_spheres: int, sky_kind: int):
+    """The scene the tables hold, for the plain tracer: (scene, frame).
+    Spheres are rebuilt from the centre, radius, albedo, fuzz, ior and type
+    rows; the camera enters as the frame of the camera table."""
     c = cam[0]
     frame = dict(origin=c[C_OX:C_OZ + 1], horizontal=c[C_HX:C_HZ + 1],
                  vertical=c[C_VX:C_VZ + 1],
@@ -268,12 +228,23 @@ def render_spheres_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
     spheres = Spheres(center=sph[F_CX:F_CZ + 1, :n].T, radius=sph[F_R, :n],
                       albedo=sph[F_ALR:F_ALB + 1, :n].T, fuzz=sph[F_FUZZ, :n],
                       ior=sph[F_IOR, :n],
-                      mat_type=sph[F_TYPE, :n].to(torch.int32))
-    sky = Sky(torch.zeros((1, 1, 3), device=dev), c[C_SKY0:C_SKY2 + 1],
-              sky_kind)
+                      mat_type=sph[F_TYPE, :n].detach().to(torch.int32))
+    sky = Sky(torch.zeros((1, 1, 3), device=cam.device),
+              c[C_SKY0:C_SKY2 + 1], sky_kind)
     # the camera enters as `frame`
-    scene = Scene(None, spheres, Triangles.empty(), BoundingBoxes.empty(),
-                  sky)
+    return Scene(None, spheres, Triangles.empty(), BoundingBoxes.empty(),
+                 sky), frame
+
+
+def render_spheres_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
+                         sky_kind: int, flags, seed: int, n_pix: int,
+                         pix_offset: int = 0, sample_base: int = 0,
+                         bounces=None):
+    """The plain PyTorch version of ``render_spheres``, on the tables'
+    device: the wavefront tracer over the scene the tables hold.  ``flags``
+    only prune the kernel's code; the result does not depend on them."""
+    dev = cam.device
+    scene, frame = scene_from_tables(cam, sph, n_spheres, sky_kind)
     lin = torch.arange(pix_offset, pix_offset + n_pix, device=dev)
     acc = render_rows_wavefront(scene, cfg, lin // cfg.width, lin % cfg.width,
                                 lin, seed, sample_base, cfg.spp, frame=frame,

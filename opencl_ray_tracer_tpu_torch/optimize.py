@@ -1,0 +1,126 @@
+"""Inverse rendering: fit scene parameters to a target image.
+
+``fit_scene`` descends the pixel loss with Adam over the listed scene
+leaves (``"spheres.center"``, ``"spheres.albedo"``, ...).  Hard visibility
+gives interior gradients only, so material and shading parameters fit
+well; geometry fits need the soft-visibility renderer, which comes with
+ROADMAP item A12.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from .config import RenderConfig
+from .scene import Scene, get_leaf, replace_leaves
+from .tracer.diffhit import make_grad_hit_fn
+from .tracer.render import render_rows, resolve_device
+
+
+def extract_params(scene: Scene, paths: Sequence[str]) -> dict:
+    """The leaves at ``paths`` ("group.field") by path."""
+    return {p: get_leaf(scene, p) for p in paths}
+
+
+def insert_params(scene: Scene, params: dict) -> Scene:
+    """A copy of scene with the leaves of ``params`` put in."""
+    return replace_leaves(scene, params)
+
+
+def fit_scene(
+    target,
+    init_scene: Scene,
+    cfg: RenderConfig,
+    param_paths: Sequence[str] = ("spheres.center", "spheres.albedo"),
+    steps: int = 100,
+    learning_rate: float = 1e-2,
+    loss_fn: Callable | None = None,
+    seed: int = 0,
+    sample_new_noise: bool = True,
+    callback: Callable | None = None,
+    soft: bool = False,
+    param_mask: dict | None = None,
+    grad_backend: str = "auto",
+    checkpoint_path: str | None = None,
+    device=None,
+):
+    """Adam on the leaves at ``param_paths`` against ``target`` ((H, W, 3)
+    radiance at cfg's size).  Returns (fitted scene, losses per step).
+
+    loss_fn(img) defaults to the mean squared error to target.
+    sample_new_noise draws new Monte Carlo samples every step (step i uses
+    seed + i + 1); False keeps ``seed``, a deterministic objective.
+    callback(i, loss, scene) runs after each step.  param_mask multiplies
+    a parameter's gradient before the update ("group.field" -> tensor).
+    grad_backend: "kernel" renders with the forward megakernel and
+    differentiates with the backward megakernel, both under the "zero" NaN
+    policy and with value-independent flags (``specialize_flags(...,
+    conservative=True)``), since a step changes fuzz and aperture values;
+    "plain" is autograd of the plain per-sample tracer (cfg.early_stop off);
+    "auto" is "kernel" on CUDA and "plain" on the CPU.  ``device`` None
+    means the card, and raises when there is none.
+
+    Adam with torch's defaults performs optax.adam's update (both divide by
+    sqrt(v_hat) + eps).
+    """
+    if soft:
+        raise NotImplementedError(
+            "soft-visibility fitting is not ported yet: ROADMAP item A12")
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "checkpointed fits are not ported yet: ROADMAP item A13")
+    device = resolve_device(device)
+    if grad_backend == "auto":
+        grad_backend = "kernel" if device.type == "cuda" else "plain"
+    if grad_backend not in ("kernel", "plain"):
+        raise ValueError(f"unknown grad_backend: {grad_backend}")
+    if grad_backend == "kernel":
+        from .kernels.megakernel import unsupported_reason
+        reason = unsupported_reason(init_scene)
+        if reason is not None:
+            raise NotImplementedError(reason)
+    init_scene = init_scene.to(device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    if loss_fn is None:
+        def loss_fn(img):
+            return torch.mean((img - target) ** 2)
+
+    dcfg = cfg.replace(early_stop=False)
+    if grad_backend == "kernel":
+        from .kernels.megagrad import render_tables_differentiable
+        from .kernels.megakernel import specialize_flags
+        flags = specialize_flags(init_scene, conservative=True)
+        gcfg = cfg.replace(nan_policy="zero")
+
+        def render_fn(scene, step_seed):
+            return render_tables_differentiable(scene, gcfg, step_seed,
+                                                flags=flags)
+    else:
+        def render_fn(scene, step_seed):
+            return render_rows(scene, dcfg, 0, dcfg.height, step_seed,
+                               hit_fn=make_grad_hit_fn(scene, dcfg.t_min))
+
+    params = {p: v.detach().clone().requires_grad_()
+              for p, v in extract_params(init_scene, param_paths).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=learning_rate)
+    masks = {k: torch.as_tensor(m, dtype=torch.float32, device=device)
+             for k, m in (param_mask or {}).items()}
+    losses = []
+    for i in range(steps):
+        step_seed = seed + i + 1 if sample_new_noise else seed
+        opt.zero_grad()
+        loss = loss_fn(render_fn(insert_params(init_scene, params),
+                                 step_seed))
+        loss.backward()
+        for path, mask in masks.items():
+            params[path].grad.mul_(mask)
+        opt.step()
+        losses.append(float(loss.detach()))
+        if callback is not None:
+            callback(i, losses[-1], insert_params(
+                init_scene, {p: v.detach() for p, v in params.items()}))
+    return (insert_params(init_scene,
+                          {p: v.detach() for p, v in params.items()}),
+            losses)

@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from .._fp import fma
+from .._fp import dot3, fma
 from ..rng import in_unit_disk_from_uniforms
 from .geometry import tensors_to
 
@@ -49,13 +49,13 @@ class Camera:
 
 
 def _cross(a, b):
-    return torch.stack([a[1] * b[2] - a[2] * b[1],
-                        a[2] * b[0] - a[0] * b[2],
-                        a[0] * b[1] - a[1] * b[0]])
+    return torch.stack([fma(a[1], b[2], -(a[2] * b[1])),
+                        fma(a[2], b[0], -(a[0] * b[2])),
+                        fma(a[0], b[1], -(a[1] * b[0]))])
 
 
 def _unit(v):
-    return v / torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    return v / torch.sqrt(dot3(v, v))
 
 
 def camera_frame(cam: Camera) -> dict:
@@ -74,8 +74,8 @@ def camera_frame(cam: Camera) -> dict:
 
     horizontal = u * viewport_w                 # cl_camera.cpp:20-21
     vertical = v * viewport_h
-    lower_left = (cam.look_from - horizontal / 2.0 - vertical / 2.0
-                  - w * cam.focus_dist)         # cl_camera.cpp:24
+    lower_left = fma(-w, cam.focus_dist,        # cl_camera.cpp:24
+                     cam.look_from - horizontal / 2.0 - vertical / 2.0)
     defocus_radius = cam.focus_dist * torch.tan(aperture / 2.0)  # :27
     return dict(
         origin=cam.look_from,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .._fp import clip01
 from ..rng import BOUNCE_BASE, BOUNCE_STRIDE, uniform4
 from ..scene import sky_colour
 from .intersect import closest_hit
@@ -32,9 +33,13 @@ def bounce_uniforms(seed, pixel_ids, sample_id, depth):
     return torch.stack(a + b, dim=-1)
 
 
-def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3):
+def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3,
+          hit_fn=None):
     """Trace a ray batch to the end of its paths; per-ray radiance (R,3).
-    The loop ends after max_depth bounces or when no ray is alive."""
+    The loop ends after max_depth bounces or when no ray is alive.
+
+    hit_fn(o, d) -> HitInfo replaces ``closest_hit`` (the winner-only
+    differentiable hit of ``diffhit.make_grad_hit_fn``)."""
     r = o.shape[0]
     dev = o.device
     throughput = torch.ones((r, 3), device=dev)
@@ -45,7 +50,8 @@ def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3):
         alive = status == ALIVE
         if not bool(alive.any()):
             break
-        h = closest_hit(scene, o, d, t_min)
+        h = (hit_fn(o, d) if hit_fn is not None
+             else closest_hit(scene, o, d, t_min))
         sc = scatter(d, h.normal, h.front_face, h.albedo, h.fuzz, h.ior,
                      h.mat_type, bounce_uniforms(seed, pixel_ids, sample_id,
                                                  depth))
@@ -73,7 +79,7 @@ def accumulate_sample(acc, colour, nan_policy: str, clamp: bool):
     (R,3).  NaN passes through the clamp, as in the C compares; then
     "running_sum" replaces it with the running-sum channel and "zero" with
     0."""
-    c = torch.clamp(colour, 0.0, 1.0) if clamp else colour
+    c = clip01(colour) if clamp else colour
     if nan_policy == "running_sum":
         c = torch.where(torch.isnan(c), acc, c)
     elif nan_policy == "zero":

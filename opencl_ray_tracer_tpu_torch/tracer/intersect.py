@@ -54,12 +54,18 @@ def hit_spheres(o, d, center, radius, t_min):
     return torch.where(ok0, root0, torch.where(ok1, root1, big))
 
 
-def closest_hit(scene, o, d, t_min) -> HitInfo:
-    """Closest hit over the scene's spheres.  o, d: (R,3)."""
+def _no_triangles(scene):
     if scene.triangles.count > 0:
         raise NotImplementedError(
             "triangle meshes are not ported yet: the mesh slice (slice 3) "
             "ports triangle intersection")
+
+
+def closest_fold(scene, o, d, t_min):
+    """Winner search (the closestSoFar fold, ``gpu_kernel.cl:358-394``):
+    (best_t, kind, idx), each (R,).  kind is 0 for a sphere, the only kind
+    in this slice; best_t == BIG means a miss."""
+    _no_triangles(scene)
     spheres = scene.spheres
     r = o.shape[0]
     if spheres.count > 0:
@@ -70,6 +76,15 @@ def closest_hit(scene, o, d, t_min) -> HitInfo:
     else:
         best_t = torch.full((r,), BIG, dtype=o.dtype, device=o.device)
         idx = torch.zeros((r,), dtype=torch.long, device=o.device)
+    kind = torch.zeros((r,), dtype=torch.int32, device=o.device)
+    return best_t, kind, idx
+
+
+def closest_hit(scene, o, d, t_min) -> HitInfo:
+    """Closest hit over the scene's spheres.  o, d: (R,3)."""
+    spheres = scene.spheres
+    r = o.shape[0]
+    best_t, _, idx = closest_fold(scene, o, d, t_min)
 
     hit = best_t < BIG
     t_safe = torch.where(hit, best_t, torch.ones_like(best_t))

@@ -1,10 +1,16 @@
-"""Full-image rendering.
+"""Full-image rendering and its gradients.
 
 ``render`` runs on the card unless the caller asks for the CPU: on CUDA a
 scene that the sphere megakernel covers goes through it, and any other
 scene raises ``NotImplementedError`` naming the slice of the port that
 will cover it.  With ``device="cpu"`` the plain tracer below renders
 (``render_rows``), the oracle the kernel is held against.
+
+Gradients: ``render_and_grad`` is autograd of the plain per-sample tracer;
+``render_grad_sampled`` is the full-size gradient, through the forward and
+backward kernels on the card ("kernel") or through autograd of the plain
+wavefront tracer in row and sample chunks ("plain", the CPU's route).  On
+the card a kernel that fails to build or launch raises; nothing falls back.
 
 Pixel conventions are the reference kernel's (``gpu_kernel.cl:626-627``):
 u = (col + jitter)/W, v = (row + jitter)/H with row 0 at the image
@@ -14,11 +20,14 @@ u = (col + jitter)/W, v = (row + jitter)/H with row 0 at the image
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._fp import div
 from ..config import RenderConfig
 from ..rng import SLOT_PIXEL_U, uniform4
-from ..scene import Scene, camera_frame, rays_from_frame
+from ..scene import (Scene, camera_frame, float_leaves, gradient_scene,
+                     rays_from_frame, requiring_grad)
+from .diffhit import make_grad_hit_fn
 from .estimator import accumulate_sample, trace
 from .wavefront import render_rows_wavefront
 
@@ -35,10 +44,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
-                seed: int):
+                seed: int, hit_fn=None, remat: bool = False):
     """Plain-tracer render of n_rows rows from row_start on the scene's
     device: (n_rows, W, 3) mean radiance.  The RNG is keyed on global pixel
-    ids, so row blocks compose into the full image exactly."""
+    ids, so row blocks compose into the full image exactly.
+
+    hit_fn(o, d) replaces the closest hit (``diffhit.make_grad_hit_fn``);
+    remat recomputes each sample's bounce loop in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping it, for the per-sample
+    loop (cfg.early_stop False)."""
     width = cfg.width
     n_samples = cfg.spp
     dev = scene.spheres.center.device
@@ -50,16 +64,23 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
 
     if cfg.early_stop:
         acc = render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
-                                    0, n_samples, frame=frame)
+                                    0, n_samples, frame=frame, hit_fn=hit_fn)
     else:
+        def sample_colour(o, d, s):
+            return trace(scene, o, d, pixel_ids, s, seed, cfg.max_depth,
+                         t_min=cfg.t_min, hit_fn=hit_fn)
+
         acc = torch.zeros((n_rows * width, 3), device=dev)
         for s in range(n_samples):
             u0, u1, u2, u3 = uniform4(seed, pixel_ids, s, SLOT_PIXEL_U)
             uu = div(cols.to(torch.float32) + u0, width)
             vv = div(rows.to(torch.float32) + u1, cfg.height)
             o, d = rays_from_frame(frame, uu, vv, u2, u3)
-            colour = trace(scene, o, d, pixel_ids, s, seed, cfg.max_depth,
-                           t_min=cfg.t_min)
+            if remat:
+                colour = checkpoint(sample_colour, o, d, s,
+                                    use_reentrant=False)
+            else:
+                colour = sample_colour(o, d, s)
             acc = accumulate_sample(acc, colour, cfg.nan_policy,
                                     cfg.clamp_samples)
     return div(acc, n_samples).reshape(n_rows, width, 3)
@@ -75,10 +96,120 @@ def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None):
         if reason is not None:
             raise NotImplementedError(reason)
         return render_megakernel(scene.to(device), cfg, seed)
-    scene = scene.to(device)
+    return _render_plain(scene.to(device), cfg, seed)
+
+
+def _render_plain(scene: Scene, cfg: RenderConfig, seed: int):
     chunk = cfg.row_chunk or cfg.height
     if cfg.height % chunk:
         raise ValueError("row_chunk must divide height")
     out = [render_rows(scene, cfg, r0, chunk, seed)
            for r0 in range(0, cfg.height, chunk)]
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)
+
+
+def render_and_grad(scene: Scene, cfg: RenderConfig, loss_fn, seed: int = 0,
+                    fast_hit: bool = True, remat: bool = False, device=None):
+    """Differentiable render: (loss, grads), grads a gradient Scene (float
+    leaves hold gradients, integer leaves are None).  Autograd of the
+    plain per-sample tracer (early_stop is forced off) on ``device`` (None
+    means the card, and raises when there is none).
+
+    fast_hit uses the winner-only differentiable hit (``diffhit``): the
+    same values and gradients as autograd through the whole closest-hit
+    fold, at a backward cost independent of the sphere count.  remat
+    recomputes each sample in the backward pass instead of keeping it."""
+    device = resolve_device(device)
+    dcfg = cfg.replace(early_stop=False)
+    s = requiring_grad(scene.to(device))
+    hit_fn = make_grad_hit_fn(s, dcfg.t_min) if fast_hit else None
+    img = render_rows(s, dcfg, 0, dcfg.height, seed, hit_fn=hit_fn,
+                      remat=remat)
+    loss = loss_fn(img)
+    leaves = float_leaves(s)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return loss.detach(), gradient_scene(s, dict(zip(leaves, grads)))
+
+
+def _default_row_chunk(height: int, width: int, target: int = 2**17) -> int:
+    """The most rows, dividing the height, with at most target rays."""
+    for rows in range(height, 0, -1):
+        if height % rows == 0 and rows * width <= target:
+            return rows
+    return 1
+
+
+def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
+                        seed: int = 0, spp_chunk: int = 25,
+                        row_chunk: int | None = None,
+                        grad_backend: str = "auto", device=None):
+    """Full-size differentiable render: (loss, image, grads), grads a
+    gradient Scene.  ``device`` None means the card, and raises when there
+    is none.
+
+    grad_backend:
+      - "kernel": the forward megakernel renders and the backward
+        megakernel differentiates (``kernels.megagrad.SphereRenderFn``);
+      - "plain": the image comes from the plain tracer, and the gradient
+        from autograd of the plain wavefront tracer with the winner-only
+        hit, one (row chunk x sample chunk) at a time: the mean image is
+        linear in the samples, so the chunks' gradients add up.  Chunks
+        bound the memory at any size; row_chunk None picks the most rows
+        with at most 2**17 rays;
+      - "auto": "kernel" on CUDA, "plain" on the CPU.
+
+    The gradient treats a NaN sample with the order-invariant "zero"
+    policy on every backend; the image keeps cfg.nan_policy.  On CUDA a
+    scene outside the kernels' scope raises ``NotImplementedError`` naming
+    the slice that will cover it, and a kernel failure raises."""
+    device = resolve_device(device)
+    if grad_backend == "auto":
+        grad_backend = "kernel" if device.type == "cuda" else "plain"
+    if grad_backend == "kernel":
+        from ..kernels.megakernel import unsupported_reason
+        reason = unsupported_reason(scene)
+        if reason is not None:
+            raise NotImplementedError(reason)
+    scene = scene.to(device)
+    if grad_backend == "kernel":
+        from ..kernels.megagrad import render_tables_differentiable
+        s = requiring_grad(scene)
+        img = render_tables_differentiable(s, cfg, seed)
+        loss = loss_fn(img)
+        leaves = float_leaves(s)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return (loss.detach(), img.detach(),
+                gradient_scene(scene, dict(zip(leaves, grads))))
+    if grad_backend != "plain":
+        raise ValueError(f"unknown grad_backend: {grad_backend}")
+
+    img = _render_plain(scene, cfg, seed)
+    img_ = img.detach().requires_grad_()
+    loss = loss_fn(img_)
+    (g_img,) = torch.autograd.grad(loss, img_)
+    h, w = cfg.height, cfg.width
+    row_chunk = row_chunk or _default_row_chunk(h, w)
+    gcfg = cfg.replace(nan_policy="zero")
+    total: dict = {}
+    for r0 in range(0, h, row_chunk):
+        n_rows = min(row_chunk, h - r0)
+        rows = torch.arange(r0, r0 + n_rows, device=device)
+        rows = rows[:, None].expand(n_rows, w).reshape(-1)
+        cols = torch.arange(w, device=device).repeat(n_rows)
+        g = div(g_img[r0:r0 + n_rows].reshape(-1, 3), cfg.spp)
+        for s0 in range(0, cfg.spp, spp_chunk):
+            s = requiring_grad(scene)
+            acc = render_rows_wavefront(
+                s, gcfg, rows, cols, rows * w + cols, seed, s0,
+                min(spp_chunk, cfg.spp - s0),
+                hit_fn=make_grad_hit_fn(s, cfg.t_min))
+            leaves = float_leaves(s)
+            grads = torch.autograd.grad((acc * g).sum(),
+                                        list(leaves.values()),
+                                        allow_unused=True)
+            for path, grad in zip(leaves, grads):
+                if grad is not None:
+                    total[path] = total[path] + grad if path in total else grad
+    return loss.detach(), img, gradient_scene(scene, total)

@@ -38,7 +38,7 @@ def reflect(v, n):
 
 def refract(uv, n, etai_over_etat):
     """Vec3Refract (gpu_kernel.cl:214-220)."""
-    cos_theta = torch.clamp(dot3(-uv, n), max=1.0)
+    cos_theta = torch.minimum(dot3(-uv, n), torch.ones_like(uv[..., 0]))
     r_perp = fma(n, cos_theta[..., None], uv) * etai_over_etat[..., None]
     r_par = -n * torch.sqrt(torch.clamp(
         torch.abs(1.0 - dot3(r_perp, r_perp)), min=1e-20))[..., None]
@@ -73,7 +73,7 @@ def scatter(d, normal, front_face, albedo, fuzz, ior, mat_type,
     metal_absorbed = dot3(metal_dir, normal) <= 0.0
 
     ratio = torch.where(front_face, 1.0 / torch.clamp(ior, min=1e-8), ior)
-    cos_theta = torch.clamp(dot3(-unit_d, normal), max=1.0)
+    cos_theta = torch.minimum(dot3(-unit_d, normal), torch.ones_like(ior))
     sin_theta = torch.sqrt(torch.clamp(fma(-cos_theta, cos_theta, 1.0),
                                        min=1e-20))
     cannot_refract = ratio * sin_theta > 1.0

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .._fp import div
+from .._fp import clip01, div
 from ..rng import SLOT_PIXEL_U, uniform4
 from ..scene import camera_frame, rays_from_frame, sky_colour
 from .estimator import bounce_uniforms
@@ -23,14 +23,17 @@ from .scatter import scatter
 
 def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                           sample_offset, n_samples, frame=None,
-                          bounces=None):
+                          bounces=None, hit_fn=None):
     """Radiance sum over n_samples samples per pixel, (R,3); divide by
     n_samples for the mean.  rows/cols/pixel_ids: (R,) int64.
 
     frame: the camera frame (``camera_frame``), taken from scene.camera
     when None.  bounces: an optional int64 tensor of one element to which
     the number of ray bounces traced (the active rays of every iteration)
-    is added.
+    is added.  hit_fn(o, d) -> HitInfo replaces ``closest_hit``.
+
+    The loop is differentiable as it stands: autograd records the
+    iterations that ran, so no fixed trip count is needed.
     """
     if frame is None:
         frame = camera_frame(scene.camera)
@@ -58,7 +61,8 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
             break
         if bounces is not None:
             bounces += active.sum()
-        h = closest_hit(scene, o, d, cfg.t_min)
+        h = (hit_fn(o, d) if hit_fn is not None
+             else closest_hit(scene, o, d, cfg.t_min))
         sc = scatter(d, h.normal, h.front_face, h.albedo, h.fuzz, h.ior,
                      h.mat_type, bounce_uniforms(seed, pixel_ids, sample,
                                                  depth))
@@ -75,7 +79,7 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                         torch.where(emit_now[:, None],
                                     throughput * h.albedo, zero))
         if cfg.clamp_samples:
-            c = torch.clamp(c, 0.0, 1.0)
+            c = clip01(c)
         if cfg.nan_policy == "running_sum":
             c = torch.where(torch.isnan(c), acc, c)
         elif cfg.nan_policy == "zero":

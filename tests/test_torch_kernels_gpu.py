@@ -4,19 +4,31 @@ JAX, so that it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance (tests/test_megakernel.py::_compare): at most 0.5% of pixels
-differ by more than 1e-3, more than 99% agree within 1e-4, and the means
-within 2e-3.  The kernel rounds as the plain version does (see the note in
-csrc/megakernel.cu), so a pixel moves only where cbrtf and pow(x, 1/3),
-or fmaf and the plain version's fma rounded through float64, differ by an
-ulp across a discrete event.
+Forward tolerance (tests/test_megakernel.py::_compare): at most 0.5% of
+pixels differ by more than 1e-3, more than 99% agree within 1e-4, and the
+means within 2e-3.  The kernel rounds as the plain version does (see the
+note in csrc/megakernel.cu), so a pixel moves only where fmaf and the
+plain version's fma rounded through float64 differ by an ulp across a
+discrete event.
+
+Backward tolerance (tests/test_megagrad.py): per scene leaf,
+max|a - b| / max|b| under 5e-3 (reference spheres), 1e-3 (constant sky),
+8e-2 and a cosine above 0.9999 (README: fuzzy-metal chains are
+ill-conditioned in f32), 5e-3 (emissive clamp), 2e-2 (40 random spheres).
+The kernel's per-block sums go through atomics in an order that changes
+from run to run.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 import opencl_ray_tracer_tpu_torch as ot
+from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
 from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
 
 torch.set_num_threads(1)
 
@@ -80,3 +92,107 @@ def test_kernel_pixel_window_and_bounces(cuda):
     torch.cuda.synchronize()
     assert (got - want).abs().max() < 1e-3
     assert abs(kb.item() - pb.item()) <= 0.001 * pb.item() + 2
+
+
+def random_spheres(n: int, seed: int = 42):
+    """n random Lambertian and metal spheres with the reference camera."""
+    rng = np.random.default_rng(seed)
+    base = ot.reference_scene()
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+    return dataclasses.replace(base, spheres=ot.Spheres(
+        center=f32(np.stack([rng.uniform(-3, 3, n), rng.uniform(0.3, 0.8, n),
+                             rng.uniform(-3, 3, n)], 1)),
+        radius=f32(rng.uniform(0.2, 0.45, n)),
+        albedo=f32(rng.uniform(0.1, 0.9, (n, 3))),
+        fuzz=f32(rng.uniform(0.0, 0.3, n)), ior=f32(np.full(n, 1.5)),
+        mat_type=torch.tensor(rng.integers(0, 2, n), dtype=torch.int32)))
+
+
+def _grad_scenes():
+    ref = ot.reference_scene()
+    alb = ref.spheres.albedo.clone()
+    alb[5] = torch.tensor([2.5, 0.9, 2.5])  # the emissive sphere
+    return {
+        "readme": (ot.readme_scene(), 8e-2),
+        "reference_spheres": (ref, 5e-3),
+        "const_sky": (dataclasses.replace(
+            ref, sky=ot.Sky.constant((0.6, 0.7, 0.9))), 1e-3),
+        "emissive_clamp": (dataclasses.replace(
+            ref, spheres=dataclasses.replace(ref.spheres, albedo=alb)), 5e-3),
+        "random_40": (random_spheres(40), 2e-2),
+    }
+
+
+GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
+               "spheres.fuzz", "spheres.ior", "camera.look_from",
+               "camera.look_at", "camera.vfov_deg", "camera.aperture_deg",
+               "camera.focus_dist", "sky.const_colour")
+
+
+def leaf_errors(got, want) -> dict:
+    """max|a - b| / max|b| per leaf (scale floor 1e-6)."""
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    return {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k]).max()), 1e-6) for k in GRAD_LEAVES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_grad_scenes()))
+def test_grad_kernel_matches_plain_on_card(cuda, case):
+    scene, rtol = _grad_scenes()[case]
+    scene = scene.to(cuda)
+    cfg = ot.RenderConfig(width=50, height=30, spp=4, max_depth=6,
+                          nan_policy="zero")
+    img = ot.render(scene, cfg, seed=3)
+    g_img = (2.0 / img.numel()) * img
+    before = mg.LAUNCHES
+    got = mg.render_grad_scene(scene, cfg, g_img, seed=3)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES == before + 1
+    g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
+    gcam, gsph = mg.render_grad_tables_plain(
+        mk.camera_table(scene), mk.sphere_table(scene), scene.spheres.count,
+        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2], 3,
+        cfg.width * cfg.height)
+    want = mg.table_grads_to_scene(scene, gcam, gsph)
+    errs = leaf_errors(got, want)
+    assert max(errs.values()) < rtol, errs
+    if case == "readme":
+        keys = ("spheres.center", "spheres.albedo", "spheres.radius")
+        a, b = scene_to_numpy(got), scene_to_numpy(want)
+        va = np.concatenate([a[k].ravel() for k in keys])
+        vb = np.concatenate([b[k].ravel() for k in keys])
+        assert va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)) > 0.9999
+
+
+@pytest.mark.gpu
+def test_grad_sampled_runs_both_kernels(cuda):
+    cfg = ot.RenderConfig(width=40, height=24, spp=3, max_depth=5)
+    k1, k4 = mk.LAUNCHES, mg.LAUNCHES
+    loss, img, grads = ot.render_grad_sampled(
+        ot.readme_scene(), cfg, lambda im: torch.mean(im ** 2), seed=2)
+    torch.cuda.synchronize()
+    assert (mk.LAUNCHES, mg.LAUNCHES) == (k1 + 1, k4 + 1)
+    assert img.device.type == "cuda" and torch.isfinite(loss)
+    assert torch.isfinite(grads.spheres.center).all()
+    assert grads.spheres.albedo.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_failing_grad_launch_raises(cuda, monkeypatch):
+    class Failing:
+        def sphere_megagrad_threads(self, n_pix):
+            return 128
+
+        def sphere_megagrad_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(mg, "_library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ot.render_grad_sampled(ot.readme_scene(),
+                               ot.RenderConfig(width=8, height=4, spp=1,
+                                               max_depth=2),
+                               lambda im: im.mean())

@@ -51,21 +51,29 @@ def test_golden(name, early_stop):
     assert abs(got.mean() - want.mean()) < 1e-4
 
 
-def test_golden_book_cover():
-    """The book cover under the kernel-parity tolerance of
-    tests/test_megakernel.py::_compare (frac 0.005) instead of the golden
-    one: its ground sphere of radius 1000 makes |oc|^2 - r^2 cancel
-    between numbers near 1e6, where one ulp is 0.06, and XLA's own sin/cos
-    approximations and cube root differ from ATen's by an ulp, so about
-    0.3% of pixels cross a discrete event (a grazing ray re-hitting the
-    ground above t_min) against 0.2% allowed by the golden tolerance."""
+def _check_book_cover(early_stop):
+    """The book cover under the golden tolerance.  Its ground sphere of
+    radius 1000 makes |oc|^2 - r^2 cancel between numbers near 1e6, where
+    one ulp is 0.06, so an ulp anywhere in a ray moves the t_min test of
+    grazing rays.  The camera frame is therefore fused as XLA fuses it
+    (scene/camera.py); what is left (0.09% of values) comes from ATen's
+    sin/cos/pow, which differ from the C library's routines that XLA
+    calls by an ulp."""
     scene_fn, cfg = CASES["cover_64x36"]
     want = _golden("cover_64x36")
-    got = ot.render(scene_fn(), cfg, seed=42, device="cpu").numpy()
+    got = ot.render(scene_fn(), cfg.replace(early_stop=early_stop), seed=42,
+                    device="cpu").numpy()
     diff = np.abs(got - want)
-    assert (diff > 1e-3).mean() < 0.005
-    assert (diff <= 1e-4).mean() > 0.99
+    assert (diff > 1e-4).mean() < 0.002, diff.max()
     assert abs(got.mean() - want.mean()) < 1e-4
+
+
+def test_golden_book_cover():
+    _check_book_cover(early_stop=True)
+
+
+def test_golden_book_cover_sample_loop():
+    _check_book_cover(early_stop=False)
 
 
 def test_row_chunks_equal_whole_image():
@@ -93,6 +101,7 @@ def test_writers_match_jax_bytes(tmp_path):
 def test_port_imports_no_jax():
     code = ("import sys, opencl_ray_tracer_tpu_torch, "
             "opencl_ray_tracer_tpu_torch.kernels.megakernel, "
+            "opencl_ray_tracer_tpu_torch.kernels.megagrad, "
             "opencl_ray_tracer_tpu_torch.io\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'opencl_ray_tracer_tpu' "
