@@ -13,9 +13,11 @@ Phases, each printing JSON lines on standard output:
    on the same tables, at 160x90, 8 spp, depth 8 for the README scene, the
    spheres of the reference scene (all four materials and an aperture), a
    constant sky, the "zero" NaN policy without the clamp, and the book
-   cover; then at the main path's full size.  Tolerance: at most 0.5% of
-   pixels differ by more than 1e-3, more than 99% within 1e-4, means within
-   2e-3.
+   cover; then at the main path's full size, where the kernel as built
+   (cbrtf for the fuzz radius) and its variant with the backward's
+   powf(u, 1/3) are also timed against each other.  Tolerance: at most
+   0.5% of pixels differ by more than 1e-3, more than 99% within 1e-4,
+   means within 2e-3.
 4. forward main path: ``render(readme_scene(16/9), RenderConfig(1280, 720,
    spp=250, max_depth=50))`` and the 100-sphere book cover at the same
    configuration, one warm-up and the minimum of 3 timed runs each, with
@@ -33,10 +35,13 @@ Phases, each printing JSON lines on standard output:
    book cover at the main path's configuration with loss mean(img^2), one
    warm-up and the minimum of 3, counts set to 0 just before and read just
    after; then the backward kernel alone by CUDA events, and the plain
-   gradient against it at 320x180, 16 spp, depth 50 (the plain gradient at
-   the full size takes too long to run here).
+   gradient against it at depth 50 on 320x180 at 16 spp (one pixel per
+   kernel thread) and on the main path's 1280x720 at 2 spp (more pixels
+   than the kernel's resident threads, so each thread strides over
+   several; the plain gradient at 250 spp would take hours).
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
-   main path's configuration; the loss must fall.
+   main path's configuration, after one throwaway Adam step that takes
+   torch's one-time optimizer set-up; the loss must fall.
 8. the kernels line and the result line.
 
 Any failure ends the run with a nonzero exit and no result line.  The
@@ -58,16 +63,26 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# One ray-sphere test: the half-b quadratic (two fma-chain dot products,
-# the discriminant, a sqrt, two divides and the root selection) is about
-# 25 FP32 operations.
-FLOPS_PER_SPHERE_TEST = 25
-# The backward's reverse walk: FP32 operations of one bounce in
-# csrc/megagrad.cu::bounce_adjoint (the forward recompute of the winner's
-# hit and the adjoint of a metal bounce, counted from the code).
-FLOPS_PER_REVERSE_BOUNCE = 200
+# FP32 operations counted from the code, an add, multiply, divide, square
+# root, min or max as 1 and an fma as 2 (compares, selects and sign flips
+# not counted), so that the bounds below are least times.
+# One ray-sphere test (csrc/common.cuh::closest_sphere): oc 3, half_b 5,
+# c 6, the discriminant 3 = 17 for every test; a test that hits adds 4 to 6
+# (the root), which is not counted.
+FLOPS_PER_SPHERE_TEST = 17
+# One bounce walked back (csrc/megagrad.cu::bounce_adjoint), the cheapest
+# kind, a Lambertian one: the recompute of the winner's hit 43, the
+# throughput 9, the normal 18, the hit point 11, the root 13 + 33, the
+# sphere cotangents 5 = 132.  A fuzzy-metal bounce adds 72 (reflect, the
+# unit direction, the fuzz draw), a dielectric one more; not counted.
+FLOPS_PER_REVERSE_BOUNCE = 132
 TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
-KERNELS = ("megakernel", "megagrad")
+# Libraries built at the start: label -> (source, macros).  The last is a
+# measurement variant, not on any path: the forward kernel with the
+# backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh).
+KERNELS = {"megakernel": ("megakernel", ()),
+           "megagrad": ("megagrad", ()),
+           "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",))}
 GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
                "spheres.fuzz", "spheres.ior", "camera.look_from",
                "camera.look_at", "camera.vfov_deg", "camera.aperture_deg",
@@ -129,18 +144,43 @@ def build_all():
     seconds, the compiler's register and spill lines)."""
     from opencl_ray_tracer_tpu_torch.kernels import _build
 
-    def one(name):
+    def one(label):
         t0 = time.perf_counter()
-        lib = _build.build(name)
+        lib = _build.build(*KERNELS[label])
         secs = time.perf_counter() - t0
         log = lib.with_suffix(".log")
         ptxas = ([ln.strip() for ln in log.read_text().splitlines()
                   if "registers" in ln or "spill" in ln]
                  if log.exists() else [])
-        return name, (lib, secs, ptxas)
+        return label, (lib, secs, ptxas)
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         return dict(pool.map(one, KERNELS))
+
+
+def cube_root_variants(launch, plain_img, reps: int = 5) -> dict:
+    """The forward kernel as built (cbrtf for the fuzz radius) and its
+    variant with the backward's powf(u, 1/3), launched alternately: each
+    one's minimum of reps CUDA-event times and its agreement with the plain
+    version's image."""
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    built = mk._library
+    src, defines = KERNELS["megakernel_powf"]
+    libs = {"cbrtf": built(), "powf": _build.load(src, mk._SYMBOLS, defines)}
+    out = {k: {"ms": float("inf")} for k in libs}
+    try:
+        for _ in range(reps):
+            for k, lib in libs.items():
+                mk._library = lambda lib=lib: lib
+                out[k]["ms"] = min(out[k]["ms"], kernel_ms(launch, reps=1))
+        for k, lib in libs.items():
+            mk._library = lambda lib=lib: lib
+            img = torch.stack(launch(), -1).reshape(plain_img.shape)
+            out[k].update(compare(img, plain_img))
+    finally:
+        mk._library = built
+    return out
 
 
 def random_spheres(base, n: int, seed: int = 42):
@@ -290,6 +330,9 @@ def main() -> None:
             stats = compare(img, p)
             check_close("readme at 1280x720x250/d50", stats)
             entry.update(plain_ms=1e3 * t_plain, **stats)
+            emit({"phase": "fuzz_cube_root", "case": name,
+                  "size": "1280x720x250/d50",
+                  **cube_root_variants(launch, p)})
             del p
         full[name] = entry
         emit({"phase": "full_size_kernel", "case": name,
@@ -471,27 +514,61 @@ def main() -> None:
         emit({"phase": "grad_full_size_kernel", "case": name,
               "size": "1280x720x250/d50", **grad_full[name]})
 
-    # ---- 6c. plain gradient against the kernel, README, 320x180x16/d50 ----
-    mid = ot.RenderConfig(width=320, height=180, spp=16, max_depth=50,
-                          nan_policy="zero")
-    k, p, kc, pc, t_plain, scene, launch = grad_pair(readme, mid, seed=0)
-    rel, absd, cos = leaf_errors(mg.table_grads_to_scene(scene, *k),
-                                 mg.table_grads_to_scene(scene, *p))
-    mid_ms = kernel_ms(launch)
-    emit({"phase": "grad_plain_vs_kernel", "case": "readme",
-          "size": "320x180x16/d50", "rel_err": rel,
-          "max_rel_err": max(rel.values()), "max_abs_err": absd,
-          "cosine": cos, "plain_ms": 1e3 * t_plain, "kernel_ms": mid_ms,
-          "kernel_replay_bounces": kc[0], "plain_bounces": pc[0]})
-    if max(rel.values()) >= 8e-2 or cos <= 0.9999:
-        fail(f"grad readme at 320x180x16/d50: kernel and plain disagree: "
-             f"{rel}, cosine {cos}")
+    # ---- 6c. plain gradient against the kernel, README, at depth 50 ----
+    # 320x180 at 16 spp: fewer pixels than the kernel's resident threads,
+    # one pixel per thread; 1280x720, the main path's grid, at 2 spp (the
+    # plain version at 250 spp would take hours): more pixels than resident
+    # threads, so each thread strides over several pixels, reusing its
+    # record column and carrying its camera cotangents from one to the next
+    lib = mg._library()
+    grad_check = {}
+    for size, cfg in (("320x180x16/d50", ot.RenderConfig(
+            width=320, height=180, spp=16, max_depth=50, nan_policy="zero")),
+                      ("1280x720x2/d50", bench.replace(spp=2,
+                                                       nan_policy="zero"))):
+        n_px = cfg.width * cfg.height
+        threads = lib.sphere_megagrad_threads(n_px)
+        k, p, kc, pc, t_plain, scene, launch = grad_pair(readme, cfg, seed=0)
+        rel, absd, cos = leaf_errors(mg.table_grads_to_scene(scene, *k),
+                                     mg.table_grads_to_scene(scene, *p))
+        k_ms = kernel_ms(launch)
+        # the kernel sums the camera cotangents in a fixed order
+        if not torch.equal(launch()[0], k[0]):
+            fail(f"grad readme at {size}: the camera cotangents differ "
+                 "between two launches")
+        grad_check[size] = dict(rel=rel, absd=absd, plain_ms=1e3 * t_plain,
+                                kernel_ms=k_ms,
+                                pixels_per_thread=n_px / threads)
+        emit({"phase": "grad_plain_vs_kernel", "case": "readme",
+              "size": size, "n_pix": n_px, "kernel_threads": threads,
+              "pixels_per_thread": n_px / threads, "rel_err": rel,
+              "max_rel_err": max(rel.values()), "max_abs_err": absd,
+              "cosine": cos, "plain_ms": 1e3 * t_plain, "kernel_ms": k_ms,
+              "kernel_replay_bounces": kc[0], "plain_bounces": pc[0]})
+        if max(rel.values()) >= 8e-2 or cos <= 0.9999:
+            fail(f"grad readme at {size}: kernel and plain disagree: "
+                 f"{rel}, cosine {cos}")
+        del k, p
+    full_check = grad_check["1280x720x2/d50"]
+    if not full_check["pixels_per_thread"] > 1:
+        fail("the full-size gradient check left the kernel's pixel stride "
+             "untested")
 
     # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
     true = ot.readme_scene(16 / 9)
     target = ot.render(true, bench, seed=0)
     init = dataclasses.replace(true, spheres=dataclasses.replace(
         true.spheres, albedo=true.spheres.albedo + 0.1))
+    # the process's first Adam step pays for torch's one-time optimizer
+    # set-up; take it on a throwaway parameter so that it stays out of the
+    # fit's first step
+    t0 = time.perf_counter()
+    w = torch.zeros(3, device=dev, requires_grad=True)
+    adam = torch.optim.Adam([w])
+    w.sum().backward()
+    adam.step()
+    torch.cuda.synchronize()
+    adam_first_step_s = time.perf_counter() - t0
     stamps = [time.perf_counter()]
 
     def on_step(i, loss, scene):
@@ -506,6 +583,7 @@ def main() -> None:
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     emit({"phase": "fit", "size": "1280x720x250/d50", "losses": losses,
           "seconds_per_step": step_s,
+          "first_adam_step_of_the_process_s": adam_first_step_s,
           "launches": {"sphere_megakernel": mk.LAUNCHES,
                        "sphere_megagrad": mg.LAUNCHES}})
     if not losses[-1] < losses[0] or mg.LAUNCHES < 5:
@@ -539,12 +617,13 @@ def main() -> None:
         "replaces": "opencl_ray_tracer_tpu/kernels/megagrad.py:187 "
                     "_make_grad_kernel (sphere variant)",
         "launches": grad_launches["sphere_megagrad"],
-        "max_abs_err": absd,
-        "max_rel_err": max(rel.values()),
+        "max_abs_err": full_check["absd"],
+        "max_rel_err": max(full_check["rel"].values()),
         "parity_max_rel_err": max(grad_parity.values()),
         "ms": gr["kernel_ms"],
-        "plain_ms": 1e3 * t_plain,
-        "plain_size": "320x180x16/d50 (kernel there: %.3f ms)" % mid_ms,
+        "plain_ms": full_check["plain_ms"],
+        "plain_size": "1280x720x2/d50 (kernel there: %.3f ms)"
+                      % full_check["kernel_ms"],
         "bound_ms": gr["bound_ms"],
         "bound_by": ("operations" if gr["flops"] / PEAK_FP32_FLOPS
                      >= gr["bytes"] / PEAK_HBM_BYTES else "bytes"),

@@ -35,20 +35,21 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` if it is not built yet; the library's
-    path."""
+def build(name: str, defines: tuple = ()) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` if it is not built yet, with each macro
+    of ``defines`` defined (a variant); the library's path."""
     src = CSRC / f"{name}.cu"
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
@@ -57,14 +58,16 @@ def build(name: str) -> pathlib.Path:
     return lib
 
 
-def load(name: str, symbols: dict) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built if needed, with each
-    function of ``symbols`` (name -> (argtypes, restype)) declared."""
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build(name)))
+def load(name: str, symbols: dict, defines: tuple = ()) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` (with ``defines``, as ``build``),
+    built if needed, with each function of ``symbols`` (name -> (argtypes,
+    restype)) declared."""
+    key = (name, *defines)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(name, defines)))
         for fn_name, (argtypes, restype) in symbols.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _LIBS[name] = lib
-    return _LIBS[name]
+        _LIBS[key] = lib
+    return _LIBS[key]

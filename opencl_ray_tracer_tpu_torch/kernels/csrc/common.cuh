@@ -5,14 +5,19 @@
 // (winner, root, front face, absorb, reflect or refract) bit for bit.
 //
 // The arithmetic follows the plain PyTorch tracer op for op: divisions where
-// it divides, IEEE sqrtf, sinf and cosf, the fuzz radius as
-// powf(u, 1/3) (ATen's pow on the card, bit for bit, and the JAX package's
-// cube root on the CPU), and fmaf exactly where the plain tracer fuses a
-// multiply-add (see _fp.py).  The libraries are built with --fmad=false so
-// that nvcc fuses nothing else.  cbrtf would be 1.6 ms faster on the README
-// scene, but it differs from powf(u, 1/3) in 21% of the draws, and chains
-// of fuzzy-metal bounces amplify that ulp: at depth 50 the gradients of the
-// sphere centres then moved by 22% against the plain version.
+// it divides, IEEE sqrtf, sinf and cosf, and fmaf exactly where the plain
+// tracer fuses a multiply-add (see _fp.py).  The libraries are built with
+// --fmad=false so that nvcc fuses nothing else.
+//
+// The one exception is the fuzz radius u^(1/3) (fuzz_radius below).  The
+// forward kernel takes cbrtf, the faster.  The backward defines
+// ORT_FUZZ_POWF and takes powf(u, 1/3), which equals ATen's pow(u, 1/3) on
+// the card bit for bit; cbrtf differs from it by an ulp in 21% of the
+// draws, and chains of fuzzy-metal bounces amplify that ulp until, at depth
+// 50, the gradients of the sphere centres move by 22% against the plain
+// version.  So the backward replays the plain version's paths, and where
+// cbrtf and powf differ its replay may leave the forward's path; the image
+// cotangent it is given is the forward's.
 
 #pragma once
 
@@ -83,6 +88,15 @@ __device__ __forceinline__ void uniform4(uint32_t seed, uint32_t pix,
 
 __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return fmaf(a[2], b[2], fmaf(a[1], b[1], a[0] * b[0]));
+}
+
+// The radius of a fuzz draw in the unit ball, u^(1/3) (see the note above).
+__device__ __forceinline__ float fuzz_radius(float u) {
+#ifdef ORT_FUZZ_POWF
+  return powf(u, 1.f / 3.f);
+#else
+  return cbrtf(u);
+#endif
 }
 
 // Clamp to [0, 1] that lets NaN through, as the reference's compares do.
@@ -227,7 +241,7 @@ __device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
         const float zs = 2.f * ua[2] - 1.f;
         const float phs = kTwoPi * ua[3];
         const float rs = sqrtf(fmaxf(0.f, fmaf(-zs, zs, 1.f)));
-        const float rad = powf(ub[0], 1.f / 3.f);
+        const float rad = fuzz_radius(ub[0]);
         const float fz = sph[F_FUZZ * stride + bi];
         s.dir[0] = fmaf((rs * cosf(phs)) * rad, fz, ref[0]);
         s.dir[1] = fmaf((rs * sinf(phs)) * rad, fz, ref[1]);

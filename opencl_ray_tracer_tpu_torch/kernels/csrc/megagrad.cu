@@ -20,10 +20,11 @@
 //
 // Design, per pixel and sample:
 // 1. Forward replay with the forward kernel's own device code (common.cuh),
-//    so every discrete decision is the forward's.  Each bounce that goes on
-//    stores its state (origin, direction, throughput, winner) in a global
-//    scratch buffer, one column per thread of the grid, so neighbouring
-//    threads write neighbouring words.
+//    so every discrete decision is the forward's, but for the fuzz radius,
+//    which follows the plain version (see common.cuh).  Each bounce that
+//    goes on stores its state (origin, direction, throughput, winner) in a
+//    global scratch buffer, one column per thread of the grid, so
+//    neighbouring threads write neighbouring words.
 // 2. A sample that ends black (absorbed, or out of depth) contributes
 //    nothing and is skipped.  A miss or an emissive hit seeds the adjoint of
 //    the throughput (and of the direction, through the gradient sky).
@@ -32,21 +33,28 @@
 //    applied; at depth 0 the adjoint goes into the camera slots through
 //    the camera ray.
 // 4. Sphere cotangents are summed in shared memory per block (shared-memory
-//    atomics), camera cotangents in registers per thread; both are flushed
-//    with one global atomicAdd per entry and block.  The order of the float
-//    sums therefore varies from run to run.
+//    atomics) and flushed with one global atomicAdd per entry and block, so
+//    the order of their float sums varies from run to run.  Camera
+//    cotangents are summed in registers per thread, then over the warp and
+//    the block in a fixed order, and each block writes its row of sums
+//    (cam_part), which the wrapper adds up: they come out the same in every
+//    run.  That matters where they cancel: a pinhole camera's focus-distance
+//    gradient is exactly zero, and what is left of it is rounding.
 //
 // What bounds it: FP32 work, as the forward: the replay tests every sphere
-// at every bounce (about 25 FLOPs a test), and the reverse costs about 250
-// FLOPs a bounce.  Device memory carries the tables, the cotangent planes
-// and the records (40 bytes a bounce, written once and read once, mostly
-// from L2).  Left for later work: warp divergence from uneven path lengths
+// at every bounce (17 FLOPs a test, 4 to 6 more for a hit), and the
+// reverse costs 132 FLOPs for a Lambertian bounce and 204 for a
+// fuzzy-metal one (counted operation by operation in chip_smoke.py).
+// Device memory carries the tables, the cotangent planes and the records
+// (40 bytes a bounce, written once and read once, mostly from L2).  Left for later work: warp divergence from uneven path lengths
 // (one thread walks a long path while its warp waits), and shared-memory
 // atomics that serialize when the lanes of a warp hit the same sphere.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// the fuzz radius as the plain version computes it (see common.cuh)
+#define ORT_FUZZ_POWF
 #include "common.cuh"
 
 namespace {
@@ -77,7 +85,7 @@ struct Params {
   const float* g_r;
   const float* g_g;
   const float* g_b;
-  float* gcam;
+  float* cam_part;
   float* gsph;
   float* rec;
   unsigned long long* counts;
@@ -176,7 +184,7 @@ __device__ __forceinline__ void bounce_adjoint(
       const float zs = 2.f * ua[2] - 1.f;
       const float phs = kTwoPi * ua[3];
       const float rs = sqrtf(fmaxf(0.f, fmaf(-zs, zs, 1.f)));
-      const float rad = powf(ub[0], 1.f / 3.f);
+      const float rad = fuzz_radius(ub[0]);
       const float ball[3] = {(rs * cosf(phs)) * rad, (rs * sinf(phs)) * rad,
                              zs * rad};
       ACC(G_FUZZ, dot3(gd, ball));
@@ -291,16 +299,14 @@ sphere_megagrad(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_acc[kGradRows * kMaxSpheres];
   __shared__ float s_cam[kCamSlots];
-  __shared__ float s_gcam[kCamSlots];
+  __shared__ float s_gcam[kThreads / 32][kCamSlots];
   const int n = p.n_spheres;
   for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
     s_sph[(k / n) * kMaxSpheres + k % n] = p.sph[(k / n) * p.tab_w + k % n];
   for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
     s_acc[(k / n) * kMaxSpheres + k % n] = 0.f;
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x)
     s_cam[k] = p.cam[k];
-    s_gcam[k] = 0.f;
-  }
   __syncthreads();
 
   const int flags = p.flags;
@@ -441,7 +447,7 @@ sphere_megagrad(const Params p) {
     float v = gcam[k];
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
-    if ((threadIdx.x & 31) == 0 && v != 0.f) atomicAdd(&s_gcam[k], v);
+    if ((threadIdx.x & 31) == 0) s_gcam[threadIdx.x / 32][k] = v;
   }
   if (p.counts != nullptr) {
     const unsigned int w0 = __reduce_add_sync(0xffffffffu, n_replay);
@@ -456,8 +462,11 @@ sphere_megagrad(const Params p) {
     const float v = s_acc[(k / n) * kMaxSpheres + k % n];
     if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
   }
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x)
-    if (s_gcam[k] != 0.f) atomicAdd(&p.gcam[k], s_gcam[k]);
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) v += s_gcam[w][k];
+    p.cam_part[blockIdx.x * kCamSlots + k] = v;
+  }
 }
 
 }  // namespace
@@ -480,13 +489,14 @@ extern "C" int sphere_megagrad_threads(int n_pix) {
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
-// when the launch was refused.  g_*: (n_pix,) cotangent planes; gcam (128)
-// and gsph (16 x tab_w) are added to; rec: n_threads * max_depth * 10
-// floats of scratch; counts, when not null, receives the bounces replayed
-// and the bounces walked back.
+// when the launch was refused.  g_*: (n_pix,) cotangent planes; cam_part
+// (n_threads / 128 x 22) receives each block's camera cotangents (left as
+// it is when n_pix or n_samples is 0); gsph (16 x tab_w) is added to; rec:
+// n_threads * max_depth * 10 floats of scratch; counts, when not null,
+// receives the bounces replayed and the bounces walked back.
 extern "C" int sphere_megagrad_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
-    const float* g_r, const float* g_g, const float* g_b, float* gcam,
+    const float* g_r, const float* g_g, const float* g_b, float* cam_part,
     float* gsph, float* rec, int n_threads, unsigned long long* counts,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
@@ -502,7 +512,7 @@ extern "C" int sphere_megagrad_launch(
   p.g_r = g_r;
   p.g_g = g_g;
   p.g_b = g_b;
-  p.gcam = gcam;
+  p.cam_part = cam_part;
   p.gsph = gsph;
   p.rec = rec;
   p.counts = counts;

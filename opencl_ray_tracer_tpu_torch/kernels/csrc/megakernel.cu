@@ -6,7 +6,7 @@
 // tiles held in VMEM.
 //
 // What bounds it: FP32 ALU work.  Every bounce of every path tests every
-// sphere: about 25 FLOPs and one sqrtf per test, so the work is
+// sphere: 17 FLOPs per test, 4 to 6 more for a hit, so the work is
 // pixels x spp x mean bounces per sample x n_spheres tests, plus a scatter
 // (sinf, cosf, sqrtf, a pcg4d hash pair) per bounce.  The only traffic to
 // device memory is the tables, read once per block, and three floats
@@ -24,17 +24,17 @@
 //
 // The arithmetic follows the plain PyTorch tracer op for op: divisions
 // where it divides, a division by sqrtf(a) rather than rsqrtf, IEEE sqrtf,
-// sinf and cosf, powf(u, 1/3) for the fuzz radius, and fmaf exactly where
-// the plain tracer fuses a multiply-add (dot products as fma chains, the
-// discriminant, the hit point, the camera ray, reflect and refract; see
-// _fp.py and common.cuh, which holds the device code shared with the
-// backward kernel).  The library is built with --fmad=false so that nvcc
-// fuses nothing else.  On the card the kernel and the plain version then
-// round alike, apart from the plain version's fma, which rounds through
-// float64.  This matters because the large ground spheres make
-// |oc|^2 - r^2 cancel: a one-ulp difference anywhere moves the
-// self-intersection test of grazing rays near t_min and so flips whole
-// samples.
+// sinf and cosf, and fmaf exactly where the plain tracer fuses a
+// multiply-add (dot products as fma chains, the discriminant, the hit
+// point, the camera ray, reflect and refract; see _fp.py and common.cuh,
+// which holds the device code shared with the backward kernel).  The
+// library is built with --fmad=false so that nvcc fuses nothing else.  On
+// the card the kernel and the plain version then round alike, apart from
+// cbrtf against the plain version's pow(u, 1/3) for the fuzz radius and
+// the plain version's fma, which rounds through float64.  This matters
+// because the large ground spheres make |oc|^2 - r^2 cancel: a one-ulp
+// difference anywhere moves the self-intersection test of grazing rays
+// near t_min and so flips whole samples.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -39,6 +39,7 @@ from .megakernel import (F_ALB, F_ALG, F_ALR, F_CX, F_CY, F_CZ, F_FUZZ,
                          C_LZ, C_OX, C_OY, C_OZ, C_SKY0, C_SKY1, C_SKY2,
                          C_VX, C_VY, C_VZ, LANES, N_FIELDS,
                          _flag_bits, camera_table, render_spheres,
+                         render_spheres_plain,
                          scene_from_tables, specialize_flags, sphere_table,
                          unsupported_reason)
 from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
@@ -53,8 +54,11 @@ DIFF_FIELDS = (F_CX, F_CY, F_CZ, F_R2, F_INVR, F_ALR, F_ALG, F_ALB,
 CAM_SLOTS = (C_OX, C_OY, C_OZ, C_HX, C_HY, C_HZ, C_VX, C_VY, C_VZ,
              C_LX, C_LY, C_LZ, C_DUX, C_DUY, C_DUZ, C_DVX, C_DVY, C_DVZ,
              C_SKY0, C_SKY1, C_SKY2)
-# Floats the kernel records per bounce that goes on.
+# Floats the kernel records per bounce that goes on; threads per block;
+# camera-table slots the kernel reads (C_OX .. C_SKY2).
 _REC = 10
+_THREADS = 128
+_CAM_USED = C_SKY2 + 1
 # Pixels and samples per autograd call of the plain version.
 _PLAIN_PIX_CHUNK = 2**17
 _PLAIN_SPP_CHUNK = 25
@@ -153,7 +157,6 @@ def render_grad_tables(cam, sph, n_spheres: int, cfg: RenderConfig,
         raise ValueError(f"no kernel for device {cam.device}")
     bits = _flag_bits(cfg, sky_kind, flags)
     lib = _library()
-    gcam = torch.zeros_like(cam)
     gsph = torch.zeros_like(sph)
     with torch.cuda.device(cam.device):
         n_threads = lib.sphere_megagrad_threads(max(n_pix, 1))
@@ -161,11 +164,15 @@ def render_grad_tables(cam, sph, n_spheres: int, cfg: RenderConfig,
             raise RuntimeError("sphere megagrad: occupancy query failed")
         rec = torch.empty(n_threads * cfg.max_depth * _REC,
                           dtype=torch.float32, device=cam.device)
+        # one row of camera cotangents per block, added up below in a fixed
+        # order (the kernel's note, step 4)
+        cam_part = torch.zeros((n_threads // _THREADS, _CAM_USED),
+                               dtype=torch.float32, device=cam.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sphere_megagrad_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
-            g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(), gcam.data_ptr(),
-            gsph.data_ptr(), rec.data_ptr(), n_threads,
+            g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
+            cam_part.data_ptr(), gsph.data_ptr(), rec.data_ptr(), n_threads,
             counts.data_ptr() if counts is not None else None, n_pix,
             pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
             n_samples, cfg.width, cfg.height, cfg.max_depth, cfg.t_min,
@@ -173,6 +180,8 @@ def render_grad_tables(cam, sph, n_spheres: int, cfg: RenderConfig,
     if rc != 0:
         raise RuntimeError(f"sphere megagrad launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    gcam = torch.zeros_like(cam)
+    gcam[0, :_CAM_USED] = cam_part.sum(dim=0)
     return gcam, gsph
 
 
@@ -180,21 +189,21 @@ def render_grad_tables_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
                              sky_kind: int, flags, g_r, g_g, g_b, seed: int,
                              n_pix: int, pix_offset: int = 0,
                              sample_base: int = 0,
-                             n_samples: int | None = None, counts=None):
+                             n_samples: int | None = None, counts=None,
+                             pix_chunk: int = _PLAIN_PIX_CHUNK,
+                             spp_chunk: int = _PLAIN_SPP_CHUNK):
     """The plain PyTorch version of ``render_grad_tables``, on the tables'
     device: autograd of the plain wavefront tracer with the winner-only
-    hit, over chunks of at most _PLAIN_PIX_CHUNK pixels and
-    _PLAIN_SPP_CHUNK samples, which bound its memory (the sum is linear in
-    the samples under the "zero" policy).  counts[0]
-    receives the bounces traced; counts[1] stays 0.  ``flags`` only prune
-    the kernel's code."""
+    hit, over chunks of at most pix_chunk pixels and spp_chunk samples,
+    which bound its memory (the sum is linear in the samples under the
+    "zero" policy).  counts[0] receives the bounces traced; counts[1] stays
+    0.  ``flags`` only prune the kernel's code."""
     n_samples = cfg.spp if n_samples is None else n_samples
     gcfg = cfg.replace(nan_policy="zero")
     g = torch.stack([g_r, g_g, g_b], dim=-1)
     gcam = torch.zeros_like(cam)
     gsph = torch.zeros_like(sph)
     bounces = counts[:1] if counts is not None else None
-    pix_chunk, spp_chunk = _PLAIN_PIX_CHUNK, _PLAIN_SPP_CHUNK
     for p0 in range(0, n_pix, pix_chunk):
         m = min(pix_chunk, n_pix - p0)
         lin = torch.arange(pix_offset + p0, pix_offset + p0 + m,
@@ -262,36 +271,50 @@ class SphereRenderFn(torch.autograd.Function):
     backward kernel).  The forward keeps ``cfg.nan_policy``; the backward
     differentiates the "zero" policy (see the module docstring).
 
-    apply(cam, sph, n_spheres, cfg, sky_kind, flags, seed)."""
+    apply(cam, sph, n_spheres, cfg, sky_kind, flags, seed, plain_chunks):
+    plain_chunks None takes the wrappers, which launch the kernels for CUDA
+    tensors and run the plain versions for CPU tensors; a pair (pix_chunk,
+    spp_chunk) takes the plain versions on any device, the backward in
+    chunks of that many pixels and samples."""
 
     @staticmethod
-    def forward(ctx, cam, sph, n_spheres, cfg, sky_kind, flags, seed):
-        r, g, b = render_spheres(cam.detach(), sph.detach(), n_spheres, cfg,
-                                 sky_kind, flags, seed,
-                                 cfg.width * cfg.height)
+    def forward(ctx, cam, sph, n_spheres, cfg, sky_kind, flags, seed,
+                plain_chunks=None):
+        fwd = render_spheres if plain_chunks is None else render_spheres_plain
+        r, g, b = fwd(cam.detach(), sph.detach(), n_spheres, cfg, sky_kind,
+                      flags, seed, cfg.width * cfg.height)
         ctx.save_for_backward(cam, sph)
-        ctx.args = (n_spheres, cfg, sky_kind, flags, seed)
+        ctx.args = (n_spheres, cfg, sky_kind, flags, seed, plain_chunks)
         return torch.stack([r, g, b], dim=-1).reshape(cfg.height, cfg.width,
                                                       3)
 
     @staticmethod
     def backward(ctx, g_img):
         cam, sph = ctx.saved_tensors
-        n_spheres, cfg, sky_kind, flags, seed = ctx.args
-        gcam, gsph = render_grad_tables(
-            cam.detach(), sph.detach(), n_spheres, cfg, sky_kind, flags,
-            *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
-        return gcam, gsph, None, None, None, None, None
+        n_spheres, cfg, sky_kind, flags, seed, plain_chunks = ctx.args
+        args = (cam.detach(), sph.detach(), n_spheres, cfg, sky_kind, flags,
+                *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
+        if plain_chunks is None:
+            gcam, gsph = render_grad_tables(*args)
+        else:
+            gcam, gsph = render_grad_tables_plain(
+                *args, pix_chunk=plain_chunks[0], spp_chunk=plain_chunks[1])
+        return gcam, gsph, None, None, None, None, None, None
 
 
 def render_tables_differentiable(scene: Scene, cfg: RenderConfig,
-                                 seed: int = 0, flags=None):
+                                 seed: int = 0, flags=None,
+                                 plain_chunks=None):
     """(H, W, 3) image of ``scene`` through ``SphereRenderFn``: autograd
-    reaches the scene's leaves through the table builders."""
-    reason = unsupported_reason(scene)
+    reaches the scene's leaves through the table builders.  The kernels
+    take up to 128 spheres (the forward's limit), the plain versions
+    (``plain_chunks`` given) up to GRAD_MAX_SPHERES."""
+    reason = (unsupported_reason(scene) if plain_chunks is None
+              else unsupported_grad_reason(scene))
     if reason is not None:
         raise NotImplementedError(reason)
     return SphereRenderFn.apply(
         camera_table(scene), sphere_table(scene), scene.spheres.count, cfg,
         scene.sky.kind,
-        flags if flags is not None else specialize_flags(scene), seed)
+        flags if flags is not None else specialize_flags(scene), seed,
+        plain_chunks)

@@ -8,9 +8,10 @@ will cover it.  With ``device="cpu"`` the plain tracer below renders
 
 Gradients: ``render_and_grad`` is autograd of the plain per-sample tracer;
 ``render_grad_sampled`` is the full-size gradient, through the forward and
-backward kernels on the card ("kernel") or through autograd of the plain
-wavefront tracer in row and sample chunks ("plain", the CPU's route).  On
-the card a kernel that fails to build or launch raises; nothing falls back.
+backward kernels on the card ("kernel") or through their plain versions,
+autograd of the plain wavefront tracer in pixel and sample chunks ("plain",
+the CPU's route).  On the card a kernel that fails to build or launch
+raises; nothing falls back.
 
 Pixel conventions are the reference kernel's (``gpu_kernel.cl:626-627``):
 u = (col + jitter)/W, v = (row + jitter)/H with row 0 at the image
@@ -132,14 +133,6 @@ def render_and_grad(scene: Scene, cfg: RenderConfig, loss_fn, seed: int = 0,
     return loss.detach(), gradient_scene(s, dict(zip(leaves, grads)))
 
 
-def _default_row_chunk(height: int, width: int, target: int = 2**17) -> int:
-    """The most rows, dividing the height, with at most target rays."""
-    for rows in range(height, 0, -1):
-        if height % rows == 0 and rows * width <= target:
-            return rows
-    return 1
-
-
 def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
                         seed: int = 0, spp_chunk: int = 25,
                         row_chunk: int | None = None,
@@ -148,68 +141,45 @@ def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
     gradient Scene.  ``device`` None means the card, and raises when there
     is none.
 
-    grad_backend:
+    Both backends render the image of the scene's tables and differentiate
+    it through ``kernels.megagrad.SphereRenderFn``:
       - "kernel": the forward megakernel renders and the backward
-        megakernel differentiates (``kernels.megagrad.SphereRenderFn``);
-      - "plain": the image comes from the plain tracer, and the gradient
-        from autograd of the plain wavefront tracer with the winner-only
-        hit, one (row chunk x sample chunk) at a time: the mean image is
-        linear in the samples, so the chunks' gradients add up.  Chunks
-        bound the memory at any size; row_chunk None picks the most rows
-        with at most 2**17 rays;
+        megakernel differentiates (on CPU tensors the wrappers run their
+        plain versions);
+      - "plain": the plain tracer renders, and the gradient is autograd of
+        the plain wavefront tracer with the winner-only hit, one (row_chunk
+        rows x spp_chunk samples) chunk at a time: the mean image is linear
+        in the samples, so the chunks' gradients add up.  Chunks bound the
+        memory at any size; row_chunk None picks the most rows with at most
+        2**17 rays;
       - "auto": "kernel" on CUDA, "plain" on the CPU.
 
     The gradient treats a NaN sample with the order-invariant "zero"
-    policy on every backend; the image keeps cfg.nan_policy.  On CUDA a
-    scene outside the kernels' scope raises ``NotImplementedError`` naming
-    the slice that will cover it, and a kernel failure raises."""
+    policy on every backend; the image keeps cfg.nan_policy.  A scene
+    outside the backend's scope raises ``NotImplementedError`` naming the
+    slice that will cover it, before anything moves to the device, and on
+    CUDA a kernel failure raises."""
+    from ..kernels.megagrad import (render_tables_differentiable,
+                                    unsupported_grad_reason)
+    from ..kernels.megakernel import unsupported_reason
     device = resolve_device(device)
     if grad_backend == "auto":
         grad_backend = "kernel" if device.type == "cuda" else "plain"
     if grad_backend == "kernel":
-        from ..kernels.megakernel import unsupported_reason
-        reason = unsupported_reason(scene)
-        if reason is not None:
-            raise NotImplementedError(reason)
-    scene = scene.to(device)
-    if grad_backend == "kernel":
-        from ..kernels.megagrad import render_tables_differentiable
-        s = requiring_grad(scene)
-        img = render_tables_differentiable(s, cfg, seed)
-        loss = loss_fn(img)
-        leaves = float_leaves(s)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        return (loss.detach(), img.detach(),
-                gradient_scene(scene, dict(zip(leaves, grads))))
-    if grad_backend != "plain":
+        chunks, reason = None, unsupported_reason(scene)
+    elif grad_backend == "plain":
+        rows = row_chunk or max(1, 2**17 // cfg.width)
+        chunks = (rows * cfg.width, spp_chunk)
+        reason = unsupported_grad_reason(scene)
+    else:
         raise ValueError(f"unknown grad_backend: {grad_backend}")
-
-    img = _render_plain(scene, cfg, seed)
-    img_ = img.detach().requires_grad_()
-    loss = loss_fn(img_)
-    (g_img,) = torch.autograd.grad(loss, img_)
-    h, w = cfg.height, cfg.width
-    row_chunk = row_chunk or _default_row_chunk(h, w)
-    gcfg = cfg.replace(nan_policy="zero")
-    total: dict = {}
-    for r0 in range(0, h, row_chunk):
-        n_rows = min(row_chunk, h - r0)
-        rows = torch.arange(r0, r0 + n_rows, device=device)
-        rows = rows[:, None].expand(n_rows, w).reshape(-1)
-        cols = torch.arange(w, device=device).repeat(n_rows)
-        g = div(g_img[r0:r0 + n_rows].reshape(-1, 3), cfg.spp)
-        for s0 in range(0, cfg.spp, spp_chunk):
-            s = requiring_grad(scene)
-            acc = render_rows_wavefront(
-                s, gcfg, rows, cols, rows * w + cols, seed, s0,
-                min(spp_chunk, cfg.spp - s0),
-                hit_fn=make_grad_hit_fn(s, cfg.t_min))
-            leaves = float_leaves(s)
-            grads = torch.autograd.grad((acc * g).sum(),
-                                        list(leaves.values()),
-                                        allow_unused=True)
-            for path, grad in zip(leaves, grads):
-                if grad is not None:
-                    total[path] = total[path] + grad if path in total else grad
-    return loss.detach(), img, gradient_scene(scene, total)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    s = requiring_grad(scene.to(device))
+    img = render_tables_differentiable(s, cfg, seed, plain_chunks=chunks)
+    loss = loss_fn(img)
+    leaves = float_leaves(s)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return (loss.detach(), img.detach(),
+            gradient_scene(s, dict(zip(leaves, grads))))

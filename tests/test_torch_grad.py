@@ -17,6 +17,7 @@ Scenes cross over as numpy leaves (``scene_to_numpy``).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,16 +105,21 @@ def stacked_cosine(got: dict, want: dict) -> float:
     return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
 
 
+# The JAX side differentiates the whole closest-hit fold (its
+# fast_hit=False): the same gradients as its winner-only hit
+# (tests/test_diffhit.py), at a fraction of the compile time.  One jit for
+# every case: scenes of the same structure (the reference scene's cases
+# under a gradient sky) share its compile.
+_jax_render_and_grad = jax.jit(lambda js: jax_render_and_grad(
+    js, ort.RenderConfig(**CFG), jax_loss, seed=SEED, fast_hit=False))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_render_and_grad_matches_jax(case):
     make, rtol = CASES[case]
     js = make()
     cfg = ot.RenderConfig(**CFG)
-    # the JAX side differentiates the whole closest-hit fold (its
-    # fast_hit=False): the same gradients as its winner-only hit
-    # (tests/test_diffhit.py), at a fraction of the compile time
-    jl, jg = jax_render_and_grad(js, ort.RenderConfig(**CFG), jax_loss,
-                                 seed=SEED, fast_hit=False)
+    jl, jg = _jax_render_and_grad(js)
     tl, tg = ot.render_and_grad(to_port(js), cfg, torch_loss, seed=SEED,
                                 device="cpu")
     assert tg.spheres.mat_type is None

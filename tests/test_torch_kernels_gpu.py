@@ -15,8 +15,9 @@ Backward tolerance (tests/test_megagrad.py): per scene leaf,
 max|a - b| / max|b| under 5e-3 (reference spheres), 1e-3 (constant sky),
 8e-2 and a cosine above 0.9999 (README: fuzzy-metal chains are
 ill-conditioned in f32), 5e-3 (emissive clamp), 2e-2 (40 random spheres).
-The kernel's per-block sums go through atomics in an order that changes
-from run to run.
+The kernel's per-block sums of the sphere cotangents go through atomics
+in an order that changes from run to run; its camera cotangents are
+summed in a fixed order.
 """
 
 import dataclasses
@@ -166,6 +167,29 @@ def test_grad_kernel_matches_plain_on_card(cuda, case):
         va = np.concatenate([a[k].ravel() for k in keys])
         vb = np.concatenate([b[k].ravel() for k in keys])
         assert va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)) > 0.9999
+
+
+@pytest.mark.gpu
+def test_grad_kernel_strides_over_pixels(cuda):
+    """More pixels than the kernel's resident threads: each thread walks
+    several pixels, reusing its record column and carrying its camera
+    cotangents from one to the next; the result still matches the plain
+    version (README tolerance)."""
+    scene = ot.readme_scene().to(cuda)
+    cfg = ot.RenderConfig(width=400, height=200, spp=1, max_depth=6,
+                          nan_policy="zero")
+    n_pix = cfg.width * cfg.height
+    assert mg._library().sphere_megagrad_threads(n_pix) < n_pix
+    img = ot.render(scene, cfg, seed=3)
+    g_img = (2.0 / img.numel()) * img
+    got = mg.render_grad_scene(scene, cfg, g_img, seed=3)
+    g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
+    gcam, gsph = mg.render_grad_tables_plain(
+        mk.camera_table(scene), mk.sphere_table(scene), scene.spheres.count,
+        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2], 3,
+        n_pix)
+    errs = leaf_errors(got, mg.table_grads_to_scene(scene, gcam, gsph))
+    assert max(errs.values()) < 8e-2, errs
 
 
 @pytest.mark.gpu

@@ -95,12 +95,16 @@ def test_render_grad_scene_matches_plain_sampled():
 
 def test_sphere_render_fn_routes_through_the_wrappers():
     """render_grad_sampled(grad_backend="kernel") on CPU tensors runs both
-    wrappers' plain versions and matches the plain route."""
+    wrappers' plain versions, launches nothing, and matches autograd of
+    the per-sample tracer through the scene itself (render_and_grad),
+    which no table builder is on."""
     scene = ot.readme_scene()
+    launches = (mk.LAUNCHES, mg.LAUNCHES)
     l1, i1, g1 = ot.render_grad_sampled(scene, CFG, loss, seed=5,
                                         grad_backend="kernel", device="cpu")
-    l2, i2, g2 = ot.render_grad_sampled(scene, CFG, loss, seed=5,
-                                        grad_backend="plain", device="cpu")
+    assert (mk.LAUNCHES, mg.LAUNCHES) == launches
+    l2, g2 = ot.render_and_grad(scene, CFG, loss, seed=5, device="cpu")
+    i2 = ot.render(scene, CFG, seed=5, device="cpu")
     torch.testing.assert_close(i1, i2, rtol=0, atol=1e-6)
     torch.testing.assert_close(l1, l2)
     assert_scene_grads_close(g1, g2)
@@ -158,7 +162,7 @@ def test_conservative_flags():
 def test_kernel_failures_raise(monkeypatch):
     """No fallback: a build failure raises from the loader, and a failing
     backward raises out of the entry point."""
-    def no_nvcc(name):
+    def no_nvcc(name, defines=()):
         raise RuntimeError(f"nvcc failed on {name}")
 
     monkeypatch.setattr(_build, "_LIBS", {})

@@ -51,7 +51,9 @@ def test_golden(name, early_stop):
     assert abs(got.mean() - want.mean()) < 1e-4
 
 
-def _check_book_cover(early_stop):
+@pytest.mark.parametrize("early_stop", [True, False],
+                         ids=["wavefront", "sample_loop"])
+def test_golden_book_cover(early_stop):
     """The book cover under the golden tolerance.  Its ground sphere of
     radius 1000 makes |oc|^2 - r^2 cancel between numbers near 1e6, where
     one ulp is 0.06, so an ulp anywhere in a ray moves the t_min test of
@@ -66,14 +68,6 @@ def _check_book_cover(early_stop):
     diff = np.abs(got - want)
     assert (diff > 1e-4).mean() < 0.002, diff.max()
     assert abs(got.mean() - want.mean()) < 1e-4
-
-
-def test_golden_book_cover():
-    _check_book_cover(early_stop=True)
-
-
-def test_golden_book_cover_sample_loop():
-    _check_book_cover(early_stop=False)
 
 
 def test_row_chunks_equal_whole_image():
