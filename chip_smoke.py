@@ -42,7 +42,31 @@ Phases, each printing JSON lines on standard output:
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
-8. the kernels line and the result line.
+8. mesh parity: the mesh megakernel against its plain version on the same
+   tables, at 160x90, 8 spp, depth 8, for the tests/test_megamesh.py scene
+   (the reference spheres and a 192-triangle fuzzy-metal torus), the same
+   under a constant sky, as a dielectric, as an emitter, and with the mesh
+   behind the camera; the forward tolerance above.  Then the
+   closest-triangle kernel against its plain version on 2^20 rays aimed
+   into the box of the 15,360-triangle torus: indices equal on at least
+   99.99% of the rays, t within 1e-6 relative where they agree.
+9. the mesh main path: ``render(reference_scene(16/9, mesh_tris=tris,
+   mesh_aabb=aabb), REFERENCE_DEFAULTS)`` (1280x720, 5 spp, depth 32) with
+   the bundled 576-triangle torus and with the 15,360-triangle procedural
+   torus (the F1 car's count), loaded as the reference loads its mesh:
+   the kernel alone by CUDA events with its bounce and triangle-test counts
+   and the plain version against it (at full size for 576 triangles, at
+   320x180 for 15,360), then through ``render()``, one warm-up and the
+   minimum of 3, counts set to 0 just before and read just after, the image
+   bit-identical to the kernel's.
+10. the plain tracer on the card: ``render()`` with backend "jnp" on the
+   15,360-triangle scene at the same configuration, whose triangle hit is
+   the closest-triangle kernel (counted, each launch timed by CUDA
+   events); its image against the mesh megakernel's under the forward
+   tolerance.  Then the closest-triangle kernel against its plain version
+   on the ray batch of that path that ran the most triangle tests, under
+   the tolerance of phase 8.
+11. the kernels line and the result line.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
@@ -76,12 +100,18 @@ FLOPS_PER_SPHERE_TEST = 17
 # sphere cotangents 5 = 132.  A fuzzy-metal bounce adds 72 (reflect, the
 # unit direction, the fuzz draw), a dielectric one more; not counted.
 FLOPS_PER_REVERSE_BOUNCE = 132
+# One ray-triangle test (csrc/mesh.cuh::tri_candidate, computed whole for
+# every test): a 5, u_num 11, v_num 11, t_num 6, 1/a 1, u, v and t 3,
+# u + v 1 = 38.  The slab tests that cull (23 each) are not counted.
+FLOPS_PER_TRI_TEST = 38
 TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
 # Libraries built at the start: label -> (source, macros).  The last is a
 # measurement variant, not on any path: the forward kernel with the
 # backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh).
 KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad": ("megagrad", ()),
+           "megamesh": ("megamesh", ()),
+           "intersect_mm": ("intersect_mm", ()),
            "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",))}
 GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
                "spheres.fuzz", "spheres.ior", "camera.look_from",
@@ -217,6 +247,311 @@ def leaf_errors(got, want) -> dict:
     vb = np.concatenate([b[k].ravel() for k in keys]).astype(np.float64)
     cos = float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
     return rel, absd, cos
+
+
+def torus_scene(n_major: int | None = None, n_minor: int | None = None,
+                translate=None, sky=None, **material):
+    """The reference scene with a torus mesh: the bundled assets/torus.obj
+    (n_major None) or the procedural make_torus_obj(n_major, n_minor), under
+    the reference executable's mesh transform (scale 0.15, translate (0,
+    -0.5, -1)) or, with ``translate``, tests/test_megamesh.py's (scale 0.5);
+    ``material`` overrides the triangles' fields."""
+    import os
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.io import load_obj, parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    if translate is None:
+        xform = ((0.15, 0.15, 0.15), (0.0, -0.5, -1.0))
+    else:
+        xform = ((0.5, 0.5, 0.5), translate)
+    if n_major is None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        tris, aabb = load_obj(os.path.join(here, "assets", "torus.obj"),
+                              *xform)
+    else:
+        tris, aabb = parse_obj(make_torus_obj(n_major, n_minor), *xform)
+    scene = ot.reference_scene(16 / 9, mesh_tris=tris, mesh_aabb=aabb,
+                               sky=sky)
+    t = scene.triangles
+    fields = {k: (torch.tensor(v).expand(t.count, 3).clone() if k == "albedo"
+                  else torch.full_like(getattr(t, k), v))
+              for k, v in material.items()}
+    return dataclasses.replace(scene,
+                               triangles=dataclasses.replace(t, **fields))
+
+
+def bound_of(flops: float, io_bytes: float) -> dict:
+    """The least time for flops and bytes, and which of the two sets it."""
+    ms = 1e3 * max(flops / PEAK_FP32_FLOPS, io_bytes / PEAK_HBM_BYTES)
+    return dict(flops=flops, bytes=io_bytes, bound_ms=ms,
+                bound_by=("operations" if flops / PEAK_FP32_FLOPS
+                          >= io_bytes / PEAK_HBM_BYTES else "bytes"))
+
+
+def mesh_phases(dev) -> tuple:
+    """Phases 8 to 10 (see the module docstring): the kernels-line entries
+    of the mesh megakernel and the closest-triangle kernel."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.scene import materials as mat
+
+    def mesh_tables(scene):
+        scene = scene.to(dev)
+        return (mm.mesh_camera_table(scene), mk.sphere_table(scene),
+                scene.spheres.count, mm.mesh_tables(scene), scene.sky.kind,
+                mm.specialize_mesh_flags(scene))
+
+    def pair(scene, cfg, seed, plain=True):
+        """Kernel and (if plain) plain version on the same tables: images,
+        counts, the plain version's seconds and the kernel's launch."""
+        tables = mesh_tables(scene)
+        args = (*tables[:4], cfg, *tables[4:])
+        n_pix = cfg.width * cfg.height
+        kc = torch.zeros(2, dtype=torch.int64, device=dev)
+
+        def launch(counts=None):
+            return torch.stack(mm.render_mesh(*args, seed, n_pix,
+                                              counts=counts), -1)
+
+        k = launch(kc)
+        torch.cuda.synchronize()
+        if not plain:
+            return k, None, kc.tolist(), None, None, launch, args
+        pc = torch.zeros(2, dtype=torch.int64, device=dev)
+        t_plain, p = timed(lambda: torch.stack(mm.render_mesh_plain(
+            *args, seed, n_pix, counts=pc), -1), reps=1)
+        return k, p, kc.tolist(), pc.tolist(), t_plain, launch, args
+
+    # ---- 8. mesh parity, small ----
+    small = ot.RenderConfig(width=160, height=90, spp=8, max_depth=8)
+    near = (0.3, 0.0, -1.6)
+    cases = {
+        "mesh": torus_scene(12, 8, near),
+        "mesh_const_sky": torus_scene(12, 8, near,
+                                      sky=ot.Sky.constant((0.2, 0.4, 0.6))),
+        "mesh_dielectric": torus_scene(12, 8, near, mat_type=mat.DIELECTRIC,
+                                       ior=1.5),
+        "mesh_emissive": torus_scene(12, 8, near, mat_type=mat.EMISSIVE,
+                                     albedo=(2.0, 1.5, 1.0)),
+        "mesh_behind_camera": torus_scene(12, 8, (-3.0, 0.2, 4.0)),
+    }
+    mesh_parity_max = 0.0
+    for name, scene in cases.items():
+        k, p, kc, pc, t_plain, _, _ = pair(scene, small, seed=7)
+        if not torch.isfinite(k).all():
+            fail(f"{name}: mesh kernel output is not finite")
+        stats = compare(k, p)
+        emit({"phase": "mesh_parity", "case": name, "size": "160x90x8/d8",
+              **stats, "kernel_bounces": kc[0], "plain_bounces": pc[0],
+              "kernel_tri_tests": kc[1], "plain_tri_tests": pc[1],
+              "plain_s": t_plain})
+        check_close(name, stats)
+        mesh_parity_max = max(mesh_parity_max, stats["max_abs_diff"])
+
+    def k3_check(name, tab, o, d):
+        """The closest-triangle kernel against its plain version on the
+        rays (o, d): agreement, CUDA-event and plain times, the tests run
+        and the bound."""
+        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        t_k, i_k = im.closest_tri(tab, o, d, 1e-3, tests=tests)
+        torch.cuda.synchronize()
+        k_ms = kernel_ms(lambda: im.closest_tri(tab, o, d, 1e-3))
+        t_plain, (t_p, i_p) = timed(
+            lambda: im.closest_tri_plain(tab, o, d, 1e-3), reps=1)
+        same = i_k == i_p
+        hit = t_p < 1e38
+        rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30))[same & hit]
+        n = o.shape[0]
+        out = dict(n_rays=n, hit_share=float(hit.float().mean()),
+                   index_agree=float(same.float().mean()),
+                   max_rel_t=float(rel.max()) if rel.numel() else 0.0,
+                   max_abs_t=float((t_k - t_p)[same & hit].abs().max())
+                   if rel.numel() else 0.0,
+                   kernel_ms=k_ms, plain_ms=1e3 * t_plain,
+                   tri_tests=tests.item(),
+                   **bound_of(tests.item() * FLOPS_PER_TRI_TEST,
+                              (tab.tri.numel() + tab.cluster.numel()
+                               + tab.sub.numel() + tab.boxes.numel()
+                               + tab.chunk_box.numel() + 8 * n) * 4))
+        emit({"phase": "closest_tri_parity", "case": name, **out})
+        if out["index_agree"] < 0.9999 or out["max_rel_t"] > 1e-6:
+            fail(f"{name}: closest-triangle kernel and plain version "
+                 f"disagree: {out}")
+        return out
+
+    # the closest-triangle kernel on 2^20 rays into the 15,360-triangle box
+    big = torus_scene(128, 60).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n_rays = 2**20
+    lo, hi = big.boxes.box_min[0], big.boxes.box_max[0]
+    target = lo + (hi - lo) * torch.rand((n_rays, 3), generator=gen,
+                                         device=dev)
+    o = (big.camera.look_from + 0.5 * torch.randn(
+        (n_rays, 3), generator=gen, device=dev)).contiguous()
+    d = (target - o).contiguous()
+    k3_random = k3_check("torus_15360_random_2^20", im.mesh_tables(big), o, d)
+    if k3_random["hit_share"] < 0.1:
+        fail(f"the random rays miss the mesh: {k3_random}")
+    del o, d, target
+
+    # ---- 9. the mesh main path ----
+    ref = ot.REFERENCE_DEFAULTS
+    n_pix = ref.width * ref.height
+    meshes = {"torus_576": torus_scene(), "torus_15360": torus_scene(128, 60)}
+    full = {}
+    for name, scene in meshes.items():
+        k, _, kc, _, _, launch, args = pair(scene, ref, seed=0, plain=False)
+        ms = kernel_ms(launch)
+        cam, sph, n, tab = args[:4]
+        flops = (kc[0] * n * FLOPS_PER_SPHERE_TEST
+                 + kc[1] * FLOPS_PER_TRI_TEST)
+        io_bytes = (cam.numel() + sph.numel() + tab.tri.numel()
+                    + tab.cluster.numel() + tab.sub.numel()
+                    + tab.boxes.numel() + tab.chunk_box.numel()
+                    + 3 * n_pix) * 4
+        entry = dict(kernel_ms=ms, bounces=kc[0],
+                     bounces_per_sample=kc[0] / (n_pix * ref.spp),
+                     tri_tests=kc[1], tri_tests_per_bounce=kc[1] / kc[0],
+                     n_triangles=scene.triangles.count, n_spheres=n,
+                     **bound_of(flops, io_bytes),
+                     image=k.reshape(ref.height, ref.width, 3))
+        # the plain version: at full size for 576 triangles, at 320x180
+        # for 15,360 (its fold over every chunk a ray enters)
+        check_cfg = ref if name == "torus_576" else ref.replace(width=320,
+                                                                height=180)
+        size = f"{check_cfg.width}x{check_cfg.height}x5/d32"
+        ck, cp, ckc, cpc, t_plain, claunch, _ = pair(scene, check_cfg, 0)
+        stats = compare(ck, cp)
+        check_close(f"{name} at {size}", stats)
+        entry.update(check_size=size, plain_ms=1e3 * t_plain,
+                     check_kernel_ms=kernel_ms(claunch),
+                     check_bounces=(ckc[0], cpc[0]), **stats)
+        full[name] = entry
+        emit({"phase": "mesh_full_size_kernel", "case": name,
+              "size": "1280x720x5/d32",
+              **{k_: v for k_, v in entry.items() if k_ != "image"}})
+        del ck, cp
+
+    mm.LAUNCHES = im.LAUNCHES = mk.LAUNCHES = 0
+    runs = {}
+    for name, scene in meshes.items():
+        ot.render(scene, ref, seed=0)  # warm-up
+        runs[name] = timed(lambda: ot.render(scene, ref, seed=0))
+    mesh_launches = mm.LAUNCHES
+    if mesh_launches < 1 or im.LAUNCHES or mk.LAUNCHES:
+        fail(f"the mesh main path did not run the mesh megakernel alone: "
+             f"{mesh_launches}, {im.LAUNCHES}, {mk.LAUNCHES}")
+    for name, (secs, img) in runs.items():
+        mean = float(img.mean())
+        if not (img.shape == (ref.height, ref.width, 3)
+                and bool(torch.isfinite(img).all()) and mean > 0.05):
+            fail(f"mesh main path {name}: shape {tuple(img.shape)}, "
+                 f"mean {mean}")
+        if not torch.equal(img, full[name]["image"]):
+            fail(f"mesh main path {name}: render() differs from the kernel")
+        emit({"phase": "mesh_main_path", "case": name,
+              "size": "1280x720x5/d32", "seconds": secs, "ms": 1e3 * secs,
+              "camera_samples_per_s": n_pix * ref.spp / secs,
+              "image_mean": mean, "launches_so_far": mesh_launches})
+
+    # ---- 10. the plain tracer on the card, with the closest-triangle
+    # kernel as its triangle hit; each of its launches timed by CUDA events
+    # and counting its triangle tests, and each ray batch kept for the
+    # kernel's check at the shapes this path gives it ----
+    scene = meshes["torus_15360"]
+    jnp_cfg = ref.replace(backend="jnp")
+    launch_k3 = im.closest_tri
+    calls = []
+
+    def closest_tri_timed(tab_, o, d, t_min, tests=None):
+        n_tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch_k3(tab_, o, d, t_min, n_tests)
+        end.record()
+        if tests is not None:
+            tests += n_tests
+        calls.append((start, end, n_tests, tab_, o.clone(), d.clone()))
+        return out
+
+    im.closest_tri = closest_tri_timed
+    try:
+        im.LAUNCHES = mm.LAUNCHES = 0
+        secs, img = timed(lambda: ot.render(scene, jnp_cfg, seed=0), reps=1)
+        k3_launches, k2_after = im.LAUNCHES, mm.LAUNCHES
+    finally:
+        im.closest_tri = launch_k3
+    k3_in_route_ms = sum(c[0].elapsed_time(c[1]) for c in calls)
+    call_tests = [int(c[2].item()) for c in calls]
+    stats = compare(img, full["torus_15360"]["image"])
+    emit({"phase": "plain_route", "case": "torus_15360",
+          "size": "1280x720x5/d32", "seconds": secs, "ms": 1e3 * secs,
+          "closest_tri_launches": k3_launches,
+          "closest_tri_ms_in_route": k3_in_route_ms,
+          "closest_tri_tests_in_route": sum(call_tests),
+          "rays_through_closest_tri": sum(c[4].shape[0] for c in calls),
+          "mesh_kernel_launches": k2_after, "against_mesh_kernel": stats})
+    if k3_launches < 1 or k2_after:
+        fail(f"the plain route launched {k3_launches} closest-triangle and "
+             f"{k2_after} mesh kernels")
+    check_close("plain route against the mesh kernel", stats)
+    # the kernel against its plain version on the batch of that path that
+    # ran the most triangle tests
+    busiest = calls[max(range(len(calls)), key=call_tests.__getitem__)]
+    del calls
+    k3 = k3_check("torus_15360_plain_route_busiest_batch", *busiest[3:])
+    if k3["tri_tests"] < 1:
+        fail(f"the plain route's busiest batch ran no triangle test: {k3}")
+    del busiest
+
+    r = full["torus_576"]
+    f = full["torus_15360"]
+    return ({
+        "name": "mesh_megakernel",
+        "route": "cuda",
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megamesh.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megamesh.py:258 "
+                    "_make_kernel (mesh body, gradient and constant skies)",
+        "launches": mesh_launches,
+        "max_abs_err": r["max_abs_diff"],
+        "parity_max_abs_diff": mesh_parity_max,
+        "ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "torus_15360_ms": f["kernel_ms"],
+        "torus_15360_bound_ms": f["bound_ms"],
+        "torus_15360_plain_ms": f["plain_ms"],
+        "torus_15360_plain_size": f["check_size"],
+        "torus_15360_max_abs_err": f["max_abs_diff"],
+        "render_ms": {k_: 1e3 * v[0] for k_, v in runs.items()},
+    }, {
+        "name": "closest_tri",
+        "route": "cuda",
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/intersect_mm.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/intersect_mm.py:73 "
+                    "_make_kernel",
+        "launches": k3_launches,
+        "max_abs_err": k3["max_abs_t"],
+        "index_agree": k3["index_agree"],
+        "ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"],
+        "size": f"{k3['n_rays']} rays (the plain route's busiest batch), "
+                "15,360 triangles",
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
+        "ms_in_plain_route": k3_in_route_ms,
+        "plain_route_render_ms": 1e3 * secs,
+        "random_2^20_ms": k3_random["kernel_ms"],
+        "random_2^20_plain_ms": k3_random["plain_ms"],
+        "random_2^20_bound_ms": k3_random["bound_ms"],
+        "random_2^20_index_agree": k3_random["index_agree"],
+    })
 
 
 def main() -> None:
@@ -589,7 +924,9 @@ def main() -> None:
     if not losses[-1] < losses[0] or mg.LAUNCHES < 5:
         fail(f"fit: loss did not fall or skipped the kernels: {losses}")
 
-    # ---- 8. kernels line, result line ----
+    mesh_entries = mesh_phases(dev)
+
+    # ---- 11. kernels line, result line ----
     r = full["readme"]
     gr = grad_full["readme"]
     emit({"kernels": [{
@@ -630,7 +967,7 @@ def main() -> None:
         "library_ms": None,
         "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
         "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
-    }]})
+    }, *mesh_entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

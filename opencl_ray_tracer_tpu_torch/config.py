@@ -32,9 +32,15 @@ class RenderConfig:
       path-regeneration wavefront, False the per-sample bounce loop.  Both
       give the same image.
 
-    ``backend`` and ``tri_backend`` are kept so that configurations written
-    by the JAX package load unchanged; the port routes by device (see
-    ``tracer.render``).
+    backend: on the card, "auto" and "pallas" render a scene in the mesh
+      megakernel's or the sphere megakernel's scope through that kernel;
+      any other value, and every scene outside both, takes the plain
+      tracer.  The CPU always takes the plain tracer.
+    tri_backend: the plain tracer's triangle hit: "pallas" the
+      closest-triangle kernel (its plain version on the CPU); "mm" the
+      matmul-form fold; "auto" the kernel on the card from 256 triangles,
+      the matmul form on the CPU from 256, the direct form below
+      (``tracer.render``).
     """
 
     width: int = 1280

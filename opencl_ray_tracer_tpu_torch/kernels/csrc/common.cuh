@@ -1,8 +1,9 @@
-// Device code shared by the sphere megakernel (megakernel.cu) and its
-// backward (megagrad.cu): the counter RNG, the camera ray, the closest-sphere
-// search, the sky and the material scatter.  The backward replays the
-// forward with exactly this code, so both take the same discrete decisions
-// (winner, root, front face, absorb, reflect or refract) bit for bit.
+// Device code shared by the sphere megakernel (megakernel.cu), its backward
+// (megagrad.cu) and the mesh megakernel (megamesh.cu): the counter RNG, the
+// camera ray, the closest-sphere search, the sky and the material scatter.
+// The backward replays the forward with exactly this code, so both take the
+// same discrete decisions (winner, root, front face, absorb, reflect or
+// refract) bit for bit.
 //
 // The arithmetic follows the plain PyTorch tracer op for op: divisions where
 // it divides, IEEE sqrtf, sinf and cosf, and fmaf exactly where the plain
@@ -186,9 +187,9 @@ __device__ __forceinline__ void sky_colour(const float* cam, int flags,
   }
 }
 
-// Scatter at a hit of sphere bi: the new direction, the attenuation, and
-// whether a metal absorbs or an emissive sphere ends the path.  nrm is the
-// front-facing normal; a = |d|^2.
+// Scatter at a hit: the new direction, the attenuation, and whether a metal
+// absorbs or an emissive surface ends the path.  nrm is the front-facing
+// normal; a = |d|^2.
 struct Scatter {
   float dir[3];
   float att[3];
@@ -196,17 +197,42 @@ struct Scatter {
   bool emitted;
 };
 
-__device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
-                                               int bi, int flags,
-                                               uint32_t seed, uint32_t pix,
-                                               uint32_t sid, int depth,
-                                               const float d[3], float a,
-                                               const float nrm[3],
-                                               bool front) {
+// The material of sphere bi, read from the sphere table with row stride
+// `stride`.
+struct SphereMaterial {
+  const float* sph;
+  int stride;
+  int bi;
+  __device__ __forceinline__ float albedo(int k) const {
+    return sph[(F_ALR + k) * stride + bi];
+  }
+  __device__ __forceinline__ int type() const {
+    return (int)sph[F_TYPE * stride + bi];
+  }
+  __device__ __forceinline__ float fuzz() const {
+    return sph[F_FUZZ * stride + bi];
+  }
+  __device__ __forceinline__ float ior() const {
+    return sph[F_IOR * stride + bi];
+  }
+  __device__ __forceinline__ float inv_ior() const {
+    return sph[F_INVIOR * stride + bi];
+  }
+};
+
+// Scatter with the material m (a SphereMaterial, or megamesh.cu's uniform
+// mesh material).
+template <class Material>
+__device__ __forceinline__ Scatter scatter_material(const Material& m,
+                                                    int flags, uint32_t seed,
+                                                    uint32_t pix, uint32_t sid,
+                                                    int depth,
+                                                    const float d[3], float a,
+                                                    const float nrm[3],
+                                                    bool front) {
   Scatter s;
-  const float alb[3] = {sph[F_ALR * stride + bi], sph[F_ALG * stride + bi],
-                        sph[F_ALB * stride + bi]};
-  const int mt = (int)sph[F_TYPE * stride + bi];
+  const float alb[3] = {m.albedo(0), m.albedo(1), m.albedo(2)};
+  const int mt = m.type();
 
   float ua[4], ub[4];
   uniform4(seed, pix, sid, 4u + 2u * (uint32_t)depth, ua);
@@ -242,7 +268,7 @@ __device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
         const float phs = kTwoPi * ua[3];
         const float rs = sqrtf(fmaxf(0.f, fmaf(-zs, zs, 1.f)));
         const float rad = fuzz_radius(ub[0]);
-        const float fz = sph[F_FUZZ * stride + bi];
+        const float fz = m.fuzz();
         s.dir[0] = fmaf((rs * cosf(phs)) * rad, fz, ref[0]);
         s.dir[1] = fmaf((rs * sinf(phs)) * rad, fz, ref[1]);
         s.dir[2] = fmaf(zs * rad, fz, ref[2]);
@@ -251,8 +277,7 @@ __device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
     } else {
       // TransparentScatter (gpu_kernel.cl:425-451)
       uniform4(seed, pix, sid, 5u + 2u * (uint32_t)depth, ub);
-      const float ratio = front ? sph[F_INVIOR * stride + bi]
-                                : sph[F_IOR * stride + bi];
+      const float ratio = front ? m.inv_ior() : m.ior();
       const float cos_t = fminf(-dn, 1.f);
       const float sin_t = sqrtf(fmaxf(fmaf(-cos_t, cos_t, 1.f), 1e-20f));
       float r0 = (1.f - ratio) / (1.f + ratio);
@@ -273,6 +298,18 @@ __device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
     }
   }
   return s;
+}
+
+// Scatter at a hit of sphere bi of the table sph (row stride `stride`).
+__device__ __forceinline__ Scatter scatter_hit(const float* sph, int stride,
+                                               int bi, int flags,
+                                               uint32_t seed, uint32_t pix,
+                                               uint32_t sid, int depth,
+                                               const float d[3], float a,
+                                               const float nrm[3],
+                                               bool front) {
+  return scatter_material(SphereMaterial{sph, stride, bi}, flags, seed, pix,
+                          sid, depth, d, a, nrm, front);
 }
 
 }  // namespace ort

@@ -87,8 +87,7 @@ def unsupported_grad_reason(scene: Scene) -> str | None:
         return unsupported_reason(scene)
     if not 0 < scene.spheres.count <= GRAD_MAX_SPHERES:
         return (f"the backward kernel takes 1 to {GRAD_MAX_SPHERES} "
-                "spheres; larger scenes go through the fused mesh kernels, "
-                "ported in the mesh slice (slice 3)")
+                "spheres; larger sphere scenes are not ported")
     return None
 
 

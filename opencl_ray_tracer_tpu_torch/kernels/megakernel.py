@@ -64,17 +64,18 @@ def _library():
 
 
 def unsupported_reason(scene: Scene) -> str | None:
-    """Why the kernel does not cover this scene, or None when it does."""
+    """Why the kernel does not cover this scene, or None when it does.
+    The gradient entry points take their scope from here."""
     if scene.triangles.count > 0:
-        return ("triangle meshes are not ported yet: the mesh slice "
-                "(slice 3) ports the fused mesh kernel")
+        return ("triangle meshes render through the mesh megakernel; their "
+                "gradients are not ported yet: slice 3b ports the mesh "
+                "backward kernel (K5)")
     if scene.sky.kind == KIND_HDR:
         return ("HDR skies are not ported yet: the HDR slice (slice 4) "
                 "ports them")
     if not 0 < scene.spheres.count <= MAX_SPHERES:
         return (f"the sphere megakernel takes 1 to {MAX_SPHERES} spheres; "
-                "larger scenes go through the fused mesh kernel, ported in "
-                "the mesh slice (slice 3)")
+                "render() draws larger sphere scenes with the plain tracer")
     return None
 
 

@@ -76,7 +76,7 @@ def fit_scene(
         grad_backend = "kernel" if device.type == "cuda" else "plain"
     if grad_backend not in ("kernel", "plain"):
         raise ValueError(f"unknown grad_backend: {grad_backend}")
-    if grad_backend == "kernel":
+    if grad_backend == "kernel" or init_scene.triangles.count > 0:
         from .kernels.megakernel import unsupported_reason
         reason = unsupported_reason(init_scene)
         if reason is not None:

@@ -144,6 +144,7 @@ def gradient_scene(scene: Scene, grads: dict) -> Scene:
 
 
 from .presets import book_cover_scene, readme_scene, reference_scene  # noqa: E402
+from .builder import scene_from_json, scene_to_json  # noqa: E402
 
 __all__ = [
     "Scene", "Camera", "Spheres", "Triangles", "BoundingBoxes", "Sky",
@@ -151,4 +152,5 @@ __all__ = [
     "direction_to_uv", "materials", "readme_scene", "reference_scene",
     "book_cover_scene", "scene_from_numpy", "scene_to_numpy", "get_leaf",
     "replace_leaves", "float_leaves", "requiring_grad", "gradient_scene",
+    "scene_from_json", "scene_to_json",
 ]

@@ -2,9 +2,10 @@
 
 The reference passes array-of-structs buffers to the device
 (``src/cpp/opencl_objects/*``, mirrored at ``gpu_kernel.cl:3-69``); here each
-field is one contiguous (N,) or (N,3) tensor.  ``Triangles`` and
-``BoundingBoxes`` only hold data in this slice: no tracer here intersects
-them, and a scene that has triangles is refused by ``tracer.intersect``.
+field is one contiguous (N,) or (N,3) tensor.  A triangle is tested only
+when the ray hits the bounding box its ``box_id`` names
+(``gpu_kernel.cl:374-391``); ``tracer.intersect`` and the mesh kernels
+intersect both.
 """
 
 from __future__ import annotations
@@ -102,6 +103,21 @@ class Triangles:
         zi = torch.zeros((0,), dtype=_I32)
         return Triangles(v, v, v, v, z, z, zi, zi)
 
+    @staticmethod
+    def from_vertices(tri_verts, albedo, fuzz, ior, mat_type,
+                      box_id=0) -> "Triangles":
+        """tri_verts: (T,3,3) triangle corners; one shared material, as the
+        reference gives each mesh (``utility.cpp:99``)."""
+        tv = torch.as_tensor(np.asarray(tri_verts), dtype=_F32)
+        t = tv.shape[0]
+        return Triangles(
+            tv[:, 0].clone(), tv[:, 1].clone(), tv[:, 2].clone(),
+            torch.tensor(albedo, dtype=_F32).expand(t, 3).clone(),
+            torch.full((t,), float(np.float32(fuzz)), dtype=_F32),
+            torch.full((t,), float(np.float32(ior)), dtype=_F32),
+            torch.full((t,), int(mat_type), dtype=_I32),
+            torch.full((t,), int(box_id), dtype=_I32))
+
 
 @dataclasses.dataclass(frozen=True)
 class BoundingBoxes:
@@ -121,3 +137,9 @@ class BoundingBoxes:
     def empty() -> "BoundingBoxes":
         v = torch.zeros((0, 3), dtype=_F32)
         return BoundingBoxes(v, v)
+
+    @staticmethod
+    def single(box_min, box_max) -> "BoundingBoxes":
+        return BoundingBoxes(
+            torch.as_tensor(np.asarray(box_min), dtype=_F32)[None].clone(),
+            torch.as_tensor(np.asarray(box_max), dtype=_F32)[None].clone())

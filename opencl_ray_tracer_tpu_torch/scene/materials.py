@@ -7,3 +7,12 @@ LAMBERTIAN = 0   # gpu_kernel.cl:398-413
 METAL = 1        # gpu_kernel.cl:415-423
 DIELECTRIC = 2   # gpu_kernel.cl:425-451
 EMISSIVE = 3     # gpu_kernel.cl:326-329
+
+MATERIAL_NAMES = {
+    "lambertian": LAMBERTIAN,
+    "metal": METAL,
+    "dielectric": DIELECTRIC,
+    "glass": DIELECTRIC,
+    "emissive": EMISSIVE,
+    "light": EMISSIVE,
+}

@@ -2,8 +2,8 @@
 
 - ``readme_scene``: the reference README benchmark scene
   (``README.md:30-38``): 5 spheres, gradient sky.
-- ``reference_scene``: the 8 spheres and camera hardcoded in
-  ``main.cpp:80-129``, without the mesh (the mesh slice adds it).
+- ``reference_scene``: the 8 spheres, camera and (given its triangles) the
+  mesh in its gating box hardcoded in ``main.cpp:80-133``.
 - ``book_cover_scene``: the RTiOW random-spheres scene, deterministic in
   its seed.
 """
@@ -40,9 +40,12 @@ def readme_scene(aspect_ratio: float = 16.0 / 9.0):
     return _scene(camera, spheres)
 
 
-def reference_scene(aspect_ratio: float = 16.0 / 9.0, sky=None):
-    """The spheres and camera of main.cpp:80-129; gradient sky unless
-    ``sky`` is given."""
+def reference_scene(aspect_ratio: float = 16.0 / 9.0, mesh_tris=None,
+                    mesh_aabb=None, sky=None):
+    """The scene of main.cpp:80-133.  mesh_tris: optional (T,3,3) triangle
+    corners (``io.load_obj``), in one gating box mesh_aabb = (min(3,),
+    max(3,)), with the reference's mesh material (fuzzy metal,
+    main.cpp:127); gradient sky unless ``sky`` is given."""
     spheres = Spheres.from_list([
         # main.cpp:100-107
         ((0.0, -100.5, -1.0), 100.0, (0.3, 0.5, 0.4), 0.0, 0.0, mat.LAMBERTIAN),
@@ -59,7 +62,13 @@ def reference_scene(aspect_ratio: float = 16.0 / 9.0, sky=None):
         look_from=(-1.3, 0.2, 0.5), look_at=(0.2, 0.0, -1.5),
         vfov_deg=60.0, aspect_ratio=aspect_ratio,
         focus_dist=2.0, aperture_deg=1.2)
-    return _scene(camera, spheres, sky)
+    if mesh_tris is None:
+        return _scene(camera, spheres, sky)
+    tris = Triangles.from_vertices(mesh_tris, albedo=(0.8, 0.6, 0.2),
+                                   fuzz=0.5, ior=0.0, mat_type=mat.METAL,
+                                   box_id=0)
+    return Scene(camera, spheres, tris, BoundingBoxes.single(*mesh_aabb),
+                 sky if sky is not None else Sky.gradient())
 
 
 def book_cover_scene(n_random: int = 96, seed: int = 3,

@@ -12,7 +12,8 @@ the hit is split in two, as in the JAX package's ``tracer/diffhit.py``:
    expressions (same quadratic, same root), so values equal those of
    ``closest_hit`` and gradients those of autograd through it.
 
-Only the choice of root is discrete.  Triangles wait for the mesh slice.
+Only the choice of root is discrete.  The triangle branch is slice 3b's
+(with the mesh backward kernel, K5).
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ def winner_hitinfo(scene, o, d, best_kind, best_idx, hit, t_min) -> HitInfo:
     are (R,) integer and bool tensors from ``closest_fold``."""
     if scene.triangles.count > 0:
         raise NotImplementedError(
-            "triangle meshes are not ported yet: the mesh slice (slice 3) "
-            "ports the differentiable triangle hit")
+            "the differentiable triangle hit is not ported yet: slice 3b "
+            "ports it with the mesh backward kernel (K5)")
     spheres = scene.spheres
     if spheres.count == 0:
         # nothing to win: every ray misses
@@ -71,12 +72,12 @@ def make_grad_hit_fn(scene, t_min: float = 1e-3,
     reach ``scene``'s leaves through the recompute.
 
     winner_backend "plain" searches with ``closest_fold``; the JAX
-    package's "pallas" triangle search (its kernel K3) comes with the mesh
-    slice."""
+    package's "pallas" search (the closest-triangle kernel, K3) joins the
+    triangle branch in slice 3b."""
     if winner_backend == "pallas":
         raise NotImplementedError(
-            "the triangle winner-search kernel (K3) is ported in the mesh "
-            "slice (slice 3)")
+            "the closest-triangle kernel (K3) becomes the winner search in "
+            "slice 3b, with the differentiable triangle hit")
     if winner_backend != "plain":
         raise ValueError(f"unknown winner_backend: {winner_backend}")
 

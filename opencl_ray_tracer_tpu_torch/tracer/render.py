@@ -1,10 +1,16 @@
 """Full-image rendering and its gradients.
 
-``render`` runs on the card unless the caller asks for the CPU: on CUDA a
-scene that the sphere megakernel covers goes through it, and any other
-scene raises ``NotImplementedError`` naming the slice of the port that
-will cover it.  With ``device="cpu"`` the plain tracer below renders
-(``render_rows``), the oracle the kernel is held against.
+``render`` runs on the card unless the caller asks for the CPU.  On CUDA
+it routes as the JAX package's ``render`` does (``kernel_route``): with
+``cfg.backend`` "auto" or "pallas", a scene in the mesh megakernel's scope
+(triangles of one material in gating boxes, at most 128 spheres) goes
+through it, a sphere scene in the sphere megakernel's scope through that;
+every other scene, and every scene under another backend, goes through the
+plain tracer below (``render_rows``) on the card, whose triangle hit is
+the closest-triangle kernel from 256 triangles.  An HDR sky raises
+``NotImplementedError`` (slice 4).  Nothing falls back: a kernel that
+fails to build or launch raises.  With ``device="cpu"`` the plain tracer
+renders, the oracle the kernels are held against.
 
 Gradients: ``render_and_grad`` is autograd of the plain per-sample tracer;
 ``render_grad_sampled`` is the full-size gradient, through the forward and
@@ -28,6 +34,7 @@ from ..config import RenderConfig
 from ..rng import SLOT_PIXEL_U, uniform4
 from ..scene import (Scene, camera_frame, float_leaves, gradient_scene,
                      rays_from_frame, requiring_grad)
+from ..scene.sky import KIND_HDR
 from .diffhit import make_grad_hit_fn
 from .estimator import accumulate_sample, trace
 from .wavefront import render_rows_wavefront
@@ -44,6 +51,27 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def triangle_hit_fn(scene: Scene, cfg: RenderConfig, expected_rays: int):
+    """The plain tracer's hit_fn for a scene with triangles, by
+    cfg.tri_backend (the JAX package's ``render_rows`` rule): "pallas", or
+    "auto" on the card from 256 triangles in 1 to 32 gating boxes, takes
+    the closest-triangle kernel; "mm", or "auto" otherwise from 256
+    triangles, the matmul-form fold; None (the direct form of
+    ``closest_hit``) below 256."""
+    from ..kernels.intersect_mm import MAX_BOXES, make_kernel_hit_fn
+    from .mesh_accel import make_mm_hit_fn
+    n = scene.triangles.count
+    on_card = scene.triangles.p0.device.type == "cuda"
+    use_kernel = (cfg.tri_backend == "pallas"
+                  or (cfg.tri_backend == "auto" and on_card and n >= 256
+                      and 0 < scene.boxes.count <= MAX_BOXES))
+    if use_kernel:
+        return make_kernel_hit_fn(scene, cfg.t_min)
+    if cfg.tri_backend == "mm" or (cfg.tri_backend == "auto" and n >= 256):
+        return make_mm_hit_fn(scene, cfg.t_min, expected_rays=expected_rays)
+    return None
+
+
 def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
                 seed: int, hit_fn=None, remat: bool = False):
     """Plain-tracer render of n_rows rows from row_start on the scene's
@@ -51,12 +79,15 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     ids, so row blocks compose into the full image exactly.
 
     hit_fn(o, d) replaces the closest hit (``diffhit.make_grad_hit_fn``);
-    remat recomputes each sample's bounce loop in the backward pass
+    without one, a scene with triangles takes ``triangle_hit_fn``.  remat
+    recomputes each sample's bounce loop in the backward pass
     (``torch.utils.checkpoint``) instead of keeping it, for the per-sample
     loop (cfg.early_stop False)."""
     width = cfg.width
     n_samples = cfg.spp
     dev = scene.spheres.center.device
+    if hit_fn is None and scene.triangles.count > 0:
+        hit_fn = triangle_hit_fn(scene, cfg, n_rows * width)
     rows = torch.arange(row_start, row_start + n_rows, device=dev)
     rows = rows[:, None].expand(n_rows, width).reshape(-1)
     cols = torch.arange(width, device=dev).repeat(n_rows)
@@ -87,24 +118,57 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     return div(acc, n_samples).reshape(n_rows, width, 3)
 
 
+def kernel_route(scene: Scene, cfg: RenderConfig) -> str | None:
+    """The kernel ``render`` takes on the card: "megamesh", "megakernel",
+    or None for the plain tracer.  Raises ``NotImplementedError`` for an
+    HDR sky."""
+    from ..kernels.megakernel import supports
+    from ..kernels.megamesh import supports_mesh
+    if scene.sky.kind == KIND_HDR:
+        raise NotImplementedError(
+            "HDR skies are not ported yet: the HDR slice (slice 4) ports "
+            "them")
+    if cfg.backend in ("auto", "pallas"):
+        if supports_mesh(scene, cfg):
+            return "megamesh"
+        if supports(scene, cfg):
+            return "megakernel"
+    return None
+
+
 def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None):
     """Render the full image: (H, W, 3) f32 radiance on ``device``, row 0 =
-    image bottom.  device None means CUDA, and raises when there is none."""
+    image bottom.  device None means CUDA, and raises when there is none;
+    on CUDA the route is ``kernel_route``'s."""
     device = resolve_device(device)
     if device.type == "cuda":
-        from ..kernels.megakernel import render_megakernel, unsupported_reason
-        reason = unsupported_reason(scene)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        return render_megakernel(scene.to(device), cfg, seed)
+        route = kernel_route(scene, cfg)
+        if route == "megamesh":
+            from ..kernels.megamesh import render_megamesh
+            return render_megamesh(scene.to(device), cfg, seed)
+        if route == "megakernel":
+            from ..kernels.megakernel import render_megakernel
+            return render_megakernel(scene.to(device), cfg, seed)
     return _render_plain(scene.to(device), cfg, seed)
+
+
+# Rays per call of the plain tracer for a scene with triangles when
+# cfg.row_chunk is None (the JAX package's bound on its triangle fold's
+# intermediates).
+_MESH_ROW_RAYS = 131072
 
 
 def _render_plain(scene: Scene, cfg: RenderConfig, seed: int):
     chunk = cfg.row_chunk or cfg.height
+    if cfg.row_chunk is None and scene.triangles.count > 0:
+        max_rows = max(1, _MESH_ROW_RAYS // cfg.width)
+        chunk = next(r for r in range(min(max_rows, cfg.height), 0, -1)
+                     if cfg.height % r == 0)
     if cfg.height % chunk:
         raise ValueError("row_chunk must divide height")
-    out = [render_rows(scene, cfg, r0, chunk, seed)
+    hit_fn = (triangle_hit_fn(scene, cfg, chunk * cfg.width)
+              if scene.triangles.count > 0 else None)
+    out = [render_rows(scene, cfg, r0, chunk, seed, hit_fn=hit_fn)
            for r0 in range(0, cfg.height, chunk)]
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 

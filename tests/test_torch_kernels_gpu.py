@@ -220,3 +220,129 @@ def test_failing_grad_launch_raises(cuda, monkeypatch):
                                ot.RenderConfig(width=8, height=4, spp=1,
                                                max_depth=2),
                                lambda im: im.mean())
+
+
+def mesh_scenes():
+    """The mesh cases of chip_smoke.py: the tests/test_megamesh.py scene
+    (a 192-triangle fuzzy-metal torus with the reference spheres), under a
+    constant sky, as a dielectric and as an emitter, and behind the camera
+    (its box is never in view)."""
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    from opencl_ray_tracer_tpu_torch.scene import materials as mat
+
+    def torus(translate=(0.3, 0.0, -1.6), sky=None, **material):
+        tris, aabb = parse_obj(make_torus_obj(12, 8), scale=(0.5, 0.5, 0.5),
+                               translate=translate)
+        scene = ot.reference_scene(mesh_tris=tris, mesh_aabb=aabb, sky=sky)
+        t = scene.triangles
+        fields = {k: (torch.tensor(v).expand(t.count, 3).clone()
+                      if k == "albedo" else torch.full_like(getattr(t, k), v))
+                  for k, v in material.items()}
+        return dataclasses.replace(
+            scene, triangles=dataclasses.replace(t, **fields))
+
+    return {"mesh": torus(),
+            "const_sky": torus(sky=ot.Sky.constant((0.2, 0.4, 0.6))),
+            "dielectric": torus(mat_type=mat.DIELECTRIC, ior=1.5),
+            "emissive": torus(mat_type=mat.EMISSIVE, albedo=(2.0, 1.5, 1.0)),
+            "hidden_box": torus(translate=(-3.0, 0.2, 4.0))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(mesh_scenes()))
+def test_mesh_kernel_matches_plain_on_card(cuda, case):
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = mesh_scenes()[case].to(cuda)
+    cfg = ot.RenderConfig(width=50, height=30, spp=4, max_depth=6)
+    before = mm.LAUNCHES
+    got = ot.render(scene, cfg, seed=3)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES == before + 1
+    r, g, b = mm.render_mesh_plain(
+        mm.mesh_camera_table(scene), mk.sphere_table(scene),
+        scene.spheres.count, mm.mesh_tables(scene), cfg, scene.sky.kind,
+        mm.specialize_mesh_flags(scene), 3, cfg.width * cfg.height)
+    want = torch.stack([r, g, b], -1).reshape(got.shape)
+    diff = (got - want).abs()
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99
+    assert abs(float(got.mean() - want.mean())) < 2e-3
+
+
+@pytest.mark.gpu
+def test_mesh_kernel_pixel_window_and_counts(cuda):
+    """pix_offset/sample_base select a pixel and sample window; the bounce
+    count equals the plain version's, and the kernel runs no more triangle
+    tests than the plain fold (it also culls by entry t and sub-box)."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = mesh_scenes()["mesh"].to(cuda)
+    cfg = ot.RenderConfig(width=40, height=20, spp=3, max_depth=5)
+    args = (mm.mesh_camera_table(scene), mk.sphere_table(scene),
+            scene.spheres.count, mm.mesh_tables(scene), cfg, scene.sky.kind,
+            mm.specialize_mesh_flags(scene), 11, 300)
+    kc = torch.zeros(2, dtype=torch.int64, device=cuda)
+    pc = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = torch.stack(mm.render_mesh(*args, pix_offset=170, sample_base=5,
+                                     counts=kc), -1)
+    want = torch.stack(mm.render_mesh_plain(*args, pix_offset=170,
+                                            sample_base=5, counts=pc), -1)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() < 1e-3
+    assert abs(kc[0].item() - pc[0].item()) <= 0.001 * pc[0].item() + 2
+    assert 0 < kc[1].item() <= pc[1].item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays", [4099, 65536])
+def test_closest_tri_matches_plain_on_card(cuda, n_rays):
+    """Rays from around a 2,304-triangle torus towards points in its box
+    (n_rays not a multiple of the 128-thread block, and a batch of 512
+    blocks): indices equal on all but 1e-4 of the rays, t within 1e-6
+    relative where they agree."""
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    tris, aabb = parse_obj(make_torus_obj(48, 24))
+    scene = ot.reference_scene(mesh_tris=tris, mesh_aabb=aabb).to(cuda)
+    tab = im.mesh_tables(scene)
+    rng = np.random.default_rng(5)
+    o = rng.normal(0.0, 2.0, (n_rays, 3)).astype(np.float32)
+    target = rng.uniform(aabb[0], aabb[1], (n_rays, 3)).astype(np.float32)
+    o = torch.tensor(o, device=cuda)
+    d = torch.tensor(target, device=cuda) - o
+    before = im.LAUNCHES
+    t, idx = im.closest_tri(tab, o, d, 1e-3)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES == before + 1
+    tp, ip = im.closest_tri_plain(tab, o, d, 1e-3)
+    hit = tp < 1e38
+    assert hit.float().mean() > 0.3
+    same = idx == ip
+    assert same.float().mean() >= 0.9999
+    rel = ((t - tp).abs() / tp.abs().clamp(min=1e-30))[same & hit]
+    assert rel.max() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_plain_route_launches_closest_tri(cuda):
+    """backend "jnp": the plain tracer on the card, whose triangle hit from
+    256 triangles is the closest-triangle kernel; its image agrees with
+    the mesh megakernel's under the image tolerance."""
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    tris, aabb = parse_obj(make_torus_obj(24, 12), scale=(0.5, 0.5, 0.5),
+                           translate=(0.3, 0.0, -1.6))
+    scene = ot.reference_scene(mesh_tris=tris, mesh_aabb=aabb)
+    cfg = ot.RenderConfig(width=48, height=32, spp=3, max_depth=5)
+    k3, k2 = im.LAUNCHES, mm.LAUNCHES
+    plain = ot.render(scene, cfg.replace(backend="jnp"), seed=1)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES > k3 and mm.LAUNCHES == k2
+    fused = ot.render(scene, cfg, seed=1)
+    assert mm.LAUNCHES == k2 + 1
+    diff = (plain - fused).abs()
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99

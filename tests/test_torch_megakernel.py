@@ -109,14 +109,19 @@ def test_render_needs_cuda_by_default(monkeypatch):
 
 
 def test_unsupported_scenes_raise_on_cuda():
+    from opencl_ray_tracer_tpu_torch.tracer.render import kernel_route
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
     hdr = dataclasses.replace(ot.readme_scene(),
                               sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     with pytest.raises(NotImplementedError, match="HDR slice"):
         ot.render(hdr, cfg, device="cuda")
+    # more spheres than the kernel takes: the plain tracer on the card, as
+    # the JAX package's render() takes its jnp tracer
     many = ot.book_cover_scene(n_random=200)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        ot.render(many, cfg, device="cuda")
+    assert "1 to 128" in mk.unsupported_reason(many)
+    assert kernel_route(many, cfg) is None
+    assert kernel_route(ot.book_cover_scene(), cfg) == "megakernel"
+    assert kernel_route(ot.readme_scene(), cfg.replace(backend="jnp")) is None
     assert mk.supports(ot.readme_scene(), cfg)
     assert mk.supports(ot.book_cover_scene(), cfg)
     # the JAX predicate agrees on the same scenes

@@ -96,6 +96,10 @@ def test_port_imports_no_jax():
     code = ("import sys, opencl_ray_tracer_tpu_torch, "
             "opencl_ray_tracer_tpu_torch.kernels.megakernel, "
             "opencl_ray_tracer_tpu_torch.kernels.megagrad, "
+            "opencl_ray_tracer_tpu_torch.kernels.megamesh, "
+            "opencl_ray_tracer_tpu_torch.kernels.intersect_mm, "
+            "opencl_ray_tracer_tpu_torch.scene.builder, "
+            "opencl_ray_tracer_tpu_torch.io.procgen, "
             "opencl_ray_tracer_tpu_torch.io\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'opencl_ray_tracer_tpu' "

@@ -70,14 +70,22 @@ def test_closest_hit_matches(name):
 
 
 def test_closest_hit_refuses_triangles():
-    scene = ot.readme_scene()
-    tris = ot.Triangles(*(torch.zeros((1, 3)),) * 4, torch.zeros(1),
-                        torch.zeros(1), torch.zeros(1, dtype=torch.int32),
-                        torch.zeros(1, dtype=torch.int32))
+    """A triangle is tested only inside its gating box
+    (gpu_kernel.cl:374-391): without a box, no ray hits it."""
     import dataclasses
-    scene = dataclasses.replace(scene, triangles=tris)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        tint.closest_hit(scene, torch.zeros((2, 3)), torch.ones((2, 3)), 1e-3)
+    tv = torch.tensor([[[-1.0, -1.0, -2.0], [1.0, -1.0, -2.0],
+                        [0.0, 1.0, -2.0]]])
+    tris = ot.Triangles.from_vertices(tv, (0.5, 0.5, 0.5), 0.0, 0.0, 0)
+    scene = dataclasses.replace(ot.readme_scene(), spheres=ot.Spheres.empty(),
+                                triangles=tris)
+    o = torch.zeros((2, 3))
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.1, 0.0, -1.0]])
+    assert not tint.closest_hit(scene, o, d, 1e-3).hit.any()
+    boxed = dataclasses.replace(scene, boxes=ot.BoundingBoxes.single(
+        (-1.0, -1.0, -2.1), (1.0, 1.0, -1.9)))
+    h = tint.closest_hit(boxed, o, d, 1e-3)
+    assert h.hit.all()
+    torch.testing.assert_close(h.t[0], torch.tensor(2.0))
 
 
 def test_scatter_matches():
