@@ -45,11 +45,13 @@ Phases, each printing JSON lines on standard output:
 8. mesh parity: the mesh megakernel against its plain version on the same
    tables, at 160x90, 8 spp, depth 8, for the tests/test_megamesh.py scene
    (the reference spheres and a 192-triangle fuzzy-metal torus), the same
-   under a constant sky, as a dielectric, as an emitter, and with the mesh
-   behind the camera; the forward tolerance above.  Then the
-   closest-triangle kernel against its plain version on 2^20 rays aimed
-   into the box of the 15,360-triangle torus: indices equal on at least
-   99.99% of the rays, t within 1e-6 relative where they agree.
+   under a constant sky, as a dielectric, as an emitter, with the mesh
+   behind the camera, and split over 40 gating boxes; the forward
+   tolerance above.  Then the closest-triangle kernel against its plain
+   version on 2^20 rays aimed into the box of the 15,360-triangle torus,
+   and on 2^16 rays into a 2,304-triangle torus split over 40 boxes:
+   indices equal on at least 99.99% of the rays, t within 1e-6 relative
+   where they agree.
 9. the mesh main path: ``render(reference_scene(16/9, mesh_tris=tris,
    mesh_aabb=aabb), REFERENCE_DEFAULTS)`` (1280x720, 5 spp, depth 32) with
    the bundled 576-triangle torus and with the 15,360-triangle procedural
@@ -58,7 +60,8 @@ Phases, each printing JSON lines on standard output:
    and the plain version against it (at full size for 576 triangles, at
    320x180 for 15,360), then through ``render()``, one warm-up and the
    minimum of 3, counts set to 0 just before and read just after, the image
-   bit-identical to the kernel's.
+   bit-identical to the kernel's; and the render's host time, part by part
+   (the route, the kernel's inputs on a cache hit, their build on a miss).
 10. the plain tracer on the card: ``render()`` with backend "jnp" on the
    15,360-triangle scene at the same configuration, whose triangle hit is
    the closest-triangle kernel (counted, each launch timed by CUDA
@@ -280,6 +283,24 @@ def torus_scene(n_major: int | None = None, n_minor: int | None = None,
                                triangles=dataclasses.replace(t, **fields))
 
 
+def split_boxes(scene, n_boxes: int = 40):
+    """The scene with triangle i in gating box i % n_boxes, each box the
+    bounds of its triangles and every third moved 50 units away (its
+    triangles are never drawn): more boxes than a 32-bit mask holds."""
+    import opencl_ray_tracer_tpu_torch as ot
+    t = scene.triangles
+    bid = torch.arange(t.count, dtype=torch.int32) % n_boxes
+    pts = torch.stack([t.p0, t.p1, t.p2], 1)
+    lo = torch.stack([pts[bid == b].reshape(-1, 3).amin(0)
+                      for b in range(n_boxes)])
+    hi = torch.stack([pts[bid == b].reshape(-1, 3).amax(0)
+                      for b in range(n_boxes)])
+    away = (torch.arange(n_boxes) % 3 == 0)[:, None] * 50.0
+    return dataclasses.replace(
+        scene, triangles=dataclasses.replace(t, box_id=bid),
+        boxes=ot.BoundingBoxes(lo + away, hi + away))
+
+
 def bound_of(flops: float, io_bytes: float) -> dict:
     """The least time for flops and bytes, and which of the two sets it."""
     ms = 1e3 * max(flops / PEAK_FP32_FLOPS, io_bytes / PEAK_HBM_BYTES)
@@ -296,6 +317,8 @@ def mesh_phases(dev) -> tuple:
     from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
     from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
     from opencl_ray_tracer_tpu_torch.scene import materials as mat
+    from opencl_ray_tracer_tpu_torch.tracer import clusters
+    from opencl_ray_tracer_tpu_torch.tracer.render import kernel_route
 
     def mesh_tables(scene):
         scene = scene.to(dev)
@@ -336,6 +359,7 @@ def mesh_phases(dev) -> tuple:
         "mesh_emissive": torus_scene(12, 8, near, mat_type=mat.EMISSIVE,
                                      albedo=(2.0, 1.5, 1.0)),
         "mesh_behind_camera": torus_scene(12, 8, (-3.0, 0.2, 4.0)),
+        "mesh_40_boxes": split_boxes(torus_scene(12, 8, near)),
     }
     mesh_parity_max = 0.0
     for name, scene in cases.items():
@@ -394,6 +418,20 @@ def mesh_phases(dev) -> tuple:
     k3_random = k3_check("torus_15360_random_2^20", im.mesh_tables(big), o, d)
     if k3_random["hit_share"] < 0.1:
         fail(f"the random rays miss the mesh: {k3_random}")
+    # and on 2^16 rays into the 40 boxes of a split torus
+    boxed = split_boxes(torus_scene(48, 24, near)).to(dev)
+    kept = torch.arange(40, device=dev) % 3 != 0
+    lo = boxed.boxes.box_min[kept].amin(0)
+    hi = boxed.boxes.box_max[kept].amax(0)
+    target = lo + (hi - lo) * torch.rand((2**16, 3), generator=gen,
+                                         device=dev)
+    o = (boxed.camera.look_from + 0.5 * torch.randn(
+        (2**16, 3), generator=gen, device=dev)).contiguous()
+    d = (target - o).contiguous()
+    k3_boxes = k3_check("torus_2304_40_boxes_2^16", im.mesh_tables(boxed),
+                        o, d)
+    if k3_boxes["hit_share"] < 0.01:
+        fail(f"the random rays miss the split mesh: {k3_boxes}")
     del o, d, target
 
     # ---- 9. the mesh main path ----
@@ -443,6 +481,29 @@ def mesh_phases(dev) -> tuple:
     if mesh_launches < 1 or im.LAUNCHES or mk.LAUNCHES:
         fail(f"the mesh main path did not run the mesh megakernel alone: "
              f"{mesh_launches}, {im.LAUNCHES}, {mk.LAUNCHES}")
+    # the render's host time, part by part: the route (the mesh material's
+    # check), the inputs on a cache hit (the scene read to the host and
+    # hashed), and, on a miss, the plan and the rest of the inputs' build
+    host = {}
+    for name, scene in meshes.items():
+        def build():
+            mm._INPUTS.clear()
+            im._TABLES.clear()
+            clusters._PLAN_CACHE.clear()
+            return mm.mesh_inputs(scene, dev)
+
+        def plan():
+            clusters._PLAN_CACHE.clear()
+            return clusters.plan_for_scene(scene, im.MESH_CHUNK)
+
+        host[name] = {
+            "route_ms": 1e3 * timed(lambda: kernel_route(scene, ref))[0],
+            "inputs_hit_ms": 1e3 * timed(
+                lambda: mm.mesh_inputs(scene, dev))[0],
+            "inputs_build_ms": 1e3 * timed(build)[0],
+            "plan_build_ms": 1e3 * timed(plan)[0]}
+        host[name]["render_less_kernel_ms"] = (
+            1e3 * runs[name][0] - full[name]["kernel_ms"])
     for name, (secs, img) in runs.items():
         mean = float(img.mean())
         if not (img.shape == (ref.height, ref.width, 3)
@@ -454,7 +515,8 @@ def mesh_phases(dev) -> tuple:
         emit({"phase": "mesh_main_path", "case": name,
               "size": "1280x720x5/d32", "seconds": secs, "ms": 1e3 * secs,
               "camera_samples_per_s": n_pix * ref.spp / secs,
-              "image_mean": mean, "launches_so_far": mesh_launches})
+              "image_mean": mean, "launches_so_far": mesh_launches,
+              "host": host[name]})
 
     # ---- 10. the plain tracer on the card, with the closest-triangle
     # kernel as its triangle hit; each of its launches timed by CUDA events
@@ -529,6 +591,7 @@ def mesh_phases(dev) -> tuple:
         "torus_15360_plain_size": f["check_size"],
         "torus_15360_max_abs_err": f["max_abs_diff"],
         "render_ms": {k_: 1e3 * v[0] for k_, v in runs.items()},
+        "render_host_ms": host,
     }, {
         "name": "closest_tri",
         "route": "cuda",
@@ -551,6 +614,8 @@ def mesh_phases(dev) -> tuple:
         "random_2^20_plain_ms": k3_random["plain_ms"],
         "random_2^20_bound_ms": k3_random["bound_ms"],
         "random_2^20_index_agree": k3_random["index_agree"],
+        "40_boxes_2^16_index_agree": k3_boxes["index_agree"],
+        "40_boxes_2^16_ms": k3_boxes["kernel_ms"],
     })
 
 

@@ -55,13 +55,14 @@ __global__ void __launch_bounds__(kThreads) closest_tri_kernel(const Params p) {
     }
   float inv[3], m[3];
   ray_features(o, d, inv, m);
-  const uint32_t mask = valid ? box_mask(p.mt, o, inv) : 0u;
+  BoxGate box = valid ? first_box(p.mt, o, inv) : BoxGate{-1, false};
+  const bool any_box = box.hit;
 
   float best_t = kBig;
   int best_i = 0;
   unsigned int tests = 0;
   for (int ci = 0; ci < p.mt.n_chunks; ++ci) {
-    const bool gate = mask && chunk_gate(p.mt, ci, mask, o, inv, best_t);
+    const bool gate = any_box && chunk_gate(p.mt, ci, box, o, inv, best_t);
     if (!__syncthreads_or(gate)) continue;
     for (int k = threadIdx.x; k < kTriRows * kChunk; k += blockDim.x)
       s_tri[k] = p.mt.tri[(k / kChunk) * p.mt.t_pad + ci * kChunk +
@@ -95,7 +96,7 @@ extern "C" int closest_tri_launch(
     const float* o, const float* d, int n_rays, float t_min, float* out_t,
     int* out_i, unsigned long long* tests, void* stream) {
   if (n_rays < 0 || n_chunks < 0 || t_pad < n_chunks * kChunk ||
-      n_boxes < 1 || n_boxes > kMaxBoxes)
+      n_boxes < 1)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   Params p;

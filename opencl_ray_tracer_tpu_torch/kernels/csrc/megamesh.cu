@@ -106,10 +106,10 @@ __device__ __forceinline__ void closest_triangle(const MeshTables& mt,
                                                  unsigned int& tests) {
   float inv[3], m[3];
   ray_features(o, d, inv, m);
-  const uint32_t mask = box_mask(mt, o, inv);
-  if (!mask) return;
+  BoxGate box = first_box(mt, o, inv);
+  if (!box.hit) return;
   for (int ci = 0; ci < mt.n_chunks; ++ci)
-    if (chunk_gate(mt, ci, mask, o, inv, fminf(lim, best_t)))
+    if (chunk_gate(mt, ci, box, o, inv, fminf(lim, best_t)))
       chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv, t_min,
                  lim, best_t, best_i, tests);
 }
@@ -248,7 +248,7 @@ extern "C" int mesh_megakernel_launch(
     float t_min, int flags, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || tab_w < n_spheres ||
       n_chunks < 1 || t_pad < n_chunks * kChunk || n_boxes < 1 ||
-      n_boxes > kMaxBoxes || n_pix < 0 || width < 1 || height < 1 ||
+      n_pix < 0 || width < 1 || height < 1 ||
       spp < 1 || max_depth < 1)
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return 0;

@@ -29,7 +29,6 @@ namespace ort {
 constexpr int kChunk = 128;       // triangles per plan chunk (MESH_CHUNK)
 constexpr int kSub = 8;           // sub-boxes per chunk (MESH_SUB_BOXES)
 constexpr int kRun = kChunk / kSub;
-constexpr int kMaxBoxes = 32;     // gating boxes, one bit each
 constexpr float kTriEps = 1e-5f;  // gpu_kernel.cl:496
 
 // Rows of the triangle table (tracer/mesh_accel.py T_*): a_col; u_d and e1;
@@ -123,25 +122,38 @@ __device__ __forceinline__ void ray_features(const float o[3],
   m[2] = fmaf(o[0], d[1], -(o[1] * d[0]));
 }
 
-// Bit b set when the ray hits gating box b.
-__device__ __forceinline__ uint32_t box_mask(const MeshTables& mt,
+// The gating box a ray tested last, and whether the ray hits it.  The plan
+// groups chunks by box (and orders them front to back), so a run of chunks
+// shares one test.
+struct BoxGate {
+  int id;
+  bool hit;
+};
+
+// The first gating box the ray hits: hit is false when it hits none, and
+// then no triangle is tested (gpu_kernel.cl:374-391).
+__device__ __forceinline__ BoxGate first_box(const MeshTables& mt,
                                              const float o[3],
                                              const float inv[3]) {
-  uint32_t mask = 0u;
   float lo;
   for (int b = 0; b < mt.n_boxes; ++b)
-    if (slab(mt.boxes + 6 * b, o, inv, lo)) mask |= 1u << b;
-  return mask;
+    if (slab(mt.boxes + 6 * b, o, inv, lo)) return BoxGate{b, true};
+  return BoxGate{-1, false};
 }
 
-// Whether the ray may find a triangle in chunk ci nearer than lim: its
-// gating box is hit, and its AABB is entered before lim.
+// Whether the ray may find a triangle in chunk ci nearer than lim: it hits
+// the chunk's gating box (tested again only when the box changes), and it
+// enters the chunk's AABB before lim.
 __device__ __forceinline__ bool chunk_gate(const MeshTables& mt, int ci,
-                                           uint32_t mask, const float o[3],
+                                           BoxGate& box, const float o[3],
                                            const float inv[3], float lim) {
   float lo;
-  return ((mask >> __ldg(mt.chunk_box + ci)) & 1u) &&
-         slab(mt.cluster + 6 * ci, o, inv, lo) && lo < lim;
+  const int b = __ldg(mt.chunk_box + ci);
+  if (b != box.id) {
+    box.id = b;
+    box.hit = slab(mt.boxes + 6 * b, o, inv, lo);
+  }
+  return box.hit && slab(mt.cluster + 6 * ci, o, inv, lo) && lo < lim;
 }
 
 // The runs of chunk ci whose sub-box the ray enters before the best t so

@@ -14,21 +14,26 @@ and nowhere else.
 ``mesh_tables`` builds the tables both this kernel and the mesh megakernel
 read: the triangle table in the plan's order (``MESH_CHUNK`` triangles per
 chunk, front to back from the camera), the chunks' padded AABBs and
-sub-boxes, each chunk's gating box and the gating boxes.
+sub-boxes, each chunk's gating box and the gating boxes.  It keeps the
+tables of the last few scenes, keyed by a digest of the leaves they are
+built from (``leaves_key``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..scene import scene_to_numpy
 from ..tracer.clusters import permute, plan_for_scene, subcluster_bounds
 from ..tracer.intersect import closest_hit, hit_aabbs
 from ..tracer.mesh_accel import (RAY_CHUNK, TRI_ROWS, T_N, TriFeatures,
                                  build_tri_features, merge_triangle_hit,
-                                 mm_closest_tri, sphere_only, tri_table)
+                                 mm_closest_tri, sphere_only)
 from . import _build
 
 # Triangles per plan chunk and sub-boxes per chunk (the kernels' kChunk and
@@ -36,8 +41,8 @@ from . import _build
 # eight sub-boxes.
 MESH_CHUNK = 128
 MESH_SUB_BOXES = 8
-# Gating boxes the kernels take (one bit each, csrc/mesh.cuh kMaxBoxes).
-MAX_BOXES = 32
+# Entries of each host-side cache of built tables.
+CACHE_ENTRIES = 8
 
 # Launches of the CUDA kernel since the count was last set to 0.
 LAUNCHES = 0
@@ -62,20 +67,58 @@ class MeshTables(NamedTuple):
     feats: TriFeatures       # per-triangle materials, plan order
 
 
-def mesh_tables(scene) -> MeshTables:
-    """The tables of a scene with triangles and 1..MAX_BOXES gating boxes,
-    on the scene's device."""
+def leaves_key(leaves: dict, *extra) -> tuple:
+    """A cache key of numpy leaves: the SHA-256 of their paths, dtypes,
+    shapes and bytes, followed by ``extra``."""
+    digest = hashlib.sha256()
+    for path in sorted(leaves):
+        a = np.ascontiguousarray(leaves[path])
+        digest.update(f"{path}:{a.dtype}:{a.shape};".encode())
+        digest.update(a)
+    return (digest.hexdigest(), *extra)
+
+
+def cached(cache: dict, key, build):
+    """cache[key], built first when missing; the oldest of CACHE_ENTRIES
+    entries goes."""
+    value = cache.get(key)
+    if value is None:
+        value = build()
+        if len(cache) >= CACHE_ENTRIES:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+    return value
+
+
+_TABLES: dict = {}
+
+
+def mesh_tables(scene, leaves: dict | None = None) -> MeshTables:
+    """The tables of a scene with triangles in one or more gating boxes, on
+    the scene's device.  leaves: the scene's ``scene_to_numpy``, when the
+    caller has read it already."""
     tris = scene.triangles
-    if tris.count == 0 or not 0 < scene.boxes.count <= MAX_BOXES:
-        raise ValueError(f"the mesh kernels take triangles in 1 to "
-                         f"{MAX_BOXES} gating boxes")
+    if tris.count == 0 or scene.boxes.count == 0:
+        raise ValueError("the mesh kernels take triangles in one or more "
+                         "gating boxes")
+    leaves = scene_to_numpy(scene) if leaves is None else leaves
+    key = leaves_key({p: a for p, a in leaves.items()
+                      if p.startswith(("triangles.", "boxes."))
+                      or p == "camera.look_from"}, str(tris.p0.device))
+    return cached(_TABLES, key, lambda: _build_tables(scene))
+
+
+def _build_tables(scene) -> MeshTables:
+    tris = scene.triangles
     plan = plan_for_scene(scene, MESH_CHUNK)
+    if not all(0 <= b < scene.boxes.count for b in plan.chunk_box_id):
+        raise ValueError("every triangle's box_id must name a gating box")
     feats = build_tri_features(scene, MESH_CHUNK, plan=plan)
     sub = subcluster_bounds(permute(tris.p0, plan), permute(tris.p1, plan),
                             permute(tris.p2, plan), plan, MESH_SUB_BOXES)
     dev = tris.p0.device
     return MeshTables(
-        tri=tri_table(feats),
+        tri=feats.table,
         cluster=torch.cat([feats.cluster_min, feats.cluster_max],
                           dim=1).contiguous(),
         sub=sub.contiguous(),
@@ -87,7 +130,8 @@ def mesh_tables(scene) -> MeshTables:
 
 
 def check_tables(tab: MeshTables) -> None:
-    """Raise unless the tables are what the kernels read."""
+    """Raise unless the tables are what the kernels read (the chunks' box
+    ids are checked when ``mesh_tables`` builds them)."""
     n_chunks = tab.chunk_box.shape[0]
     shapes = ((tab.tri, (TRI_ROWS, n_chunks * MESH_CHUNK), torch.float32),
               (tab.cluster, (n_chunks, 6), torch.float32),
@@ -98,9 +142,9 @@ def check_tables(tab: MeshTables) -> None:
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != tab.tri.device):
             raise ValueError("mesh tables do not match mesh_tables()")
-    if n_chunks < 1 or not 0 < tab.boxes.shape[0] <= MAX_BOXES:
-        raise ValueError(f"the mesh kernels take 1 or more chunks and 1 to "
-                         f"{MAX_BOXES} gating boxes")
+    if n_chunks < 1 or tab.boxes.shape[0] < 1:
+        raise ValueError("the mesh kernels take one or more chunks and "
+                         "gating boxes")
 
 
 def _check_rays(tab, o, d, tests):

@@ -12,9 +12,11 @@ order.  The wrapper runs it for tensors on the CPU and nowhere else.
 
 A scene is in scope (``supports_mesh``) when it has triangles of one
 uniform material (the reference gives each mesh one, ``utility.cpp:99``)
-in 1 to 32 gating boxes, at most 128 spheres and a gradient or constant
-sky.  The mesh material rides in camera-table slots ``C_MA_R`` ..
-``C_M_INVIOR`` and the flags.
+in one or more gating boxes, at most 128 spheres and a gradient or
+constant sky.  The mesh material rides in camera-table slots ``C_MA_R`` ..
+``C_M_INVIOR`` and the flags.  ``mesh_inputs`` keeps the kernel's inputs of
+the last few scenes, keyed by a digest of every leaf, so that rendering a
+scene again reads it to the host and hashes it, and builds nothing.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ import torch
 
 from .._fp import div
 from ..config import RenderConfig
-from ..scene import Scene
+from ..scene import Scene, scene_to_numpy
 from ..scene import materials as mat
 from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
 from ..tracer.wavefront import render_rows_wavefront
 from . import _build
-from .intersect_mm import (MAX_BOXES, MeshTables, check_tables,
-                           closest_tri_plain, mesh_tables, tri_hit_fn)
+from .intersect_mm import (MeshTables, cached, check_tables,
+                           closest_tri_plain, leaves_key, mesh_tables,
+                           tri_hit_fn)
 from .megakernel import (LANES, MAX_SPHERES, N_FIELDS, _flag_bits,
                          camera_table, scene_from_tables, specialize_flags,
                          sphere_table)
@@ -54,19 +57,22 @@ def _library():
     return _build.load("megamesh", _SYMBOLS)
 
 
-def _mesh_uniform_material(scene: Scene):
-    """(albedo(3,), fuzz, ior, mat_type) when every triangle has the same
-    material, else None."""
-    tris = scene.triangles
-    if tris.count == 0:
+def _uniform_material(albedo, fuzz, ior, mat_type):
+    """(albedo(3,), fuzz, ior, mat_type) of numpy per-triangle materials
+    when every triangle has the same, else None."""
+    if mat_type.shape[0] == 0:
         return ((0.0, 0.0, 0.0), 0.0, 0.0, 0)
-    al, fz, io, ty = (x.detach().cpu().numpy() for x in
-                      (tris.albedo, tris.fuzz, tris.ior, tris.mat_type))
-    if not ((al == al[0]).all() and (fz == fz[0]).all()
-            and (io == io[0]).all() and (ty == ty[0]).all()):
+    if not ((albedo == albedo[0]).all() and (fuzz == fuzz[0]).all()
+            and (ior == ior[0]).all() and (mat_type == mat_type[0]).all()):
         return None
-    return (tuple(float(x) for x in al[0]), float(fz[0]), float(io[0]),
-            int(ty[0]))
+    return (tuple(float(x) for x in albedo[0]), float(fuzz[0]),
+            float(ior[0]), int(mat_type[0]))
+
+
+def _mesh_uniform_material(scene: Scene):
+    t = scene.triangles
+    return _uniform_material(*(x.detach().cpu().numpy() for x in
+                               (t.albedo, t.fuzz, t.ior, t.mat_type)))
 
 
 def unsupported_mesh_reason(scene: Scene) -> str | None:
@@ -78,9 +84,8 @@ def unsupported_mesh_reason(scene: Scene) -> str | None:
         return f"unknown sky kind {scene.sky.kind}"
     if scene.triangles.count == 0:
         return "the mesh megakernel renders scenes with triangles"
-    if not 0 < scene.boxes.count <= MAX_BOXES:
-        return (f"the mesh megakernel takes triangles in 1 to {MAX_BOXES} "
-                "gating boxes")
+    if scene.boxes.count == 0:
+        return "the mesh megakernel takes triangles in gating boxes"
     if scene.spheres.count > MAX_SPHERES:
         return f"the mesh megakernel takes at most {MAX_SPHERES} spheres"
     if _mesh_uniform_material(scene) is None:
@@ -93,19 +98,23 @@ def supports_mesh(scene: Scene, cfg: RenderConfig) -> bool:
     return unsupported_mesh_reason(scene) is None
 
 
-def specialize_mesh_flags(scene: Scene, conservative: bool = False):
-    """(has_metal, has_diel, has_emit, has_fuzz, has_aperture, mesh_type):
-    ``megakernel.specialize_flags`` with the mesh material counted in."""
-    m = _mesh_uniform_material(scene)
-    if m is None:
+def _with_mesh(flags, material, conservative: bool):
+    if material is None:
         raise ValueError("the mesh material must be uniform")
-    _, m_fuzz, _, m_type = m
-    metal, diel, emit, fuzz, aperture = specialize_flags(scene, conservative)
+    _, m_fuzz, _, m_type = material
+    metal, diel, emit, fuzz, aperture = flags
     metal = metal or m_type == mat.METAL
     fuzz = (metal if conservative
             else fuzz or (m_type == mat.METAL and m_fuzz > 0))
     return (metal, diel or m_type == mat.DIELECTRIC,
             emit or m_type == mat.EMISSIVE, fuzz, aperture, m_type)
+
+
+def specialize_mesh_flags(scene: Scene, conservative: bool = False):
+    """(has_metal, has_diel, has_emit, has_fuzz, has_aperture, mesh_type):
+    ``megakernel.specialize_flags`` with the mesh material counted in."""
+    return _with_mesh(specialize_flags(scene, conservative),
+                      _mesh_uniform_material(scene), conservative)
 
 
 def mesh_camera_table(scene: Scene) -> torch.Tensor:
@@ -222,11 +231,35 @@ def render_mesh_plain(cam, sph, n_spheres: int, tab: MeshTables,
     return img[:, 0], img[:, 1], img[:, 2]
 
 
-def render_megamesh(scene: Scene, cfg: RenderConfig, seed: int = 0):
-    """(H, W, 3) image of a supported scene through ``render_mesh`` on the
-    scene's device."""
-    r, g, b = render_mesh(mesh_camera_table(scene), sphere_table(scene),
-                          scene.spheres.count, mesh_tables(scene), cfg,
-                          scene.sky.kind, specialize_mesh_flags(scene), seed,
-                          cfg.width * cfg.height)
+_INPUTS: dict = {}
+
+
+def mesh_inputs(scene: Scene, device) -> tuple:
+    """The kernel's inputs for a supported scene on ``device``: (camera
+    table, sphere table, sphere count, mesh tables, flags), cached under a
+    digest of every leaf of the scene as given, so that a hit moves
+    nothing to the device."""
+    leaves = scene_to_numpy(scene)
+    device = torch.device(device)
+
+    def build():
+        s = scene.to(device)
+        material = _uniform_material(*(leaves[f"triangles.{f}"] for f in
+                                       ("albedo", "fuzz", "ior", "mat_type")))
+        return (mesh_camera_table(s), sphere_table(s), s.spheres.count,
+                mesh_tables(s, leaves),
+                _with_mesh(specialize_flags(s), material, False))
+
+    return cached(_INPUTS, leaves_key(leaves, scene.sky.kind, str(device)),
+                  build)
+
+
+def render_megamesh(scene: Scene, cfg: RenderConfig, seed: int = 0,
+                    device=None):
+    """(H, W, 3) image of a supported scene through ``render_mesh`` on
+    ``device`` (None: the scene's)."""
+    device = scene.triangles.p0.device if device is None else device
+    cam, sph, n_spheres, tab, flags = mesh_inputs(scene, device)
+    r, g, b = render_mesh(cam, sph, n_spheres, tab, cfg, scene.sky.kind,
+                          flags, seed, cfg.width * cfg.height)
     return torch.stack([r, g, b], dim=-1).reshape(cfg.height, cfg.width, 3)

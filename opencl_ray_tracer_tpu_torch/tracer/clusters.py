@@ -19,9 +19,10 @@ inside both boxes, so skipping a chunk or a run whose box a ray misses
 gives the image of the brute-force scan.
 
 The plan is the JAX package's byte for byte (``np.argpartition`` decides
-the order, so the algorithm is copied exactly).  Its cache key covers the
-whole triangle arrays, since a fitted mesh changes rows that a sample of
-them could skip.
+the order, so the algorithm is copied exactly), and so are the bounds but
+for the runs that hold only padding (``subcluster_bounds``).  The plan's
+cache key covers the whole triangle arrays, since a fitted mesh changes
+rows that a sample of them could skip.
 """
 
 from __future__ import annotations
@@ -187,14 +188,20 @@ def cluster_bounds(p0, p1, p2, plan: MeshPlan, rel_eps: float = 1e-4,
 def subcluster_bounds(p0, p1, p2, plan: MeshPlan, k: int,
                       rel_eps: float = 1e-4, abs_eps: float = 1e-5):
     """k AABBs per chunk, over its consecutive runs of chunk/k triangles,
-    padded as in ``cluster_bounds``; an all-padding run gets an inverted
-    box that no slab test hits.  Returns (n_chunks*k, 6) [min, max] rows."""
+    padded as in ``cluster_bounds``.  An all-padding run gets min = max =
+    3.4e38 on every axis: the slab test (``hit_aabbs``, ``csrc/mesh.cuh``)
+    finds each axis's entry and exit equal, so its exit is never after its
+    entry and no ray enters the run.  (The JAX package gives such a run the
+    inverted box [3.4e38, -3.4e38], which that test, taking the min and max
+    of the two plane distances, would hit.)  Returns (n_chunks*k, 6)
+    [min, max] rows."""
     if plan.chunk % k:
         raise ValueError("k must divide the plan's chunk")
     lo, hi = _corner_bounds(p0, p1, p2, plan)
     sub = plan.chunk // k
     cmin = lo.reshape(plan.n_chunks * k, sub, 3).amin(dim=1)
     cmax = hi.reshape(plan.n_chunks * k, sub, 3).amax(dim=1)
+    cmax = torch.where(cmin > cmax, cmin, cmax)      # all-padding runs
     ext = torch.clamp(cmax - cmin, min=0.0).amax(dim=-1, keepdim=True)
     pad = ext * rel_eps + abs_eps
     return torch.cat([cmin - pad, cmax + pad], dim=1)

@@ -14,13 +14,13 @@ then u = u_num / a in [0,1], v = v_num / a >= 0, u + v <= 1, |a| >= 1e-5
 (strict, ``:520``): the accept tests of the direct form, up to the
 rounding of the dot products.
 
-``TriFeatures.weights`` keeps the JAX package's (n_chunks, 10, 4*chunk)
-layout.  The port evaluates it in one form everywhere, here and in its
-CUDA kernels (``kernels/csrc/mesh.cuh``): the ``TRI_ROWS`` rows of the
-triangle table (``tri_table``, the nonzero rows of the weights and the
-unit normal), each dot product an fma chain in row order, the division a
-multiplication by 1/a.  The winner's normal is the table's unit normal,
-n / max(|n|, 1e-20).
+``TriFeatures.table`` holds the nonzero rows of these columns and the unit
+normal, ``TRI_ROWS`` rows with one column per triangle (the JAX package
+keeps the same numbers as (n_chunks, 10, 4*chunk) matmul weights).  The
+port evaluates it in one form everywhere, here and in its CUDA kernels
+(``kernels/csrc/mesh.cuh``): each dot product an fma chain in row order,
+the division a multiplication by 1/a.  The winner's normal is the table's
+unit normal, n / max(|n|, 1e-20).
 """
 
 from __future__ import annotations
@@ -45,8 +45,7 @@ TRI_ROWS = 22
 
 
 class TriFeatures(NamedTuple):
-    weights: torch.Tensor   # (n_chunks, 10, 4*chunk) matmul weights
-    normal: torch.Tensor    # (T_pad, 3) unit geometric normals
+    table: torch.Tensor     # (TRI_ROWS, T_pad) triangle table
     albedo: torch.Tensor    # (T_pad, 3)
     fuzz: torch.Tensor      # (T_pad,)
     ior: torch.Tensor       # (T_pad,)
@@ -59,6 +58,11 @@ class TriFeatures(NamedTuple):
     cluster_max: torch.Tensor | None = None   # (n_chunks, 3)
     chunk_box_id: tuple | None = None         # per-chunk gating box id
 
+    @property
+    def normal(self) -> torch.Tensor:
+        """(T_pad, 3) unit geometric normals."""
+        return self.table[T_N:T_N + 3].T
+
 
 def _pad_rows(x, pad, fill=0):
     tail = torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
@@ -68,8 +72,8 @@ def _pad_rows(x, pad, fill=0):
 
 def build_tri_features(scene, chunk: int = MM_CHUNK,
                        plan=None) -> TriFeatures | None:
-    """The per-triangle matmul columns, once per scene; None without
-    triangles.  With a ``clusters.MeshPlan`` the triangles take the plan's
+    """The triangle table and per-triangle materials, once per scene; None
+    without triangles.  With a ``clusters.MeshPlan`` the triangles take the plan's
     order (indices in the tables then refer to it) and each chunk gets
     its padded AABB; the degenerate padding triangles never hit (a == 0)."""
     tris = scene.triangles
@@ -108,43 +112,15 @@ def _features_from(p0, p1, p2, albedo, fuzz, ior, mat_type, box_id, chunk,
     v_d = -cross(p0, e0)
     t_bias = -dot3(p0, n)
 
-    tp = p0.shape[0]
-    z3 = torch.zeros((tp, 3), dtype=p0.dtype, device=p0.device)
-    z1 = torch.zeros((tp, 1), dtype=p0.dtype, device=p0.device)
-    # rows: [d(3), m(3), o(3), 1]; columns per quantity
-    w_a = torch.cat([a_col, z3, z3, z1], dim=1)                 # (tp, 10)
-    w_u = torch.cat([u_d, e1, z3, z1], dim=1)
-    w_v = torch.cat([v_d, -e0, z3, z1], dim=1)
-    w_t = torch.cat([z3, z3, n, t_bias[:, None]], dim=1)
-    n_chunks = tp // chunk
-
-    def chunk_w(w):  # (tp, 10) -> (n_chunks, 10, chunk)
-        return w.reshape(n_chunks, chunk, 10).transpose(1, 2)
-
-    weights = torch.cat([chunk_w(w_a), chunk_w(w_u), chunk_w(w_v),
-                         chunk_w(w_t)], dim=2)
     norm = torch.sqrt(dot3(n, n))[:, None]
     nn = n / torch.clamp(norm, min=1e-20)
-    return TriFeatures(weights=weights, normal=nn, albedo=albedo, fuzz=fuzz,
-                       ior=ior, mat_type=mat_type, box_id=box_id,
-                       n_chunks=n_chunks, chunk=chunk,
+    table = torch.cat([a_col.T, u_d.T, e1.T, v_d.T, -e0.T, n.T,
+                       t_bias[None], nn.T], dim=0).contiguous()
+    return TriFeatures(table=table, albedo=albedo, fuzz=fuzz, ior=ior,
+                       mat_type=mat_type, box_id=box_id,
+                       n_chunks=p0.shape[0] // chunk, chunk=chunk,
                        cluster_min=cluster_min, cluster_max=cluster_max,
                        chunk_box_id=chunk_box_id)
-
-
-def tri_table(feats: TriFeatures) -> torch.Tensor:
-    """(TRI_ROWS, T_pad) f32 triangle table: the nonzero rows of the
-    weights (a: rows 0-2 of the a block; u and v: rows 0-5 of theirs; t:
-    rows 6-9) and the unit normal, one column per triangle."""
-    c = feats.chunk
-
-    def block(k, rows):
-        w = feats.weights[:, rows, k * c:(k + 1) * c]      # (n_chunks, r, c)
-        return w.transpose(0, 1).reshape(len(rows), -1)
-
-    return torch.cat([block(0, [0, 1, 2]), block(1, list(range(6))),
-                      block(2, list(range(6))), block(3, [6, 7, 8, 9]),
-                      feats.normal.T], dim=0).contiguous()
 
 
 def _chain(fs, ws):
@@ -249,7 +225,7 @@ def make_mm_hit_fn(scene, t_min: float = 1e-3,
     spheres = sphere_only(scene)
     # the padding never hits (a == 0): fold over the mesh's own columns
     t = scene.triangles.count
-    tab = tri_table(feats)[:, :t] if feats is not None else None
+    tab = feats.table[:, :t] if feats is not None else None
 
     def hit_fn(o, d):
         base = closest_hit(spheres, o, d, t_min)

@@ -54,17 +54,15 @@ def resolve_device(device=None) -> torch.device:
 def triangle_hit_fn(scene: Scene, cfg: RenderConfig, expected_rays: int):
     """The plain tracer's hit_fn for a scene with triangles, by
     cfg.tri_backend (the JAX package's ``render_rows`` rule): "pallas", or
-    "auto" on the card from 256 triangles in 1 to 32 gating boxes, takes
-    the closest-triangle kernel; "mm", or "auto" otherwise from 256
-    triangles, the matmul-form fold; None (the direct form of
-    ``closest_hit``) below 256."""
-    from ..kernels.intersect_mm import MAX_BOXES, make_kernel_hit_fn
+    "auto" on the card from 256 triangles, takes the closest-triangle
+    kernel; "mm", or "auto" otherwise from 256 triangles, the matmul-form
+    fold; None (the direct form of ``closest_hit``) below 256."""
+    from ..kernels.intersect_mm import make_kernel_hit_fn
     from .mesh_accel import make_mm_hit_fn
     n = scene.triangles.count
     on_card = scene.triangles.p0.device.type == "cuda"
     use_kernel = (cfg.tri_backend == "pallas"
-                  or (cfg.tri_backend == "auto" and on_card and n >= 256
-                      and 0 < scene.boxes.count <= MAX_BOXES))
+                  or (cfg.tri_backend == "auto" and on_card and n >= 256))
     if use_kernel:
         return make_kernel_hit_fn(scene, cfg.t_min)
     if cfg.tri_backend == "mm" or (cfg.tri_backend == "auto" and n >= 256):
@@ -145,7 +143,7 @@ def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None):
         route = kernel_route(scene, cfg)
         if route == "megamesh":
             from ..kernels.megamesh import render_megamesh
-            return render_megamesh(scene.to(device), cfg, seed)
+            return render_megamesh(scene, cfg, seed, device)
         if route == "megakernel":
             from ..kernels.megakernel import render_megakernel
             return render_megakernel(scene.to(device), cfg, seed)
@@ -166,9 +164,7 @@ def _render_plain(scene: Scene, cfg: RenderConfig, seed: int):
                      if cfg.height % r == 0)
     if cfg.height % chunk:
         raise ValueError("row_chunk must divide height")
-    hit_fn = (triangle_hit_fn(scene, cfg, chunk * cfg.width)
-              if scene.triangles.count > 0 else None)
-    out = [render_rows(scene, cfg, r0, chunk, seed, hit_fn=hit_fn)
+    out = [render_rows(scene, cfg, r0, chunk, seed)
            for r0 in range(0, cfg.height, chunk)]
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 

@@ -1,9 +1,11 @@
 """The port's cluster plans and triangle features against the JAX
 package's.  Plans (the permutation and each chunk's gating box) are
 identical byte for byte: both sides run the same numpy code on the same
-float32 triangles.  Bounds, permuted arrays and the matmul weights are
-torch against XLA under ``jax.jit``, within 1 ulp (XLA fuses the cross
-products, dot products and padding into fma chains as ``_fp.py`` does)."""
+float32 triangles.  Bounds, permuted arrays and the triangle table (the
+rows of the JAX matmul weights) are torch against XLA under ``jax.jit``,
+within 1 ulp (XLA fuses the cross products, dot products and padding into
+fma chains as ``_fp.py`` does).  The one difference by design: a sub-box
+run that holds only padding gets a box no ray enters."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from opencl_ray_tracer_tpu.io.procgen import make_torus_obj
 from opencl_ray_tracer_tpu.tracer import clusters as jcl
 from opencl_ray_tracer_tpu.tracer import mesh_accel as jma
 from opencl_ray_tracer_tpu_torch.tracer import clusters as tcl
+from opencl_ray_tracer_tpu_torch.tracer import intersect as tint
 from opencl_ray_tracer_tpu_torch.tracer import mesh_accel as tma
 
 torch.set_num_threads(1)
@@ -127,7 +130,38 @@ def test_bounds_and_permute_match_jax():
         tcl.permute(tt.box_id, plan, fill=-1).numpy(), np.asarray(jbid))
     cmin, cmax = tcl.cluster_bounds(*q, plan)
     assert _ulps(cmin.numpy(), jmin) <= 1 and _ulps(cmax.numpy(), jmax) <= 1
-    assert _ulps(tcl.subcluster_bounds(*q, plan, 8).numpy(), jsub) <= 1
+    sub = tcl.subcluster_bounds(*q, plan, 8).numpy()
+    jsub = np.asarray(jsub)
+    real = (plan.perm.reshape(-1, 128 // 8) >= 0).any(axis=1)
+    assert 0 < (~real).sum() < real.sum()
+    assert _ulps(sub[real], jsub[real]) <= 1
+    # padding runs: JAX's inverted box, the port's min = max = 3.4e38
+    assert (jsub[~real, :3] > jsub[~real, 3:]).all()
+    assert (sub[~real] == np.float32(3.4e38)).all()
+
+
+def test_no_ray_enters_a_padding_run():
+    """The slab test (the kernels' in csrc/mesh.cuh, ``hit_aabbs`` here)
+    takes the min and max of the two plane distances, so JAX's inverted box
+    for an all-padding run is entered by every ray; the port's box is
+    entered by none, while the real runs are entered."""
+    js, ts = _torus_scenes(24, 12)
+    plan = tcl.plan_for_scene(ts, 128)
+    tt = ts.triangles
+    q = [tcl.permute(x, plan) for x in (tt.p0, tt.p1, tt.p2)]
+    sub = tcl.subcluster_bounds(*q, plan, 8)
+    real = torch.as_tensor((plan.perm.reshape(-1, 16) >= 0).any(axis=1))
+    rng = np.random.default_rng(7)
+    o = rng.normal(0.0, 2.0, (2000, 3)).astype(np.float32)
+    d = rng.normal(size=(2000, 3)).astype(np.float32)
+    d[:300, 1:] = 0.0                           # axis-aligned: 1/0 = inf
+    d[300:600, 0] = 0.0
+    o[600:700] = sub[~real][0, :3].numpy()      # on the padding box itself
+    o, d = torch.tensor(o), torch.tensor(d)
+    assert not tint.hit_aabbs(o, d, sub[~real, :3], sub[~real, 3:]).any()
+    assert tint.hit_aabbs(o, d, sub[real, :3], sub[real, 3:]).any()
+    big = torch.full((1, 3), 3.4e38)
+    assert tint.hit_aabbs(o[:600], d[:600], big, -big).all()
 
 
 @pytest.mark.parametrize("planned", [False, True])
@@ -139,7 +173,8 @@ def test_build_tri_features_match_jax(planned):
     want = jax.jit(lambda s: jma.build_tri_features(s, chunk, plan=jplan))(js)
     got = tma.build_tri_features(ts, chunk, plan=plan)
     assert (got.n_chunks, got.chunk) == (want.n_chunks, want.chunk)
-    for f in ("weights", "normal", "albedo", "fuzz", "ior"):
+    assert _ulps(got.table.numpy(), _jax_table(want)) <= 1
+    for f in ("normal", "albedo", "fuzz", "ior"):
         assert _ulps(getattr(got, f).numpy(),
                      np.asarray(getattr(want, f))) <= 1, f
     for f in ("mat_type", "box_id"):
@@ -151,22 +186,36 @@ def test_build_tri_features_match_jax(planned):
         assert _ulps(got.cluster_max.numpy(), want.cluster_max) <= 1
 
 
+def _jax_table(feats):
+    """The JAX matmul weights (n_chunks, 10, 4*chunk) as the port's
+    triangle table: the nonzero rows of the a, u, v and t blocks (rows
+    [d, m, o, 1]: a 0-2, u and v 0-5, t 6-9) and the unit normal."""
+    c = feats.chunk
+    w = np.asarray(feats.weights)
+
+    def block(k, rows):
+        return (w[:, rows, k * c:(k + 1) * c].transpose(1, 0, 2)
+                .reshape(len(rows), -1))
+
+    return np.concatenate([block(0, [0, 1, 2]), block(1, list(range(6))),
+                           block(2, list(range(6))), block(3, [6, 7, 8, 9]),
+                           np.asarray(feats.normal).T])
+
+
 def test_tri_table_rows_are_the_weights():
-    """The kernels' triangle table holds the nonzero weight rows and the
-    unit normal, column for column."""
-    _, ts = _torus_scenes(24, 12)
+    """The kernels' triangle table holds the nonzero rows of the JAX
+    package's matmul weights and the unit normal, column for column, in
+    the plan's order; the padding's columns are all zero (a == 0 culls
+    them)."""
+    js, ts = _torus_scenes(24, 12)
     plan = tcl.plan_for_scene(ts, 128)
+    jplan = jcl.plan_for_scene(js, 128)
     f = tma.build_tri_features(ts, 128, plan=plan)
-    tab = tma.tri_table(f)
+    want = jax.jit(lambda s: jma.build_tri_features(s, 128, plan=jplan))(js)
+    tab = f.table
     assert tab.shape == (tma.TRI_ROWS, f.n_chunks * 128)
-    w = f.weights                                   # (n_chunks, 10, 4*128)
-    col = 128 + 5                                   # chunk 1, triangle 5
-    c, j = divmod(col, 128)
-    expect = torch.cat([w[c, 0:3, j], w[c, 0:6, 128 + j],
-                        w[c, 0:6, 256 + j], w[c, 6:10, 384 + j],
-                        f.normal[col]])
-    assert torch.equal(tab[:, col], expect)
-    # the padding's columns are all zero: a == 0 culls them
+    assert _ulps(tab.numpy(), _jax_table(want)) <= 1
+    assert torch.equal(f.normal, tab[tma.T_N:tma.T_N + 3].T)
     pad = torch.as_tensor(plan.perm < 0)
     assert pad.sum() == plan.n_chunks * 128 - ts.triangles.count
     assert not tab[:, pad].any()

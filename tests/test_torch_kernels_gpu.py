@@ -243,10 +243,28 @@ def mesh_scenes():
             scene, triangles=dataclasses.replace(t, **fields))
 
     return {"mesh": torus(),
+            "many_boxes": split_boxes(torus()),
             "const_sky": torus(sky=ot.Sky.constant((0.2, 0.4, 0.6))),
             "dielectric": torus(mat_type=mat.DIELECTRIC, ior=1.5),
             "emissive": torus(mat_type=mat.EMISSIVE, albedo=(2.0, 1.5, 1.0)),
             "hidden_box": torus(translate=(-3.0, 0.2, 4.0))}
+
+
+def split_boxes(scene, n_boxes=40):
+    """Triangle i in gating box i % n_boxes, each box the bounds of its
+    triangles and every third moved away (its triangles never drawn): more
+    boxes than a 32-bit mask holds."""
+    t = scene.triangles
+    bid = torch.arange(t.count, dtype=torch.int32) % n_boxes
+    pts = torch.stack([t.p0, t.p1, t.p2], 1)
+    lo = torch.stack([pts[bid == b].reshape(-1, 3).amin(0)
+                      for b in range(n_boxes)])
+    hi = torch.stack([pts[bid == b].reshape(-1, 3).amax(0)
+                      for b in range(n_boxes)])
+    away = (torch.arange(n_boxes) % 3 == 0)[:, None] * 50.0
+    return dataclasses.replace(
+        scene, triangles=dataclasses.replace(t, box_id=bid),
+        boxes=ot.BoundingBoxes(lo + away, hi + away))
 
 
 @pytest.mark.gpu
@@ -318,6 +336,33 @@ def test_closest_tri_matches_plain_on_card(cuda, n_rays):
     tp, ip = im.closest_tri_plain(tab, o, d, 1e-3)
     hit = tp < 1e38
     assert hit.float().mean() > 0.3
+    same = idx == ip
+    assert same.float().mean() >= 0.9999
+    rel = ((t - tp).abs() / tp.abs().clamp(min=1e-30))[same & hit]
+    assert rel.max() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_closest_tri_many_boxes_on_card(cuda):
+    """A 2,304-triangle torus over 40 gating boxes: the kernel tests each
+    chunk's own box, and agrees with its plain version."""
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    tris, aabb = parse_obj(make_torus_obj(48, 24))
+    scene = split_boxes(ot.reference_scene(mesh_tris=tris,
+                                           mesh_aabb=aabb)).to(cuda)
+    tab = im.mesh_tables(scene)
+    rng = np.random.default_rng(6)
+    o = torch.tensor(rng.normal(0.0, 2.0, (8192, 3)).astype(np.float32),
+                     device=cuda)
+    target = torch.tensor(rng.uniform(aabb[0], aabb[1], (8192, 3)).astype(
+        np.float32), device=cuda)
+    d = (target - o).contiguous()
+    t, idx = im.closest_tri(tab, o, d, 1e-3)
+    tp, ip = im.closest_tri_plain(tab, o, d, 1e-3)
+    hit = tp < 1e38
+    assert hit.float().mean() > 0.05
     same = idx == ip
     assert same.float().mean() >= 0.9999
     rel = ((t - tp).abs() / tp.abs().clamp(min=1e-30))[same & hit]

@@ -214,6 +214,42 @@ def test_closest_tri_wrapper_runs_plain_on_cpu():
         im.mesh_tables(dataclasses.replace(ts, boxes=ot.BoundingBoxes.empty()))
 
 
+def _many_box_scene(n_boxes=40):
+    """The random triangles, triangle i in box i % n_boxes, each box the
+    bounds of its triangles but every third one moved away, so that its
+    triangles are never tested."""
+    ts = _tri_scene(ot, spheres=False)
+    t = ts.triangles
+    bid = torch.arange(t.count, dtype=torch.int32) % n_boxes
+    pts = torch.stack([t.p0, t.p1, t.p2], 1)
+    lo = torch.stack([pts[bid == b].reshape(-1, 3).amin(0)
+                      for b in range(n_boxes)])
+    hi = torch.stack([pts[bid == b].reshape(-1, 3).amax(0)
+                      for b in range(n_boxes)])
+    away = (torch.arange(n_boxes) % 3 == 0)[:, None] * 50.0
+    return dataclasses.replace(
+        ts, triangles=dataclasses.replace(t, box_id=bid),
+        boxes=ot.BoundingBoxes(lo + away, hi + away))
+
+
+def test_many_gating_boxes():
+    """More gating boxes than the 32 bits of a mask: the plain version of
+    the closest-triangle kernel, over the plan's chunks and each chunk's
+    box, finds the direct form's hits."""
+    ts = _many_box_scene()
+    tab = im.mesh_tables(ts)
+    assert tab.boxes.shape[0] == 40
+    o, d = (torch.tensor(x) for x in _rays(400))
+    want = tint.closest_hit(ts, o, d, T_MIN)
+    t, idx = im.closest_tri(tab, o, d, T_MIN)
+    hit = t < 1e38
+    assert torch.equal(hit, want.hit) and hit.sum() > 20
+    torch.testing.assert_close(t[hit], want.t[hit], rtol=RTOL, atol=0)
+    # no winner lies in a moved box
+    perm = torch.tensor(im.plan_for_scene(ts, im.MESH_CHUNK).perm)
+    assert (ts.triangles.box_id[perm[idx[hit]]] % 3 != 0).all()
+
+
 def test_mm_form_matches_direct_form():
     """The port's two triangle forms agree (tests/test_mesh_accel.py's
     check, here on the port alone), and a scene without triangles passes

@@ -142,6 +142,13 @@ def test_scope_needs_one_material_and_a_box():
     assert kernel_route(mixed, cfg) is None      # the plain tracer
     boxless = dataclasses.replace(scene, boxes=ot.BoundingBoxes.empty())
     assert "gating boxes" in mm.unsupported_mesh_reason(boxless)
+    # any number of boxes: 40, triangle i in box i % 40
+    many = dataclasses.replace(
+        scene, triangles=dataclasses.replace(
+            t, box_id=torch.arange(t.count, dtype=torch.int32) % 40),
+        boxes=ot.BoundingBoxes(scene.boxes.box_min.expand(40, 3),
+                               scene.boxes.box_max.expand(40, 3)))
+    assert kernel_route(many, cfg) == "megamesh"
     hdr = dataclasses.replace(scene, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     with pytest.raises(NotImplementedError, match="slice 4"):
         ot.render(hdr, cfg, device="cuda")
@@ -169,6 +176,27 @@ def test_mesh_flags_and_camera_table_match_jax(material):
     np.testing.assert_allclose(mm.mesh_camera_table(ts).numpy(),
                                np.asarray(jmm._mesh_camera_table(js)),
                                rtol=1e-6, atol=1e-7)
+
+
+def test_mesh_inputs_are_cached_by_content():
+    """Rendering a scene again builds nothing: the same inputs come back for
+    an equal scene, new ones when any leaf changes; the mesh route renders
+    the plain version's image from them on the CPU."""
+    scene = _mesh_scene(ot)
+    first = mm.mesh_inputs(scene, "cpu")
+    assert mm.mesh_inputs(_mesh_scene(ot), "cpu") is first
+    moved = dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, look_from=scene.camera.look_from + 0.1))
+    other = mm.mesh_inputs(moved, "cpu")
+    assert other is not first and other[3] is not first[3]
+    t = scene.triangles
+    recoloured = dataclasses.replace(scene, triangles=dataclasses.replace(
+        t, albedo=t.albedo * 0.5))
+    again = mm.mesh_inputs(recoloured, "cpu")
+    assert again is not first and torch.equal(again[3].tri, first[3].tri)
+    cfg = ot.RenderConfig(**CFG)
+    img = mm.render_megamesh(scene, cfg, seed=0, device="cpu")
+    assert_images_close(img, _port_image())
 
 
 def test_gradients_refuse_mesh_scenes():
