@@ -69,7 +69,33 @@ Phases, each printing JSON lines on standard output:
    tolerance.  Then the closest-triangle kernel against its plain version
    on the ray batch of that path that ran the most triangle tests, under
    the tolerance of phase 8.
-11. the kernels line and the result line.
+12. mesh gradient parity: the mesh backward kernel (K5) against its plain
+   version (autograd of the plain wavefront with the winner hit in plane
+   form) on the same tables and image cotangent, at 160x90, 4 spp, depth
+   6, for the 576-triangle torus of phase 9 as a Lambertian mesh, a metal
+   torus under a constant sky, the Lambertian torus without spheres, and
+   the tests/test_megamesh.py torus over 40 gating boxes; per table block
+   and per scene leaf after tri_grads_to_scene, max|a - b| / max|b|
+   against tests/test_megagrad.py's mesh tolerances (5e-4; 5e-3 for the
+   metal case; focus_dist as in phase 5, 5e-3).
+13. the same at 320x180, 5 spp, depth 32 for both meshes of phase 9.
+14. the mesh gradient main path: ``render_grad_sampled`` of both meshes'
+   scenes at ``REFERENCE_DEFAULTS``, one warm-up and the minimum of 3,
+   counts set to 0 just before and read just after (the mesh megakernel
+   and K5, nothing else); K5 alone by CUDA events, its counts and bound.
+15. the mesh fit: 5 Adam steps of ``fit_scene`` on the vertices at
+   ``REFERENCE_DEFAULTS`` through the mesh kernels, the plan built once per
+   fit: the 576-triangle scene towards a target rendered from its mesh with
+   every p0 moved (its losses reported: with hard visibility they rise,
+   see PERF.md), and the vertex fit of tests/test_megagrad.py (its
+   48-triangle torus near the camera, every p0 moved by 0.02), here of all
+   three vertices at rate 1e-3, whose loss must fall.
+16. the plain mesh gradient route on the card: ``render_grad_sampled(
+   grad_backend="plain")`` on the 15,360-triangle scene at 160x90, 2 spp,
+   depth 8, whose winner search is the closest-triangle kernel; its loss
+   and leaves against the kernel route's.
+17. the kernels line and the result line.  Each of phases 12 to 16 prints
+   its seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
@@ -103,11 +129,21 @@ FLOPS_PER_SPHERE_TEST = 17
 # sphere cotangents 5 = 132.  A fuzzy-metal bounce adds 72 (reflect, the
 # unit direction, the fuzz draw), a dielectric one more; not counted.
 FLOPS_PER_REVERSE_BOUNCE = 132
+# One triangle bounce walked back (csrc/megagrad.cu::tri_adjoint), the
+# cheapest kind, a Lambertian one: |d|^2 5, the front face 5, the
+# throughput 9, |n| 6, the normal's adjoint 14, the hit point 11, the plane
+# t 10, its adjoint 24, the differences 5 = 89.
+FLOPS_PER_TRI_REVERSE_BOUNCE = 89
 # One ray-triangle test (csrc/mesh.cuh::tri_candidate, computed whole for
 # every test): a 5, u_num 11, v_num 11, t_num 6, 1/a 1, u, v and t 3,
 # u + v 1 = 38.  The slab tests that cull (23 each) are not counted.
 FLOPS_PER_TRI_TEST = 38
 TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
+# The mesh fits (phase 15): the 576-triangle target's mesh has every p0
+# moved by FIT_SHIFT; Adam's learning rate of both fits
+# (tools/mesh_fit_sweep.py measured the rates).
+FIT_SHIFT = 0.01
+FIT_LR = 1e-3
 # Libraries built at the start: label -> (source, macros).  The last is a
 # measurement variant, not on any path: the forward kernel with the
 # backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh).
@@ -120,6 +156,8 @@ GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
                "spheres.fuzz", "spheres.ior", "camera.look_from",
                "camera.look_at", "camera.vfov_deg", "camera.aperture_deg",
                "camera.focus_dist", "sky.const_colour")
+TRI_LEAVES = ("triangles.p0", "triangles.p1", "triangles.p2",
+              "triangles.albedo", "triangles.fuzz", "triangles.ior")
 
 
 def emit(obj) -> None:
@@ -619,6 +657,365 @@ def mesh_phases(dev) -> tuple:
     })
 
 
+def mesh_leaf_errors(got, want, leaves=GRAD_LEAVES + TRI_LEAVES) -> dict:
+    """Per scene leaf with entries: max|a - b| / max|b| (scale floor
+    1e-6)."""
+    import numpy as np
+    from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    return {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k]).max()), 1e-6)
+            for k in leaves if b[k].size}
+
+
+def mesh_grad_phases(dev, k2) -> dict:
+    """Phases 12 to 16 (see the module docstring): the kernels-line entry
+    of the mesh backward kernel.  k2: the mesh megakernel's entry, whose
+    main-path times these phases report beside K5's."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.scene import materials as mat
+    from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
+    from opencl_ray_tracer_tpu_torch.tracer import clusters
+
+    def loss_fn(img):
+        return torch.mean(img ** 2)
+
+    def grad_pair(scene, cfg, seed, plain=True):
+        """K5 and (if plain) its plain version on the same tables and image
+        cotangent (loss mean(img^2) of the mesh megakernel's image): table
+        cotangents, counts, the plain version's seconds, the scene on the
+        card, the tables and K5's launch."""
+        scene = scene.to(dev)
+        cam, sph = mm.mesh_camera_table(scene), mk.sphere_table(scene)
+        n, tab = scene.spheres.count, mm.mesh_tables(scene)
+        flags = mm.specialize_mesh_flags(scene)
+        n_pix = cfg.width * cfg.height
+        img = torch.stack(mm.render_mesh(cam, sph, n, tab, cfg,
+                                         scene.sky.kind, flags, seed,
+                                         n_pix), -1)
+        g = (2.0 / img.numel() / cfg.spp) * img.T.contiguous()
+        args = (cam, sph, n, tab, cfg, scene.sky.kind, flags, g[0], g[1],
+                g[2], seed, n_pix)
+
+        def launch(counts=None):
+            return mg.render_grad_mesh_tables(*args, counts=counts)
+
+        kc = torch.zeros(4, dtype=torch.int64, device=dev)
+        k = launch(kc)
+        torch.cuda.synchronize()
+        if not plain:
+            return k, None, kc.tolist(), None, None, scene, tab, launch
+        pc = torch.zeros(4, dtype=torch.int64, device=dev)
+        t_plain, p = timed(lambda: mg.render_grad_mesh_tables_plain(
+            *args, counts=pc), reps=1)
+        return k, p, kc.tolist(), pc.tolist(), t_plain, scene, tab, launch
+
+    def block_errors(k, p, tab):
+        """max|a - b| / max|b| per table block, on what both versions
+        write: the camera slots, the sphere rows of both (centres, albedo,
+        fuzz), gtri rows 0-3, and rows 4-9 with the 1/ior row folded into
+        the ior row as tri_cotangents folds it (the plain version's row 8
+        holds the whole ior cotangent)."""
+        def rel(a, b):
+            scale = float(b.abs().max())
+            return float((a - b).abs().max()) / max(scale, 1e-30)
+
+        rows = [mk.F_CX, mk.F_CY, mk.F_CZ, mk.F_ALR, mk.F_ALG, mk.F_ALB,
+                mk.F_FUZZ]
+        slots = list(mg.CAM_SLOTS)
+        ior = tab.feats.ior.clamp(min=1e-8)
+        folded = k[2].clone()
+        folded[8] = k[2][8] - k[2][9] / (ior * ior)
+        folded[9] = 0.0
+        out = {"gcam": rel(k[0][0, slots], p[0][0, slots]),
+               "gtri_0_3": rel(folded[:4], p[2][:4]),
+               "gtri_4_9": rel(folded[4:], p[2][4:])}
+        if float(p[1][rows].abs().max()) > 0:
+            out["gsph"] = rel(k[1][rows], p[1][rows])
+        return out
+
+    # ---- 12. mesh_grad_parity: K5 against its plain version, small ----
+    t_phase = time.perf_counter()
+    cfg = ot.RenderConfig(width=160, height=90, spp=4, max_depth=6,
+                          nan_policy="zero")
+    near = (0.3, 0.0, -1.6)
+    lamb = dict(mat_type=mat.LAMBERTIAN, albedo=(0.7, 0.6, 0.5), fuzz=0.0)
+    tol = {k: 5e-4 for k in GRAD_LEAVES + TRI_LEAVES}
+    # focus_dist, a near-cancelling sum, at the reference scene's tolerance
+    # of the sphere backward's phase 5
+    tol["camera.focus_dist"] = 5e-3
+    cases = {
+        "torus_576_lambertian": (torus_scene(**lamb), tol),
+        "metal_const_sky": (torus_scene(
+            12, 8, near, sky=ot.Sky.constant((0.3, 0.5, 0.8)),
+            albedo=(0.8, 0.7, 0.3), fuzz=0.2, ior=0.0, mat_type=mat.METAL),
+            {k: 5e-3 for k in tol}),
+        "mesh_only": (dataclasses.replace(torus_scene(**lamb),
+                                          spheres=ot.Spheres.empty()), tol),
+        "40_boxes": (split_boxes(torus_scene(12, 8, near)), tol),
+    }
+    parity_max = 0.0
+    for name, (scene, case_tol) in cases.items():
+        k, p, kc, pc, t_plain, scene, tab, _ = grad_pair(scene, cfg, seed=7)
+        if not all(bool(torch.isfinite(x).all()) for x in k):
+            fail(f"mesh grad {name}: kernel output is not finite")
+        got = mg.tri_grads_to_scene(scene, tab.plan, k[2],
+                                    mg.table_grads_to_scene(scene, *k[:2]))
+        want = mg.tri_grads_to_scene(scene, tab.plan, p[2],
+                                     mg.table_grads_to_scene(scene, *p[:2]))
+        rel = mesh_leaf_errors(got, want, tuple(case_tol))
+        emit({"phase": "mesh_grad_parity", "case": name,
+              "size": "160x90x4/d6", "blocks": block_errors(k, p, tab),
+              "rel_err": rel, "max_rel_err": max(rel.values()),
+              "tolerance": case_tol,
+              "kernel_replay_bounces": kc[0], "kernel_reverse_bounces": kc[1],
+              "kernel_tri_tests": kc[2], "kernel_reverse_tri_bounces": kc[3],
+              "plain_bounces": pc[0], "plain_s": t_plain})
+        bad = {k_: v for k_, v in rel.items() if not v < case_tol[k_]}
+        if bad:
+            fail(f"mesh grad {name}: kernel and plain version disagree: "
+                 f"{bad}")
+        if not float(p[2][:4].abs().max()) > 0 and name != "metal_const_sky":
+            fail(f"mesh grad {name}: no vertex cotangent")
+        parity_max = max(parity_max, max(rel.values()))
+    emit({"phase": "mesh_grad_parity_done",
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- 13. mesh_grad_full_size_kernel: K5 against its plain version at
+    # 320x180x5/d32, both meshes ----
+    t_phase = time.perf_counter()
+    ref = ot.REFERENCE_DEFAULTS
+    meshes = {"torus_576": torus_scene(), "torus_15360": torus_scene(128, 60)}
+    check_cfg = ref.replace(width=320, height=180, nan_policy="zero")
+    checks = {}
+    for name, scene in meshes.items():
+        k, p, kc, pc, t_plain, scene_d, tab, launch = grad_pair(
+            scene, check_cfg, seed=0)
+        got = mg.tri_grads_to_scene(scene_d, tab.plan, k[2],
+                                    mg.table_grads_to_scene(scene_d, *k[:2]))
+        want = mg.tri_grads_to_scene(scene_d, tab.plan, p[2],
+                                     mg.table_grads_to_scene(scene_d, *p[:2]))
+        rel = mesh_leaf_errors(got, want)
+        a = torch.cat([getattr(got.triangles, f).reshape(-1)
+                       for f in ("p0", "p1", "p2")]).double()
+        b = torch.cat([getattr(want.triangles, f).reshape(-1)
+                       for f in ("p0", "p1", "p2")]).double()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        a_np, b_np = scene_to_numpy(got), scene_to_numpy(want)
+        checks[name] = dict(rel=rel, plain_ms=1e3 * t_plain,
+                            kernel_ms=kernel_ms(launch),
+                            max_abs_err=max(
+                                float(abs(a_np[k_] - b_np[k_]).max())
+                                for k_ in rel))
+        emit({"phase": "mesh_grad_full_size_kernel", "case": name,
+              "size": "320x180x5/d32", "blocks": block_errors(k, p, tab),
+              "rel_err": rel, "max_rel_err": max(rel.values()),
+              "vertex_cosine": cos, "plain_s": t_plain,
+              "kernel_ms": checks[name]["kernel_ms"],
+              "kernel_counts": kc, "plain_bounces": pc[0]})
+        if max(rel.values()) >= 5e-2 or cos <= 0.999:
+            fail(f"mesh grad {name} at 320x180x5/d32: kernel and plain "
+                 f"version disagree: {rel}, vertex cosine {cos}")
+        del k, p
+    emit({"phase": "mesh_grad_full_size_done",
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- 14. mesh_grad_main_path: render_grad_sampled at
+    # REFERENCE_DEFAULTS, counts set to 0 just before, read just after ----
+    t_phase = time.perf_counter()
+    mm.LAUNCHES = mg.MESH_LAUNCHES = mg.LAUNCHES = 0
+    mk.LAUNCHES = im.LAUNCHES = 0
+    runs = {}
+    for name, scene in meshes.items():
+        ot.render_grad_sampled(scene, ref, loss_fn, seed=0)  # warm-up
+        runs[name] = timed(lambda: ot.render_grad_sampled(scene, ref,
+                                                          loss_fn, seed=0))
+    launches = {"mesh_megakernel": mm.LAUNCHES,
+                "mesh_megagrad": mg.MESH_LAUNCHES,
+                "sphere_megakernel": mk.LAUNCHES,
+                "sphere_megagrad": mg.LAUNCHES, "closest_tri": im.LAUNCHES}
+    if (launches["mesh_megakernel"] < 1 or launches["mesh_megagrad"] < 1
+            or launches["sphere_megakernel"] or launches["sphere_megagrad"]
+            or launches["closest_tri"]):
+        fail(f"the mesh gradient main path ran other kernels: {launches}")
+    main = {}
+    n_pix = ref.width * ref.height
+    for name, (secs, (loss, img, grads)) in runs.items():
+        finite = all(bool(torch.isfinite(getattr(grads.triangles, f)).all())
+                     for f in ("p0", "p1", "p2", "albedo", "fuzz"))
+        if not (finite and torch.isfinite(loss)
+                and img.shape == (ref.height, ref.width, 3)
+                and float(grads.triangles.p0.abs().max()) > 0):
+            fail(f"mesh gradient main path {name}: loss {float(loss)}, "
+                 f"finite {finite}")
+        # K5 alone by CUDA events on this image's cotangent, its counts and
+        # its bound
+        scene = meshes[name].to(dev)
+        cam, sph = mm.mesh_camera_table(scene), mk.sphere_table(scene)
+        n, tab = scene.spheres.count, mm.mesh_tables(scene)
+        flags = mm.specialize_mesh_flags(scene)
+        g = (2.0 / img.numel() / ref.spp) * img.reshape(-1, 3).T.contiguous()
+        counts = torch.zeros(4, dtype=torch.int64, device=dev)
+
+        def launch(c=None):
+            return mg.render_grad_mesh_tables(cam, sph, n, tab, ref,
+                                              scene.sky.kind, flags, g[0],
+                                              g[1], g[2], 0, n_pix, counts=c)
+
+        launch(counts)
+        torch.cuda.synchronize()
+        k5_ms = kernel_ms(launch)
+        replay, reverse, tests, reverse_tri = counts.tolist()
+        flops = (replay * n * FLOPS_PER_SPHERE_TEST
+                 + tests * FLOPS_PER_TRI_TEST
+                 + (reverse - reverse_tri) * FLOPS_PER_REVERSE_BOUNCE
+                 + reverse_tri * FLOPS_PER_TRI_REVERSE_BOUNCE)
+        io_bytes = (2 * (cam.numel() + sph.numel()) + tab.tri.numel()
+                    + tab.cluster.numel() + tab.sub.numel()
+                    + tab.boxes.numel() + tab.chunk_box.numel()
+                    + 3 * n_pix + 10 * tab.tri.shape[1]) * 4
+        k2_ms = k2["ms"] if name == "torus_576" else k2["torus_15360_ms"]
+        main[name] = dict(fwd_bwd_ms=1e3 * secs, k5_ms=k5_ms, k2_ms=k2_ms,
+                          loss=float(loss), replay_bounces=replay,
+                          reverse_bounces=reverse, replay_tri_tests=tests,
+                          reverse_tri_bounces=reverse_tri,
+                          **bound_of(flops, io_bytes))
+        main[name]["share_of_bound"] = main[name]["bound_ms"] / k5_ms
+        emit({"phase": "mesh_grad_main_path", "case": name,
+              "size": "1280x720x5/d32", **main[name],
+              "launches_so_far": launches})
+    emit({"phase": "mesh_grad_main_path_done",
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- 15. mesh_fit: 5 Adam steps on the vertices, through the mesh
+    # kernels, with the plan built once per fit: the 576-triangle scene
+    # towards a target from its mesh with every p0 moved (reported), and
+    # tests/test_megagrad.py's vertex fit, whose loss must fall ----
+    t_phase = time.perf_counter()
+    true = meshes["torus_576"]
+    t = true.triangles
+    displaced = dataclasses.replace(true, triangles=dataclasses.replace(
+        t, p0=t.p0 + FIT_SHIFT))
+    jax_true = torus_scene(6, 4, near)
+    jt = jax_true.triangles
+    jax_init = dataclasses.replace(jax_true, triangles=dataclasses.replace(
+        jt, p0=jt.p0 + 0.02))
+    fits = {
+        "torus_576": (ot.render(displaced, ref, seed=0), true,
+                      ("triangles.p0", "triangles.p1", "triangles.p2"),
+                      FIT_LR, 0),
+        "jax_test_torus_48": (ot.render(jax_true, ref, seed=7), jax_init,
+                              ("triangles.p0", "triangles.p1",
+                               "triangles.p2"), FIT_LR, 7),
+    }
+    build_plan = clusters.build_mesh_plan
+    fit = {}
+    for name, (target, init, paths, lr, seed) in fits.items():
+        built = []
+
+        def counted_build(*args, **kwargs):
+            built.append(1)
+            return build_plan(*args, **kwargs)
+
+        clusters.build_mesh_plan = counted_build
+        clusters._PLAN_CACHE.clear()
+        stamps = [time.perf_counter()]
+
+        def on_step(i, loss, scene):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        mm.LAUNCHES = mg.MESH_LAUNCHES = 0
+        try:
+            _, losses = ot.fit_scene(target, init, ref, param_paths=paths,
+                                     steps=5, learning_rate=lr, seed=seed,
+                                     sample_new_noise=False,
+                                     callback=on_step)
+        finally:
+            clusters.build_mesh_plan = build_plan
+        fit[name] = dict(
+            losses=losses, params=paths, learning_rate=lr,
+            seconds_per_step=[b - a for a, b in zip(stamps, stamps[1:])],
+            plans_built=len(built),
+            launches={"mesh_megakernel": mm.LAUNCHES,
+                      "mesh_megagrad": mg.MESH_LAUNCHES})
+        emit({"phase": "mesh_fit", "case": name, "size": "1280x720x5/d32",
+              **fit[name]})
+        if (not all(x == x for x in losses) or mg.MESH_LAUNCHES != 5
+                or mm.LAUNCHES != 5 or len(built) != 1):
+            fail(f"mesh fit {name}: the kernels were skipped or the plan "
+                 f"was built more than once: {fit[name]}")
+    if not (fit["jax_test_torus_48"]["losses"][-1]
+            < fit["jax_test_torus_48"]["losses"][0]):
+        fail(f"mesh fit: the loss did not fall: {fit}")
+    emit({"phase": "mesh_fit_done", "seconds": time.perf_counter() - t_phase})
+
+    # ---- 16. mesh_grad_plain_route: autograd of the plain wavefront on
+    # the card, K3 as its winner search ----
+    t_phase = time.perf_counter()
+    small = ot.RenderConfig(width=160, height=90, spp=2, max_depth=8)
+    scene = meshes["torus_15360"]
+    im.LAUNCHES = mg.MESH_LAUNCHES = 0
+    secs, (ploss, _, pgrads) = timed(lambda: ot.render_grad_sampled(
+        scene, small, loss_fn, seed=0, grad_backend="plain"), reps=1)
+    k3_launches, k5_launches = im.LAUNCHES, mg.MESH_LAUNCHES
+    kloss, _, kgrads = ot.render_grad_sampled(scene, small, loss_fn, seed=0)
+    rel = mesh_leaf_errors(pgrads, kgrads)
+    a = torch.cat([getattr(pgrads.triangles, f).reshape(-1)
+                   for f in ("p0", "p1", "p2")]).double()
+    b = torch.cat([getattr(kgrads.triangles, f).reshape(-1)
+                   for f in ("p0", "p1", "p2")]).double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    emit({"phase": "mesh_grad_plain_route", "case": "torus_15360",
+          "size": "160x90x2/d8", "seconds": secs,
+          "closest_tri_launches": k3_launches,
+          "mesh_megagrad_launches": k5_launches, "loss": float(ploss),
+          "kernel_route_loss": float(kloss), "rel_err_vs_kernel": rel,
+          "vertex_cosine_vs_kernel": cos,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if (k3_launches < 1 or k5_launches or not torch.isfinite(ploss)
+            or abs(float(ploss) - float(kloss)) > 1e-6 * float(kloss)
+            or not all(bool(torch.isfinite(getattr(pgrads.triangles,
+                                                   f)).all())
+                       for f in ("p0", "p1", "p2"))):
+        fail(f"mesh grad plain route: K3 launches {k3_launches}, K5 "
+             f"launches {k5_launches}, loss {float(ploss)} against "
+             f"{float(kloss)}")
+
+    c, m = checks["torus_576"], main["torus_576"]
+    c2, m2 = checks["torus_15360"], main["torus_15360"]
+    return {
+        "name": "mesh_megagrad",
+        "route": "cuda",
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megagrad.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megagrad.py:187 "
+                    "_make_grad_kernel (mesh variant; pallas_call at :2004, "
+                    ":2044 in _grad_tables_mesh_inner)",
+        "launches": launches["mesh_megagrad"],
+        "max_abs_err": c["max_abs_err"],
+        "max_rel_err": max(c["rel"].values()),
+        "parity_max_rel_err": parity_max,
+        "ms": m["k5_ms"],
+        "plain_ms": c["plain_ms"],
+        "plain_size": "320x180x5/d32 (kernel there: %.3f ms)"
+                      % c["kernel_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": None,
+        "fwd_bwd_ms": m["fwd_bwd_ms"],
+        "torus_15360_ms": m2["k5_ms"],
+        "torus_15360_bound_ms": m2["bound_ms"],
+        "torus_15360_plain_ms": c2["plain_ms"],
+        "torus_15360_fwd_bwd_ms": m2["fwd_bwd_ms"],
+        "fit_seconds_per_step": fit["torus_576"]["seconds_per_step"],
+        "closest_tri_launches_in_plain_grad_route": k3_launches,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -990,8 +1387,9 @@ def main() -> None:
         fail(f"fit: loss did not fall or skipped the kernels: {losses}")
 
     mesh_entries = mesh_phases(dev)
+    mesh_grad_entry = mesh_grad_phases(dev, mesh_entries[0])
 
-    # ---- 11. kernels line, result line ----
+    # ---- 17. kernels line, result line ----
     r = full["readme"]
     gr = grad_full["readme"]
     emit({"kernels": [{
@@ -1032,7 +1430,7 @@ def main() -> None:
         "library_ms": None,
         "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
         "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
-    }, *mesh_entries]})
+    }, *mesh_entries, mesh_grad_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -43,36 +43,6 @@ using namespace ort;
 
 constexpr int kThreads = 128;
 constexpr int kMaxSpheres = 128;
-// Camera-table slots of the mesh material (kernels/megamesh.py C_MA_R..):
-// albedo, fuzz, ior, 1/ior.
-constexpr int C_MA = 22;
-constexpr int kMeshCamSlots = 28;
-
-// The material of a hit, a sphere's or the mesh's, as values.
-struct HitMaterial {
-  float alb[3];
-  int mtype;
-  float fz, eta, inv_eta;
-  __device__ __forceinline__ float albedo(int k) const { return alb[k]; }
-  __device__ __forceinline__ int type() const { return mtype; }
-  __device__ __forceinline__ float fuzz() const { return fz; }
-  __device__ __forceinline__ float ior() const { return eta; }
-  __device__ __forceinline__ float inv_ior() const { return inv_eta; }
-};
-
-// The uniform mesh material: camera-table slots and the mesh's type.
-__device__ __forceinline__ HitMaterial mesh_material(const float* cam,
-                                                     int mtype) {
-  return HitMaterial{{cam[C_MA], cam[C_MA + 1], cam[C_MA + 2]}, mtype,
-                     cam[C_MA + 3], cam[C_MA + 4], cam[C_MA + 5]};
-}
-
-__device__ __forceinline__ HitMaterial sphere_material(const float* sph,
-                                                       int stride, int bi) {
-  const SphereMaterial m{sph, stride, bi};
-  return HitMaterial{{m.albedo(0), m.albedo(1), m.albedo(2)}, m.type(),
-                     m.fuzz(), m.ior(), m.inv_ior()};
-}
 
 struct Params {
   const float* cam;
@@ -96,23 +66,6 @@ struct Params {
   float t_min;
   int flags;
 };
-
-// The closest triangle nearer than lim (the sphere hit): t and index.
-__device__ __forceinline__ void closest_triangle(const MeshTables& mt,
-                                                 const float o[3],
-                                                 const float d[3],
-                                                 float t_min, float lim,
-                                                 float& best_t, int& best_i,
-                                                 unsigned int& tests) {
-  float inv[3], m[3];
-  ray_features(o, d, inv, m);
-  BoxGate box = first_box(mt, o, inv);
-  if (!box.hit) return;
-  for (int ci = 0; ci < mt.n_chunks; ++ci)
-    if (chunk_gate(mt, ci, box, o, inv, fminf(lim, best_t)))
-      chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv, t_min,
-                 lim, best_t, best_i, tests);
-}
 
 __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];

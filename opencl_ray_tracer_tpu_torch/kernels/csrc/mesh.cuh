@@ -1,6 +1,8 @@
-// Device code shared by the closest-triangle kernel (intersect_mm.cu) and the
-// mesh megakernel (megamesh.cu): the slab test and the triangle test, so that
-// both kernels take the same decisions.
+// Device code shared by the closest-triangle kernel (intersect_mm.cu), the
+// mesh megakernel (megamesh.cu) and the mesh variant of the backward kernel
+// (megagrad.cu): the slab test, the triangle test, the culled closest
+// triangle and the material of a hit, so that all three take the same
+// decisions.
 //
 // The triangle test is the port's one form of Moller-Trumbore (see
 // tracer/mesh_accel.py): with ray features d, m = o x d and o, and one column
@@ -175,6 +177,55 @@ __device__ __forceinline__ void chunk_runs(const MeshTables& mt, int ci,
       tests += kRun;
     }
   }
+}
+
+// Camera-table slots of the uniform mesh material (kernels/megamesh.py
+// C_MA_R..): albedo, fuzz, ior, 1/ior; the mesh camera table uses 28 slots.
+constexpr int C_MA = 22;
+constexpr int kMeshCamSlots = 28;
+
+// The material of a hit, a sphere's or the mesh's, as values.
+struct HitMaterial {
+  float alb[3];
+  int mtype;
+  float fz, eta, inv_eta;
+  __device__ __forceinline__ float albedo(int k) const { return alb[k]; }
+  __device__ __forceinline__ int type() const { return mtype; }
+  __device__ __forceinline__ float fuzz() const { return fz; }
+  __device__ __forceinline__ float ior() const { return eta; }
+  __device__ __forceinline__ float inv_ior() const { return inv_eta; }
+};
+
+// The uniform mesh material: camera-table slots and the mesh's type.
+__device__ __forceinline__ HitMaterial mesh_material(const float* cam,
+                                                     int mtype) {
+  return HitMaterial{{cam[C_MA], cam[C_MA + 1], cam[C_MA + 2]}, mtype,
+                     cam[C_MA + 3], cam[C_MA + 4], cam[C_MA + 5]};
+}
+
+__device__ __forceinline__ HitMaterial sphere_material(const float* sph,
+                                                       int stride, int bi) {
+  const SphereMaterial m{sph, stride, bi};
+  return HitMaterial{{m.albedo(0), m.albedo(1), m.albedo(2)}, m.type(),
+                     m.fuzz(), m.ior(), m.inv_ior()};
+}
+
+// The closest triangle nearer than lim (the sphere hit): t and index in
+// plan order, best_t left as it is when no triangle is nearer.
+__device__ __forceinline__ void closest_triangle(const MeshTables& mt,
+                                                 const float o[3],
+                                                 const float d[3],
+                                                 float t_min, float lim,
+                                                 float& best_t, int& best_i,
+                                                 unsigned int& tests) {
+  float inv[3], m[3];
+  ray_features(o, d, inv, m);
+  BoxGate box = first_box(mt, o, inv);
+  if (!box.hit) return;
+  for (int ci = 0; ci < mt.n_chunks; ++ci)
+    if (chunk_gate(mt, ci, box, o, inv, fminf(lim, best_t)))
+      chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv, t_min,
+                 lim, best_t, best_i, tests);
 }
 
 }  // namespace ort

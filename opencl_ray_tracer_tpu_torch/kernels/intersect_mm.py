@@ -16,7 +16,9 @@ read: the triangle table in the plan's order (``MESH_CHUNK`` triangles per
 chunk, front to back from the camera), the chunks' padded AABBs and
 sub-boxes, each chunk's gating box and the gating boxes.  It keeps the
 tables of the last few scenes, keyed by a digest of the leaves they are
-built from (``leaves_key``).
+built from (``leaves_key``).  Given a plan, it builds them from the
+scene's current vertices in that plan's order: a fit that moves the
+vertices keeps its first plan and rebuilds only the tables and bounds.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from ..scene import scene_to_numpy
-from ..tracer.clusters import permute, plan_for_scene, subcluster_bounds
+from ..tracer.clusters import (MeshPlan, permute, plan_for_scene,
+                               subcluster_bounds)
 from ..tracer.intersect import closest_hit, hit_aabbs
 from ..tracer.mesh_accel import (RAY_CHUNK, TRI_ROWS, T_N, TriFeatures,
                                  build_tri_features, merge_triangle_hit,
@@ -65,6 +68,7 @@ class MeshTables(NamedTuple):
     chunk_box: torch.Tensor  # (n_chunks,) i32
     boxes: torch.Tensor      # (n_boxes, 6) f32
     feats: TriFeatures       # per-triangle materials, plan order
+    plan: MeshPlan           # the order: plan.perm maps columns to ids
 
 
 def leaves_key(leaves: dict, *extra) -> tuple:
@@ -93,10 +97,13 @@ def cached(cache: dict, key, build):
 _TABLES: dict = {}
 
 
-def mesh_tables(scene, leaves: dict | None = None) -> MeshTables:
+def mesh_tables(scene, leaves: dict | None = None,
+                plan: MeshPlan | None = None) -> MeshTables:
     """The tables of a scene with triangles in one or more gating boxes, on
     the scene's device.  leaves: the scene's ``scene_to_numpy``, when the
-    caller has read it already."""
+    caller has read it already.  plan: the order to build them in (a plan
+    of the same triangle count and chunk, ``MESH_CHUNK``), by default the
+    scene's own (``clusters.plan_for_scene``)."""
     tris = scene.triangles
     if tris.count == 0 or scene.boxes.count == 0:
         raise ValueError("the mesh kernels take triangles in one or more "
@@ -104,13 +111,24 @@ def mesh_tables(scene, leaves: dict | None = None) -> MeshTables:
     leaves = scene_to_numpy(scene) if leaves is None else leaves
     key = leaves_key({p: a for p, a in leaves.items()
                       if p.startswith(("triangles.", "boxes."))
-                      or p == "camera.look_from"}, str(tris.p0.device))
-    return cached(_TABLES, key, lambda: _build_tables(scene))
+                      or p == "camera.look_from"}, str(tris.p0.device),
+                     None if plan is None else plan_key(plan))
+    return cached(_TABLES, key, lambda: _build_tables(scene, plan))
 
 
-def _build_tables(scene) -> MeshTables:
+def plan_key(plan: MeshPlan) -> str:
+    """A digest of a plan's order and chunk boxes."""
+    return hashlib.sha256(plan.perm_bytes + repr(
+        (plan.chunk_box_id, plan.chunk, plan.n_tris)).encode()).hexdigest()
+
+
+@torch.no_grad()
+def _build_tables(scene, plan: MeshPlan | None = None) -> MeshTables:
     tris = scene.triangles
-    plan = plan_for_scene(scene, MESH_CHUNK)
+    if plan is None:
+        plan = plan_for_scene(scene, MESH_CHUNK)
+    if plan.chunk != MESH_CHUNK or plan.n_tris != tris.count:
+        raise ValueError("the plan does not fit the scene's triangles")
     if not all(0 <= b < scene.boxes.count for b in plan.chunk_box_id):
         raise ValueError("every triangle's box_id must name a gating box")
     feats = build_tri_features(scene, MESH_CHUNK, plan=plan)
@@ -126,7 +144,7 @@ def _build_tables(scene) -> MeshTables:
                                device=dev),
         boxes=torch.cat([scene.boxes.box_min, scene.boxes.box_max],
                         dim=1).contiguous(),
-        feats=feats)
+        feats=feats, plan=plan)
 
 
 def check_tables(tab: MeshTables) -> None:

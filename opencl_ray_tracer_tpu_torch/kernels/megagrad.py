@@ -1,19 +1,33 @@
-"""The sphere megakernel's backward: scene gradients on the card.
+"""The backward megakernels: scene gradients on the card.
 
-``render_grad_tables`` is the wrapper of the CUDA kernel in
-``csrc/megagrad.cu`` (forward replay with the forward kernel's device
-code, then a reverse walk with adjoints derived by hand; see the note at
-the top of that file).  It replaces the sphere variant of the JAX package's
-Pallas ``kernels/megagrad.py::_make_grad_kernel``.  Given the cotangent of
-each pixel's mean radiance, already divided by the number of samples, it
-returns the cotangents of the camera table (the ``CAM_SLOTS``) and of the
-sphere table (the ``DIFF_FIELDS`` rows: centre, r^2, 1/r, albedo, fuzz, ior,
-1/ior).  ``render_grad_tables_plain`` is its plain PyTorch version with the
+``render_grad_tables`` is the wrapper of the sphere variant of the CUDA
+kernel in ``csrc/megagrad.cu`` (K4: forward replay with the forward
+kernel's device code, then a reverse walk with adjoints derived by hand;
+see the note at the top of that file).  It replaces the sphere variant of
+the JAX package's Pallas ``kernels/megagrad.py::_make_grad_kernel``.
+Given the cotangent of each pixel's mean radiance, already divided by the
+number of samples, it returns the cotangents of the camera table (the
+``CAM_SLOTS``) and of the sphere table (the ``DIFF_FIELDS`` rows: centre,
+r^2, 1/r, albedo, fuzz, ior, 1/ior).  ``render_grad_tables_plain`` is its plain PyTorch version with the
 same signature, autograd through the plain wavefront tracer with the
 winner-only hit; the wrapper runs it for tensors on the CPU and nowhere
 else.  The plain version reads the radius from the ``F_R`` row and the ior
 from ``F_IOR`` alone, so the two agree on the scene's leaves
 (``render_grad_scene``), and row by row only on the rows both read.
+
+``render_grad_mesh_tables`` is the wrapper of the mesh variant (K5,
+replacing the mesh variant of the same Pallas function): scenes of the
+mesh megakernel's scope, with 0 to 128 spheres.  Besides the camera and
+sphere table cotangents it returns ``gtri`` (10, T_pad) in the tables'
+plan order: the cotangents of each triangle's raw normal n = (p1 - p0) x
+(p2 - p0) and plane constant c = n . p0 (rows 0-3), and of its albedo,
+fuzz, ior and 1/ior (rows 4-9).  ``tri_grads_to_scene`` chains them to
+the triangles' vertices and materials.  Its plain version
+``render_grad_mesh_tables_plain`` is autograd of the plain wavefront with
+a winner hit in plane form on the tables; its row 8 carries the whole ior
+cotangent (1/ior included) and row 9 stays 0, so the two agree on the
+scene's leaves.  ``MeshRenderFn`` is the image of a mesh scene through
+the mesh megakernel (K2), whose backward is K5.
 
 The backward always uses the order-invariant "zero" NaN policy, whatever
 ``cfg.nan_policy`` says: the running-sum policy is not linear in the
@@ -24,24 +38,34 @@ same under both.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
-from .._fp import div
+from .._fp import div, dot3, fma
 from ..config import RenderConfig
-from ..scene import Scene, float_leaves, gradient_scene, requiring_grad
-from ..tracer.diffhit import make_grad_hit_fn
+from ..scene import (Scene, detached, float_leaves, gradient_scene,
+                     requiring_grad)
+from ..tracer.clusters import permute
+from ..tracer.diffhit import make_grad_hit_fn, winner_hitinfo
+from ..tracer.intersect import BIG, HitInfo, closest_fold
+from ..tracer.mesh_accel import T_T
 from ..tracer.wavefront import render_rows_wavefront
 from . import _build
+from .intersect_mm import (MeshTables, check_tables, closest_tri_plain,
+                           mesh_tables)
 from .megakernel import (F_ALB, F_ALG, F_ALR, F_CX, F_CY, F_CZ, F_FUZZ,
                          F_INVIOR, F_INVR, F_IOR, F_R2, C_DUX, C_DUY, C_DUZ,
                          C_DVX, C_DVY, C_DVZ, C_HX, C_HY, C_HZ, C_LX, C_LY,
                          C_LZ, C_OX, C_OY, C_OZ, C_SKY0, C_SKY1, C_SKY2,
-                         C_VX, C_VY, C_VZ, LANES, N_FIELDS,
+                         C_VX, C_VY, C_VZ, LANES, MAX_SPHERES, N_FIELDS,
                          _flag_bits, camera_table, render_spheres,
                          render_spheres_plain,
                          scene_from_tables, specialize_flags, sphere_table,
                          unsupported_reason)
+from .megamesh import (mesh_camera_table, render_mesh,
+                       specialize_mesh_flags, unsupported_mesh_reason)
 from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
 
 # The backward takes up to 256 spheres, as the JAX package's; the forward
@@ -54,17 +78,24 @@ DIFF_FIELDS = (F_CX, F_CY, F_CZ, F_R2, F_INVR, F_ALR, F_ALG, F_ALB,
 CAM_SLOTS = (C_OX, C_OY, C_OZ, C_HX, C_HY, C_HZ, C_VX, C_VY, C_VZ,
              C_LX, C_LY, C_LZ, C_DUX, C_DUY, C_DUZ, C_DVX, C_DVY, C_DVZ,
              C_SKY0, C_SKY1, C_SKY2)
-# Floats the kernel records per bounce that goes on; threads per block;
-# camera-table slots the kernel reads (C_OX .. C_SKY2).
+# Rows of gtri, the mesh variant's per-triangle cotangents: n (3), c, then
+# albedo (3), fuzz, ior, 1/ior.
+GTRI_ROWS = 10
+# Floats the kernel records per bounce that goes on (sphere and mesh
+# variants); threads per block; camera-table slots the kernel writes
+# (C_OX .. C_SKY2).
 _REC = 10
+_REC_MESH = 12
 _THREADS = 128
 _CAM_USED = C_SKY2 + 1
 # Pixels and samples per autograd call of the plain version.
 _PLAIN_PIX_CHUNK = 2**17
 _PLAIN_SPP_CHUNK = 25
 
-# Launches of the CUDA kernel since the count was last set to 0.
+# Launches of the sphere variant (K4) and of the mesh variant (K5) since
+# their counts were last set to 0.
 LAUNCHES = 0
+MESH_LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {
@@ -73,6 +104,11 @@ _SYMBOLS = {
          ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float,
          _I, _P], _I),
     "sphere_megagrad_threads": ([_I], _I),
+    "mesh_megagrad_launch": (
+        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+         _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I,
+         _I, _I, _I, ctypes.c_float, _I, _P], _I),
+    "mesh_megagrad_threads": ([_I], _I),
 }
 
 
@@ -80,10 +116,30 @@ def _library():
     return _build.load("megagrad", _SYMBOLS)
 
 
+def unsupported_grad_mesh_reason(scene: Scene) -> str | None:
+    """Why the mesh variant (K5) does not cover this scene, or None: it
+    takes the mesh megakernel's scenes (triangles of one uniform material
+    in one or more gating boxes, 0 to 128 spheres, a gradient or constant
+    sky)."""
+    reason = unsupported_mesh_reason(scene)
+    if reason is None or scene.sky.kind == KIND_HDR:
+        return reason
+    return ("the mesh backward kernel (K5) has the mesh megakernel's "
+            f"scope: {reason}")
+
+
+def supports_grad_mesh(scene: Scene, cfg: RenderConfig) -> bool:
+    """True when the mesh variant covers this scene."""
+    return unsupported_grad_mesh_reason(scene) is None
+
+
 def unsupported_grad_reason(scene: Scene) -> str | None:
-    """Why the backward kernel does not cover this scene, or None.  It
-    takes twice the forward kernel's spheres."""
-    if scene.triangles.count > 0 or scene.sky.kind == KIND_HDR:
+    """Why the backward kernel does not cover this scene, or None.  Mesh
+    scenes take the mesh variant's scope; the sphere variant takes twice
+    the forward kernel's spheres."""
+    if scene.triangles.count > 0:
+        return unsupported_grad_mesh_reason(scene)
+    if scene.sky.kind == KIND_HDR:
         return unsupported_reason(scene)
     if not 0 < scene.spheres.count <= GRAD_MAX_SPHERES:
         return (f"the backward kernel takes 1 to {GRAD_MAX_SPHERES} "
@@ -98,7 +154,10 @@ def supports_grad(scene: Scene, cfg: RenderConfig) -> bool:
 
 
 def _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
-                pix_offset, n_samples, counts):
+                pix_offset, n_samples, counts, tab=None):
+    """The wrappers' argument checks: the sphere variant's, or with the
+    mesh tables ``tab`` the mesh variant's (0 to 128 spheres, four
+    counts)."""
     if sky_kind not in (KIND_GRADIENT, KIND_CONST):
         raise ValueError(f"the kernel takes a gradient or constant sky, "
                          f"not kind {sky_kind}")
@@ -109,22 +168,32 @@ def _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
             raise ValueError(f"{name} table has shape {tuple(t.shape)}")
     if cam.shape[1] != LANES or sph.shape[1] < max(LANES, n_spheres):
         raise ValueError("table widths do not match the table builders")
-    if not 0 < n_spheres <= GRAD_MAX_SPHERES:
-        raise ValueError(f"n_spheres must be in 1..{GRAD_MAX_SPHERES}")
+    lo, hi = (1, GRAD_MAX_SPHERES) if tab is None else (0, MAX_SPHERES)
+    if not lo <= n_spheres <= hi:
+        raise ValueError(f"n_spheres must be in {lo}..{hi}")
+    others = (sph, *planes)
+    if tab is not None:
+        check_tables(tab)
+        if tab.tri.shape[1] >= 2**24:
+            raise ValueError("the mesh backward takes fewer than 2**24 "
+                             "triangle columns")
+        others += (tab.tri,)
     for t in planes:
         if (t.dtype != torch.float32 or not t.is_contiguous()
                 or t.shape != (n_pix,)):
             raise ValueError("cotangent planes must be contiguous float32 "
                              "of shape (n_pix,)")
-    if any(t.device != cam.device for t in (sph, *planes)):
+    if any(t.device != cam.device for t in others):
         raise ValueError("tables and cotangents are on different devices")
     if (n_pix < 0 or pix_offset < 0 or pix_offset + n_pix >= 2**31
             or n_samples < 0 or n_samples * cfg.max_depth >= 2**31):
         raise ValueError("pixel or sample counts out of range")
+    n_counts = 2 if tab is None else 4
     if counts is not None and (counts.dtype != torch.int64
-                               or counts.numel() != 2
+                               or counts.numel() != n_counts
                                or counts.device != cam.device):
-        raise ValueError("counts must be two int64 on the tables' device")
+        raise ValueError(f"counts must be {n_counts} int64 on the tables' "
+                         "device")
 
 
 def render_grad_tables(cam, sph, n_spheres: int, cfg: RenderConfig,
@@ -228,6 +297,180 @@ def render_grad_tables_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
     return gcam, gsph
 
 
+def render_grad_mesh_tables(cam, sph, n_spheres: int, tab: MeshTables,
+                            cfg: RenderConfig, sky_kind: int, flags, g_r,
+                            g_g, g_b, seed: int, n_pix: int,
+                            pix_offset: int = 0, sample_base: int = 0,
+                            n_samples: int | None = None, counts=None):
+    """Cotangents (gcam (1, 128), gsph (16, W), gtri (10, T_pad)) of the
+    mesh camera table, the sphere table and the triangles of the mesh
+    tables, for the cotangent planes g_r, g_g, g_b ((n_pix,) each, already
+    divided by the number of samples) of n_pix pixels from global pixel
+    ``pix_offset``, over n_samples samples (cfg.spp when None) from global
+    sample ``sample_base``.  gtri is in the tables' plan order (rows: see
+    the module docstring); the mesh material slots of gcam stay 0.
+
+    cam: ``megamesh.mesh_camera_table``; sph: ``sphere_table`` (0 to 128
+    spheres); tab: ``intersect_mm.mesh_tables``; flags:
+    ``specialize_mesh_flags``; counts: optional four-element int64 tensor
+    that receives the bounces replayed, the bounces walked back (sphere
+    and triangle bounces), the triangle tests of the replay and the
+    triangle bounces walked back.
+    CUDA tensors launch the kernel; CPU tensors run
+    ``render_grad_mesh_tables_plain``.
+    """
+    global MESH_LAUNCHES
+    n_samples = cfg.spp if n_samples is None else n_samples
+    planes = (g_r, g_g, g_b)
+    _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
+                pix_offset, n_samples, counts, tab)
+    if cam.device.type == "cpu":
+        return render_grad_mesh_tables_plain(
+            cam, sph, n_spheres, tab, cfg, sky_kind, flags, g_r, g_g, g_b,
+            seed, n_pix, pix_offset, sample_base, n_samples, counts)
+    if cam.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cam.device}")
+    bits = _flag_bits(cfg, sky_kind, flags[:5])
+    lib = _library()
+    gsph = torch.zeros_like(sph)
+    t_pad = tab.tri.shape[1]
+    gtri = torch.zeros((GTRI_ROWS, t_pad), dtype=torch.float32,
+                       device=cam.device)
+    with torch.cuda.device(cam.device):
+        n_threads = lib.mesh_megagrad_threads(max(n_pix, 1))
+        if n_threads <= 0:
+            raise RuntimeError("mesh megagrad: occupancy query failed")
+        rec = torch.empty(n_threads * cfg.max_depth * _REC_MESH,
+                          dtype=torch.float32, device=cam.device)
+        cam_part = torch.zeros((n_threads // _THREADS, _CAM_USED),
+                               dtype=torch.float32, device=cam.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mesh_megagrad_launch(
+            cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
+            tab.tri.data_ptr(), t_pad, tab.cluster.data_ptr(),
+            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
+            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            int(flags[5]), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
+            cam_part.data_ptr(), gsph.data_ptr(), gtri.data_ptr(),
+            rec.data_ptr(), n_threads,
+            counts.data_ptr() if counts is not None else None, n_pix,
+            pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
+            n_samples, cfg.width, cfg.height, cfg.max_depth, cfg.t_min,
+            bits, stream)
+    if rc != 0:
+        raise RuntimeError(f"mesh megagrad launch failed: CUDA error {rc}")
+    MESH_LAUNCHES += 1
+    gcam = torch.zeros_like(cam)
+    gcam[0, :_CAM_USED] = cam_part.sum(dim=0)
+    return gcam, gsph, gtri
+
+
+def _plane_hit_fn(tab: MeshTables, sphere_scene, t_min: float, plane,
+                 material):
+    """hit_fn(o, d) of the mesh backward's plain version: the winner
+    search of ``render_mesh_plain`` (the spheres' fold, then
+    ``closest_tri_plain`` on the tables, a sphere winning a tie) without
+    autograd, and the winner's record differentiably: a sphere's through
+    ``winner_hitinfo``, a triangle's from its plane.  plane: (4, T_pad)
+    rows n and t bias = -c of the triangle table; material: (albedo,
+    fuzz, ior, mat_type) per triangle in plan order.  A triangle's hit is
+    t = t_rec + t_plane - sg(t_plane), t_plane = (c - n.o) / (n.d), and
+    its normal n / max(|n|, 1e-20): the kernel's adjoints."""
+    albedo, fuzz, ior, mat_type = material
+    up = torch.tensor([0.0, 0.0, 1.0], device=tab.tri.device)
+
+    def hit_fn(o, d):
+        with torch.no_grad():
+            s_t, _, s_idx = closest_fold(sphere_scene, o, d, t_min)
+            tri_t, tri_idx = closest_tri_plain(tab, o.contiguous(),
+                                               d.contiguous(), t_min)
+            take = (tri_t < BIG) & (tri_t < s_t)
+        base = winner_hitinfo(sphere_scene, o, d,
+                              torch.zeros_like(take, dtype=torch.int32),
+                              s_idx, (s_t < BIG) & ~take, t_min)
+        tt = take[:, None]
+        j = torch.where(take, tri_idx, torch.zeros_like(tri_idx))
+        n = torch.where(tt, plane[0:3, j].T, up)
+        nd = torch.where(take, dot3(n, d), torch.ones_like(tri_t))
+        t_plane = (-plane[3, j] - dot3(n, o)) / nd
+        t = torch.where(take, tri_t, torch.ones_like(tri_t))
+        t = t + (t_plane - t_plane.detach())
+        outward = n / torch.clamp(torch.sqrt(dot3(n, n)), min=1e-20)[:, None]
+        front = dot3(d, outward) < 0.0
+        normal = torch.where(front[:, None], outward, -outward)
+        return HitInfo(
+            hit=base.hit | take, t=torch.where(take, t, base.t),
+            point=torch.where(tt, fma(t[:, None], d, o), base.point),
+            normal=torch.where(tt, normal, base.normal),
+            front_face=torch.where(take, front, base.front_face),
+            albedo=torch.where(tt, albedo[j], base.albedo),
+            fuzz=torch.where(take, fuzz[j], base.fuzz),
+            ior=torch.where(take, ior[j], base.ior),
+            mat_type=torch.where(take, mat_type[j], base.mat_type))
+
+    return hit_fn
+
+
+def render_grad_mesh_tables_plain(cam, sph, n_spheres: int, tab: MeshTables,
+                                  cfg: RenderConfig, sky_kind: int, flags,
+                                  g_r, g_g, g_b, seed: int, n_pix: int,
+                                  pix_offset: int = 0, sample_base: int = 0,
+                                  n_samples: int | None = None, counts=None,
+                                  pix_chunk: int = _PLAIN_PIX_CHUNK,
+                                  spp_chunk: int = _PLAIN_SPP_CHUNK):
+    """The plain PyTorch version of ``render_grad_mesh_tables``, on the
+    tables' device: autograd of the plain wavefront tracer with
+    ``_plane_hit_fn`` over the scene the tables hold, with respect to the
+    camera and sphere tables, the triangle table's plane rows and the
+    per-triangle materials of ``tab.feats``, in chunks of at most
+    pix_chunk pixels and spp_chunk samples.  gtri row 8 receives the whole
+    ior cotangent and row 9 stays 0.  counts[0] receives the bounces
+    traced; the other counts stay 0.  ``flags`` only prune the kernel's
+    code."""
+    n_samples = cfg.spp if n_samples is None else n_samples
+    gcfg = cfg.replace(nan_policy="zero")
+    g = torch.stack([g_r, g_g, g_b], dim=-1)
+    feats = tab.feats
+    gcam = torch.zeros_like(cam)
+    gsph = torch.zeros_like(sph)
+    gtri = torch.zeros((GTRI_ROWS, tab.tri.shape[1]), dtype=torch.float32,
+                       device=cam.device)
+    bounces = counts[:1] if counts is not None else None
+    for p0 in range(0, n_pix, pix_chunk):
+        m = min(pix_chunk, n_pix - p0)
+        lin = torch.arange(pix_offset + p0, pix_offset + p0 + m,
+                           device=cam.device)
+        for s0 in range(0, n_samples, spp_chunk):
+            # also under a backward pass, which turns grad mode off
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (
+                    cam, sph, tab.tri[T_T:T_T + 4], feats.albedo,
+                    feats.fuzz, feats.ior)]
+                cam_, sph_, plane, albedo, fuzz, ior = leaves
+                scene, frame = scene_from_tables(cam_, sph_, n_spheres,
+                                                 sky_kind)
+                acc = render_rows_wavefront(
+                    scene, gcfg, lin // cfg.width, lin % cfg.width, lin,
+                    seed, sample_base + s0, min(spp_chunk, n_samples - s0),
+                    frame=frame, bounces=bounces,
+                    hit_fn=_plane_hit_fn(tab, scene, cfg.t_min, plane,
+                                        (albedo, fuzz, ior,
+                                         feats.mat_type)))
+                grads = torch.autograd.grad((acc * g[p0:p0 + m]).sum(),
+                                            leaves, allow_unused=True)
+            ga, gs, gp, galb, gfz, gior = (
+                torch.zeros_like(x) if gx is None else gx
+                for gx, x in zip(grads, leaves))
+            gcam += ga
+            gsph += gs
+            gtri[0:3] += gp[0:3]
+            gtri[3] -= gp[3]
+            gtri[4:7] += galb.T
+            gtri[7] += gfz
+            gtri[8] += gior
+    return gcam, gsph, gtri
+
+
 def _planes(g_img, spp: int):
     """(H, W, 3) image cotangent -> three contiguous planes divided by
     spp."""
@@ -239,11 +482,24 @@ def render_grad_scene(scene: Scene, cfg: RenderConfig, g_img, seed: int = 0,
                       flags=None):
     """Gradient Scene for the cotangent g_img (H, W, 3) of the mean image:
     the table cotangents of ``render_grad_tables`` (with g_img / spp)
-    chained to the scene's leaves by ``table_grads_to_scene``.  Runs on the
-    scene's device; flags default to ``specialize_flags(scene)``."""
+    chained to the scene's leaves by ``table_grads_to_scene``; for a mesh
+    scene those of ``render_grad_mesh_tables``, whose triangle cotangents
+    ``tri_grads_to_scene`` adds.  Runs on the scene's device; flags default
+    to ``specialize_flags(scene)`` (``specialize_mesh_flags`` for a mesh
+    scene)."""
     reason = unsupported_grad_reason(scene)
     if reason is not None:
         raise NotImplementedError(reason)
+    if scene.triangles.count > 0:
+        frozen = detached(scene)
+        tab = mesh_tables(frozen)
+        gcam, gsph, gtri = render_grad_mesh_tables(
+            mesh_camera_table(frozen), sphere_table(frozen),
+            scene.spheres.count, tab, cfg, scene.sky.kind,
+            flags if flags is not None else specialize_mesh_flags(frozen),
+            *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
+        return tri_grads_to_scene(scene, tab.plan, gtri,
+                                  table_grads_to_scene(scene, gcam, gsph))
     gcam, gsph = render_grad_tables(
         camera_table(scene), sphere_table(scene), scene.spheres.count, cfg,
         scene.sky.kind,
@@ -262,6 +518,46 @@ def table_grads_to_scene(scene: Scene, gcam, gsph) -> Scene:
     grads = torch.autograd.grad((cam, sph), list(leaves.values()),
                                 (gcam, gsph), allow_unused=True)
     return gradient_scene(scene, dict(zip(leaves, grads)))
+
+
+def tri_cotangents(p0, p1, p2, ior, plan, gtri):
+    """Cotangents (p0, p1, p2, albedo, fuzz, ior) of a mesh's triangles, in
+    the scene's order, from gtri (10, T_pad) in the plan's order: rows 0-3
+    through autograd of n = (p1 - p0) x (p2 - p0) and c = n . p0 on the
+    plan-permuted vertices, rows 4-9 as they are, with
+    d_ior = g_ior - g_invior / max(ior, 1e-8)^2; both un-permuted by
+    ``index_add_`` over the plan's real triangles (perm >= 0)."""
+    perm = torch.as_tensor(plan.perm.astype(np.int64), device=gtri.device)
+    real = perm >= 0
+    ids = perm[real]
+
+    def unpermute(x, like):
+        return torch.zeros_like(like).index_add_(0, ids, x[real])
+
+    with torch.enable_grad():
+        q = [permute(x.detach(), plan).requires_grad_() for x in (p0, p1, p2)]
+        n = torch.linalg.cross(q[1] - q[0], q[2] - q[0], dim=-1)
+        c = (n * q[0]).sum(dim=-1)
+        dq = torch.autograd.grad((n, c), q, (gtri[0:3].T, gtri[3]))
+    ior_p = torch.clamp(permute(ior.detach(), plan, fill=1.0), min=1e-8)
+    d_ior = gtri[8] - gtri[9] / (ior_p * ior_p)
+    return (*(unpermute(x, p0) for x in dq),
+            unpermute(gtri[4:7].T, p0), unpermute(gtri[7], ior),
+            unpermute(d_ior, ior))
+
+
+def tri_grads_to_scene(scene: Scene, plan, gtri, grads: Scene | None = None):
+    """A gradient Scene with the triangle cotangents of gtri (the mesh
+    backward's, in ``plan``'s order) added to the triangle leaves of
+    ``grads`` (zeros when None)."""
+    if grads is None:
+        grads = gradient_scene(scene, {})
+    t = scene.triangles
+    cots = tri_cotangents(t.p0, t.p1, t.p2, t.ior, plan, gtri)
+    g = grads.triangles
+    return dataclasses.replace(grads, triangles=dataclasses.replace(
+        g, **{f: getattr(g, f) + x for f, x in zip(
+            ("p0", "p1", "p2", "albedo", "fuzz", "ior"), cots)}))
 
 
 class SphereRenderFn(torch.autograd.Function):
@@ -308,6 +604,9 @@ def render_tables_differentiable(scene: Scene, cfg: RenderConfig,
     reaches the scene's leaves through the table builders.  The kernels
     take up to 128 spheres (the forward's limit), the plain versions
     (``plain_chunks`` given) up to GRAD_MAX_SPHERES."""
+    if scene.triangles.count > 0:
+        raise NotImplementedError("a mesh scene's image differentiates "
+                                  "through render_mesh_differentiable")
     reason = (unsupported_reason(scene) if plain_chunks is None
               else unsupported_grad_reason(scene))
     if reason is not None:
@@ -317,3 +616,59 @@ def render_tables_differentiable(scene: Scene, cfg: RenderConfig,
         scene.sky.kind,
         flags if flags is not None else specialize_flags(scene), seed,
         plain_chunks)
+
+
+class MeshRenderFn(torch.autograd.Function):
+    """(H, W, 3) image of a mesh scene's tables through ``render_mesh`` (the
+    mesh megakernel on CUDA), whose backward is ``render_grad_mesh_tables``
+    (the mesh backward kernel) with its triangle cotangents chained to the
+    triangles' leaves by ``tri_cotangents``.  The forward keeps
+    ``cfg.nan_policy``; the backward differentiates the "zero" policy.
+
+    apply(cam, sph, p0, p1, p2, albedo, fuzz, ior, n_spheres, tab, cfg,
+    sky_kind, flags, seed): cam ``mesh_camera_table``, sph
+    ``sphere_table``, the triangles' leaves in the scene's order, tab the
+    mesh tables (in their plan's order), flags ``specialize_mesh_flags``.
+    The wrappers launch the kernels for CUDA tensors and run the plain
+    versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, cam, sph, p0, p1, p2, albedo, fuzz, ior, n_spheres, tab,
+                cfg, sky_kind, flags, seed):
+        r, g, b = render_mesh(cam.detach(), sph.detach(), n_spheres, tab,
+                              cfg, sky_kind, flags, seed,
+                              cfg.width * cfg.height)
+        ctx.save_for_backward(cam, sph, p0, p1, p2, ior)
+        ctx.args = (n_spheres, tab, cfg, sky_kind, flags, seed)
+        return torch.stack([r, g, b], dim=-1).reshape(cfg.height, cfg.width,
+                                                      3)
+
+    @staticmethod
+    def backward(ctx, g_img):
+        cam, sph, p0, p1, p2, ior = ctx.saved_tensors
+        n_spheres, tab, cfg, sky_kind, flags, seed = ctx.args
+        gcam, gsph, gtri = render_grad_mesh_tables(
+            cam.detach(), sph.detach(), n_spheres, tab, cfg, sky_kind, flags,
+            *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
+        cots = tri_cotangents(p0, p1, p2, ior, tab.plan, gtri)
+        return (gcam, gsph, *cots, None, None, None, None, None, None)
+
+
+def render_mesh_differentiable(scene: Scene, cfg: RenderConfig,
+                               seed: int = 0, flags=None, plan=None):
+    """(H, W, 3) image of a mesh scene through ``MeshRenderFn``: autograd
+    reaches the camera and spheres through the table builders and the
+    triangles through the mesh backward's cotangents.  flags default to
+    ``specialize_mesh_flags(scene)``; plan, the order of the mesh tables,
+    to the scene's own (a fit passes its first plan: the tables follow the
+    moved vertices, the order stays)."""
+    reason = unsupported_grad_mesh_reason(scene)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    frozen = detached(scene)
+    t = scene.triangles
+    return MeshRenderFn.apply(
+        mesh_camera_table(scene), sphere_table(scene), t.p0, t.p1, t.p2,
+        t.albedo, t.fuzz, t.ior, scene.spheres.count,
+        mesh_tables(frozen, plan=plan), cfg, scene.sky.kind,
+        flags if flags is not None else specialize_mesh_flags(frozen), seed)

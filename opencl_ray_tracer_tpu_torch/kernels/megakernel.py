@@ -67,9 +67,9 @@ def unsupported_reason(scene: Scene) -> str | None:
     """Why the kernel does not cover this scene, or None when it does.
     The gradient entry points take their scope from here."""
     if scene.triangles.count > 0:
-        return ("triangle meshes render through the mesh megakernel; their "
-                "gradients are not ported yet: slice 3b ports the mesh "
-                "backward kernel (K5)")
+        return ("the sphere megakernel takes no triangles: a mesh scene "
+                "renders through the mesh megakernel (K2) and differentiates "
+                "through the mesh backward kernel (K5)")
     if scene.sky.kind == KIND_HDR:
         return ("HDR skies are not ported yet: the HDR slice (slice 4) "
                 "ports them")

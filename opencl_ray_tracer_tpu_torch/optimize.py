@@ -15,6 +15,7 @@ import torch
 
 from .config import RenderConfig
 from .scene import Scene, get_leaf, replace_leaves
+from .scene.sky import KIND_HDR
 from .tracer.diffhit import make_grad_hit_fn
 from .tracer.render import render_rows, resolve_device
 
@@ -27,6 +28,24 @@ def extract_params(scene: Scene, paths: Sequence[str]) -> dict:
 def insert_params(scene: Scene, params: dict) -> Scene:
     """A copy of scene with the leaves of ``params`` put in."""
     return replace_leaves(scene, params)
+
+
+def _kernel_scope(scene: Scene, param_paths) -> str | None:
+    """Why the kernel route of ``fit_scene`` does not take this fit, or
+    None."""
+    if scene.triangles.count == 0:
+        from .kernels.megakernel import unsupported_reason
+        return unsupported_reason(scene)
+    from .kernels.megagrad import unsupported_grad_mesh_reason
+    reason = unsupported_grad_mesh_reason(scene)
+    materials = [p for p in param_paths if p.startswith("triangles.")
+                 and p not in ("triangles.p0", "triangles.p1",
+                               "triangles.p2")]
+    if reason is None and materials:
+        reason = (f"fitting {', '.join(materials)} takes the plain route: "
+                  "the mesh kernels need one uniform mesh material, which "
+                  "a step would break")
+    return reason
 
 
 def fit_scene(
@@ -58,9 +77,17 @@ def fit_scene(
     differentiates with the backward megakernel, both under the "zero" NaN
     policy and with value-independent flags (``specialize_flags(...,
     conservative=True)``), since a step changes fuzz and aperture values;
-    "plain" is autograd of the plain per-sample tracer (cfg.early_stop off);
-    "auto" is "kernel" on CUDA and "plain" on the CPU.  ``device`` None
-    means the card, and raises when there is none.
+    a mesh scene takes the mesh megakernel and the mesh backward kernel the
+    same way (``specialize_mesh_flags(..., conservative=True)``), with the
+    mesh tables in the initial scene's plan, rebuilt from the moved
+    vertices every step (the plan is built once per fit).  The mesh route
+    fits any leaf but the triangles' materials (a step would break the
+    uniform material its scope needs); fitting those takes "plain".
+    "plain" is autograd of the plain per-sample tracer (cfg.early_stop
+    off); "auto" is "kernel" on CUDA for a scene in the kernels' scope and
+    "plain" otherwise.  An explicit "kernel" out of scope raises
+    ``NotImplementedError``.  ``device`` None means the card, and raises
+    when there is none.
 
     Adam with torch's defaults performs optax.adam's update (both divide by
     sqrt(v_hat) + eps).
@@ -71,16 +98,19 @@ def fit_scene(
     if checkpoint_path is not None:
         raise NotImplementedError(
             "checkpointed fits are not ported yet: ROADMAP item A13")
+    if grad_backend not in ("auto", "kernel", "plain"):
+        raise ValueError(f"unknown grad_backend: {grad_backend}")
+    reason = _kernel_scope(init_scene, param_paths)
+    if init_scene.triangles.count > 0 and init_scene.sky.kind == KIND_HDR:
+        raise NotImplementedError(reason)
     device = resolve_device(device)
     if grad_backend == "auto":
-        grad_backend = "kernel" if device.type == "cuda" else "plain"
-    if grad_backend not in ("kernel", "plain"):
-        raise ValueError(f"unknown grad_backend: {grad_backend}")
-    if grad_backend == "kernel" or init_scene.triangles.count > 0:
-        from .kernels.megakernel import unsupported_reason
-        reason = unsupported_reason(init_scene)
-        if reason is not None:
-            raise NotImplementedError(reason)
+        grad_backend = ("kernel" if device.type == "cuda"
+                        and (reason is None
+                             or init_scene.triangles.count == 0)
+                        else "plain")
+    if grad_backend == "kernel" and reason is not None:
+        raise NotImplementedError(reason)
     init_scene = init_scene.to(device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     if loss_fn is None:
@@ -88,7 +118,19 @@ def fit_scene(
             return torch.mean((img - target) ** 2)
 
     dcfg = cfg.replace(early_stop=False)
-    if grad_backend == "kernel":
+    if grad_backend == "kernel" and init_scene.triangles.count > 0:
+        from .kernels.intersect_mm import MESH_CHUNK
+        from .kernels.megagrad import render_mesh_differentiable
+        from .kernels.megamesh import specialize_mesh_flags
+        from .tracer.clusters import plan_for_scene
+        flags = specialize_mesh_flags(init_scene, conservative=True)
+        plan = plan_for_scene(init_scene, MESH_CHUNK)
+        gcfg = cfg.replace(nan_policy="zero")
+
+        def render_fn(scene, step_seed):
+            return render_mesh_differentiable(scene, gcfg, step_seed,
+                                              flags=flags, plan=plan)
+    elif grad_backend == "kernel":
         from .kernels.megagrad import render_tables_differentiable
         from .kernels.megakernel import specialize_flags
         flags = specialize_flags(init_scene, conservative=True)
@@ -100,7 +142,8 @@ def fit_scene(
     else:
         def render_fn(scene, step_seed):
             return render_rows(scene, dcfg, 0, dcfg.height, step_seed,
-                               hit_fn=make_grad_hit_fn(scene, dcfg.t_min))
+                               hit_fn=make_grad_hit_fn(
+                                   scene, dcfg.t_min, winner_backend="auto"))
 
     params = {p: v.detach().clone().requires_grad_()
               for p, v in extract_params(init_scene, param_paths).items()}
@@ -119,8 +162,10 @@ def fit_scene(
         opt.step()
         losses.append(float(loss.detach()))
         if callback is not None:
+            # copies: the next step updates the parameters in place
             callback(i, losses[-1], insert_params(
-                init_scene, {p: v.detach() for p, v in params.items()}))
+                init_scene, {p: v.detach().clone()
+                             for p, v in params.items()}))
     return (insert_params(init_scene,
                           {p: v.detach() for p, v in params.items()}),
             losses)

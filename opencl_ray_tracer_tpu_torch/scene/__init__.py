@@ -123,6 +123,12 @@ def requiring_grad(scene: Scene) -> Scene:
         for path, value in float_leaves(scene).items()})
 
 
+def detached(scene: Scene) -> Scene:
+    """A copy of scene whose float leaves are detached from autograd."""
+    return replace_leaves(scene, {path: value.detach() for path, value in
+                                  float_leaves(scene).items()})
+
+
 def gradient_scene(scene: Scene, grads: dict) -> Scene:
     """A Scene of gradients: float leaves from ``grads`` by
     ``"group.field"`` (zeros where a leaf has none), integer leaves None."""
@@ -151,6 +157,7 @@ __all__ = [
     "camera_frame", "make_rays", "rays_from_frame", "sky_colour",
     "direction_to_uv", "materials", "readme_scene", "reference_scene",
     "book_cover_scene", "scene_from_numpy", "scene_to_numpy", "get_leaf",
-    "replace_leaves", "float_leaves", "requiring_grad", "gradient_scene",
+    "replace_leaves", "float_leaves", "requiring_grad", "detached",
+    "gradient_scene",
     "scene_from_json", "scene_to_json",
 ]

@@ -14,7 +14,8 @@ renders, the oracle the kernels are held against.
 
 Gradients: ``render_and_grad`` is autograd of the plain per-sample tracer;
 ``render_grad_sampled`` is the full-size gradient, through the forward and
-backward kernels on the card ("kernel") or through their plain versions,
+backward kernels on the card ("kernel": the sphere kernels, or for a mesh
+scene the mesh megakernel and the mesh backward kernel) or through
 autograd of the plain wavefront tracer in pixel and sample chunks ("plain",
 the CPU's route).  On the card a kernel that fails to build or launch
 raises; nothing falls back.
@@ -196,12 +197,13 @@ def render_and_grad(scene: Scene, cfg: RenderConfig, loss_fn, seed: int = 0,
 def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
                         seed: int = 0, spp_chunk: int = 25,
                         row_chunk: int | None = None,
+                        winner_backend: str = "auto",
                         grad_backend: str = "auto", device=None):
     """Full-size differentiable render: (loss, image, grads), grads a
     gradient Scene.  ``device`` None means the card, and raises when there
     is none.
 
-    Both backends render the image of the scene's tables and differentiate
+    Sphere scenes render the image of the scene's tables and differentiate
     it through ``kernels.megagrad.SphereRenderFn``:
       - "kernel": the forward megakernel renders and the backward
         megakernel differentiates (on CPU tensors the wrappers run their
@@ -211,35 +213,96 @@ def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
         rows x spp_chunk samples) chunk at a time: the mean image is linear
         in the samples, so the chunks' gradients add up.  Chunks bound the
         memory at any size; row_chunk None picks the most rows with at most
-        2**17 rays;
-      - "auto": "kernel" on CUDA, "plain" on the CPU.
+        2**17 rays.
+    Mesh scenes:
+      - "kernel": ``kernels.megagrad.MeshRenderFn``, the mesh megakernel
+        (K2) and the mesh backward kernel (K5), for scenes in their scope
+        (``supports_grad_mesh``);
+      - "plain": ``render()`` draws the image on ``device``, and the
+        gradient is autograd of the plain wavefront tracer over the scene's
+        leaves in the same chunks, with the winner-only hit whose triangle
+        search ``winner_backend`` picks (``diffhit.make_grad_hit_fn``:
+        "auto" is the closest-triangle kernel on CUDA).
+    "auto" is "kernel" on CUDA and "plain" on the CPU; on CUDA a mesh
+    scene outside the kernels' scope takes "plain".
 
     The gradient treats a NaN sample with the order-invariant "zero"
     policy on every backend; the image keeps cfg.nan_policy.  A scene
-    outside the backend's scope raises ``NotImplementedError`` naming the
-    slice that will cover it, before anything moves to the device, and on
-    CUDA a kernel failure raises."""
-    from ..kernels.megagrad import (render_tables_differentiable,
+    outside the backend's scope (and any HDR sky) raises
+    ``NotImplementedError`` naming the reason, before anything moves to
+    the device, and on CUDA a kernel failure raises."""
+    from ..kernels.megagrad import (render_mesh_differentiable,
+                                    render_tables_differentiable,
+                                    unsupported_grad_mesh_reason,
                                     unsupported_grad_reason)
     from ..kernels.megakernel import unsupported_reason
+    if scene.sky.kind == KIND_HDR:
+        raise NotImplementedError(
+            "HDR skies are not ported yet: the HDR slice (slice 4) ports "
+            "them")
     device = resolve_device(device)
+    mesh = scene.triangles.count > 0
     if grad_backend == "auto":
-        grad_backend = "kernel" if device.type == "cuda" else "plain"
+        in_scope = not mesh or unsupported_grad_mesh_reason(scene) is None
+        grad_backend = ("kernel" if device.type == "cuda" and in_scope
+                        else "plain")
+    rows = row_chunk or max(1, 2**17 // cfg.width)
     if grad_backend == "kernel":
-        chunks, reason = None, unsupported_reason(scene)
+        chunks = None
+        reason = (unsupported_grad_mesh_reason(scene) if mesh
+                  else unsupported_reason(scene))
     elif grad_backend == "plain":
-        rows = row_chunk or max(1, 2**17 // cfg.width)
         chunks = (rows * cfg.width, spp_chunk)
-        reason = unsupported_grad_reason(scene)
+        reason = None if mesh else unsupported_grad_reason(scene)
     else:
         raise ValueError(f"unknown grad_backend: {grad_backend}")
     if reason is not None:
         raise NotImplementedError(reason)
+    if mesh and grad_backend == "plain":
+        return _mesh_grad_plain(scene, cfg, loss_fn, seed, chunks,
+                                winner_backend, device)
     s = requiring_grad(scene.to(device))
-    img = render_tables_differentiable(s, cfg, seed, plain_chunks=chunks)
+    if mesh:
+        img = render_mesh_differentiable(s, cfg, seed)
+    else:
+        img = render_tables_differentiable(s, cfg, seed, plain_chunks=chunks)
     loss = loss_fn(img)
     leaves = float_leaves(s)
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
     return (loss.detach(), img.detach(),
             gradient_scene(s, dict(zip(leaves, grads))))
+
+
+def _mesh_grad_plain(scene: Scene, cfg: RenderConfig, loss_fn, seed: int,
+                     chunks, winner_backend: str, device):
+    """render_grad_sampled's "plain" route for a mesh scene (the JAX
+    package's jnp route): the image through ``render()``, then autograd of
+    the plain wavefront over (pixels, samples) chunks of ``chunks``."""
+    img = render(scene, cfg, seed, device=device)
+    img_ = img.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = loss_fn(img_)
+    (g_img,) = torch.autograd.grad(loss, img_)
+    g = div(g_img.reshape(-1, 3), cfg.spp)
+    s = requiring_grad(scene.to(device))
+    dcfg = cfg.replace(early_stop=False, nan_policy="zero")
+    hit_fn = make_grad_hit_fn(s, dcfg.t_min, winner_backend=winner_backend)
+    leaves = float_leaves(s)
+    total = {k: None for k in leaves}
+    n_pix = cfg.width * cfg.height
+    pix_chunk, spp_chunk = chunks
+    for p0 in range(0, n_pix, pix_chunk):
+        m = min(pix_chunk, n_pix - p0)
+        lin = torch.arange(p0, p0 + m, device=device)
+        for s0 in range(0, cfg.spp, spp_chunk):
+            acc = render_rows_wavefront(
+                s, dcfg, lin // cfg.width, lin % cfg.width, lin, seed, s0,
+                min(spp_chunk, cfg.spp - s0), hit_fn=hit_fn)
+            grads = torch.autograd.grad((acc * g[p0:p0 + m]).sum(),
+                                        list(leaves.values()),
+                                        allow_unused=True)
+            for k, gk in zip(leaves, grads):
+                if gk is not None:
+                    total[k] = gk if total[k] is None else total[k] + gk
+    return loss.detach(), img.detach(), gradient_scene(s, total)

@@ -120,15 +120,24 @@ def test_winner_hitinfo_matches_whole_fold_autograd():
 
 
 def test_grad_hit_fn_refuses_what_later_slices_port():
+    """Since slice 3b the triangle branch and the kernel winner search are
+    ported (tests/test_torch_mesh_grad.py); what stays refused is a winner
+    search the port does not have.  A sphere scene under "pallas" takes
+    the plain fold, as the JAX package's does."""
     scene = ot.reference_scene()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tdh.make_grad_hit_fn(scene, T_MIN, winner_backend="pallas")
+    with pytest.raises(ValueError, match="winner_backend"):
+        tdh.make_grad_hit_fn(scene, T_MIN, winner_backend="jnp")
+    o, d, _ = _rays(16)
+    o, d = torch.tensor(o), torch.tensor(d)
+    plain = tdh.make_grad_hit_fn(scene, T_MIN)(o, d)
+    kernel = tdh.make_grad_hit_fn(scene, T_MIN, winner_backend="pallas")(o, d)
+    assert torch.equal(plain.t, kernel.t) and torch.equal(plain.hit,
+                                                          kernel.hit)
     tri = ot.Triangles(*(torch.zeros((1, 3)) for _ in range(4)),
                        torch.zeros(1), torch.ones(1),
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32))
     mesh = dataclasses.replace(scene, triangles=tri)
-    o = torch.zeros((2, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]] * 2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tdh.make_grad_hit_fn(mesh, T_MIN)(o, d)
+    # a degenerate triangle outside any gating box: the spheres' record
+    h = tdh.make_grad_hit_fn(mesh, T_MIN)(o, d)
+    assert torch.equal(h.t[h.hit], plain.t[plain.hit])

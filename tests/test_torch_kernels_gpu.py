@@ -17,7 +17,10 @@ max|a - b| / max|b| under 5e-3 (reference spheres), 1e-3 (constant sky),
 ill-conditioned in f32), 5e-3 (emissive clamp), 2e-2 (40 random spheres).
 The kernel's per-block sums of the sphere cotangents go through atomics
 in an order that changes from run to run; its camera cotangents are
-summed in a fixed order.
+summed in a fixed order.  The mesh backward (tests/test_megagrad.py's
+mesh tests): 5e-4 per leaf, focus_dist at the reference scene's 5e-3,
+1e-4 on the camera without spheres; its triangle cotangents also go
+through atomics.
 """
 
 import dataclasses
@@ -391,3 +394,112 @@ def test_plain_route_launches_closest_tri(cuda):
     diff = (plain - fused).abs()
     assert (diff > 1e-3).float().mean() < 0.005
     assert (diff <= 1e-4).float().mean() > 0.99
+
+
+MESH_GRAD_LEAVES = GRAD_LEAVES + (
+    "triangles.p0", "triangles.p1", "triangles.p2", "triangles.albedo",
+    "triangles.fuzz", "triangles.ior")
+
+
+def _mesh_grad_scenes():
+    """The mesh backward's cases, with the tolerances per leaf of
+    tests/test_megagrad.py's mesh tests: the fuzzy-metal torus with the
+    reference spheres (5e-4; focus_dist, a near-cancelling sum, at the
+    reference scene's 5e-3), and the same torus as a Lambertian mesh
+    without spheres (camera leaves, 1e-4)."""
+    from opencl_ray_tracer_tpu_torch.scene import materials as mat
+    scenes = mesh_scenes()
+    mesh = scenes["mesh"]
+    t = mesh.triangles
+    lamb = dataclasses.replace(mesh, spheres=ot.Spheres.empty(),
+                               triangles=dataclasses.replace(
+                                   t, mat_type=torch.full_like(
+                                       t.mat_type, mat.LAMBERTIAN)))
+    tol = {k: 5e-4 for k in MESH_GRAD_LEAVES}
+    return {"mesh": (mesh, {**tol, "camera.focus_dist": 5e-3}),
+            "mesh_only": (lamb, {"camera.look_from": 1e-4,
+                                 "camera.look_at": 1e-4,
+                                 "camera.vfov_deg": 1e-4})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_mesh_grad_scenes()))
+def test_mesh_grad_kernel_matches_plain_on_card(cuda, case):
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene, tol = _mesh_grad_scenes()[case]
+    scene = scene.to(cuda)
+    cfg = ot.RenderConfig(width=50, height=30, spp=4, max_depth=6,
+                          nan_policy="zero")
+    img = ot.render(scene, cfg, seed=3)
+    g_img = (2.0 / img.numel()) * img
+    before = mg.MESH_LAUNCHES
+    got = mg.render_grad_scene(scene, cfg, g_img, seed=3)
+    torch.cuda.synchronize()
+    assert mg.MESH_LAUNCHES == before + 1
+    tab = mm.mesh_tables(scene)
+    g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
+    gcam, gsph, gtri = mg.render_grad_mesh_tables_plain(
+        mm.mesh_camera_table(scene), mk.sphere_table(scene),
+        scene.spheres.count, tab, cfg, scene.sky.kind,
+        mm.specialize_mesh_flags(scene), g[0], g[1], g[2], 3,
+        cfg.width * cfg.height)
+    want = mg.tri_grads_to_scene(scene, tab.plan, gtri,
+                                 mg.table_grads_to_scene(scene, gcam, gsph))
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    errs = {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k]).max()), 1e-6) for k in tol}
+    assert all(errs[k] < tol[k] for k in tol), errs
+    assert np.abs(b["triangles.p0"]).max() > 0
+
+
+@pytest.mark.gpu
+def test_mesh_grad_sampled_runs_k2_and_k5(cuda):
+    """The mesh route of render_grad_sampled: one launch of the mesh
+    megakernel and one of the mesh backward per fwd+bwd, no sphere kernel
+    and no plain version."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = mesh_scenes()["mesh"]
+    cfg = ot.RenderConfig(width=40, height=24, spp=3, max_depth=5)
+    counts = (mm.LAUNCHES, mg.MESH_LAUNCHES, mk.LAUNCHES, mg.LAUNCHES)
+    loss, img, grads = ot.render_grad_sampled(
+        scene, cfg, lambda im: torch.mean(im ** 2), seed=2)
+    torch.cuda.synchronize()
+    assert (mm.LAUNCHES, mg.MESH_LAUNCHES, mk.LAUNCHES, mg.LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert img.device.type == "cuda" and torch.isfinite(loss)
+    assert torch.isfinite(grads.triangles.p0).all()
+    assert grads.triangles.p0.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_mesh_grad_plain_route_launches_closest_tri(cuda):
+    """render_grad_sampled(grad_backend="plain") on a mesh scene: the
+    winner search of its autograd is the closest-triangle kernel; the mesh
+    backward does not run."""
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    scene = mesh_scenes()["mesh"]
+    cfg = ot.RenderConfig(width=24, height=16, spp=2, max_depth=4)
+    k3, k5 = im.LAUNCHES, mg.MESH_LAUNCHES
+    loss, _, grads = ot.render_grad_sampled(
+        scene, cfg, lambda im_: torch.mean(im_ ** 2), seed=2,
+        grad_backend="plain")
+    torch.cuda.synchronize()
+    assert im.LAUNCHES > k3 and mg.MESH_LAUNCHES == k5
+    assert torch.isfinite(grads.triangles.p0).all()
+
+
+@pytest.mark.gpu
+def test_failing_mesh_grad_launch_raises(cuda, monkeypatch):
+    class Failing:
+        def mesh_megagrad_threads(self, n_pix):
+            return 128
+
+        def mesh_megagrad_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(mg, "_library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ot.render_grad_sampled(mesh_scenes()["mesh"],
+                               ot.RenderConfig(width=8, height=4, spp=1,
+                                               max_depth=2),
+                               lambda im: im.mean())

@@ -13,7 +13,8 @@
   package's (``supports_mesh`` on the cases of test_megamesh.py:76-92
   without an HDR sky, ``specialize_mesh_flags``, the camera table).
 - Routing: on the card ``render`` sends such scenes to the mesh
-  megakernel; the gradient entry points still refuse them (slice 3b).
+  megakernel; the gradient entry points refuse an HDR sky (slice 4) and,
+  on the kernel route, a mesh of more than one material.
 
 The CUDA kernel against its plain version is in test_torch_kernels_gpu.py.
 """
@@ -200,14 +201,28 @@ def test_mesh_inputs_are_cached_by_content():
 
 
 def test_gradients_refuse_mesh_scenes():
-    """Before anything moves to the card (this machine has none)."""
-    scene = _mesh_scene(ot)
+    """Mesh gradients are ported (tests/test_torch_mesh_grad.py); an HDR
+    sky still refuses, naming slice 4, and an explicit "kernel" route
+    refuses a mesh of more than one material, before anything moves to the
+    card (this machine has none)."""
+    scene = _mesh_scene(ot, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         ot.render_grad_sampled(scene, cfg, lambda im: im.mean(),
                                device="cuda")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         ot.fit_scene(torch.zeros((4, 8, 3)), scene, cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         ot.fit_scene(torch.zeros((4, 8, 3)), scene, cfg,
                      grad_backend="plain", device="cuda")
+    mixed = _mesh_scene(ot)
+    t = mixed.triangles
+    mixed = dataclasses.replace(mixed, triangles=dataclasses.replace(
+        t, fuzz=torch.linspace(0.0, 0.5, t.count)))
+    with pytest.raises(NotImplementedError, match="uniform"):
+        ot.render_grad_sampled(mixed, cfg, lambda im: im.mean(),
+                               grad_backend="kernel", device="cuda")
+    with pytest.raises(NotImplementedError, match="uniform"):
+        ot.fit_scene(torch.zeros((4, 8, 3)), mixed, cfg,
+                     param_paths=("triangles.p0",), grad_backend="kernel",
+                     device="cuda")

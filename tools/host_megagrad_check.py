@@ -1,0 +1,291 @@
+"""The backward kernels' arithmetic against their plain versions, on the CPU.
+
+Compiles ``kernels/csrc/megagrad.cu`` as host C++ with g++: ``__device__``
+and the like defined away, ``__shared__`` as ``static``, atomics as plain
+adds, a warp's sums as the one lane's value, and the launchers cut off.
+It then runs the kernel as one thread per block over the pixels of a small
+image, and holds the cotangents it returns against the plain version's
+(``render_grad_mesh_tables_plain`` for the mesh variant, K5;
+``render_grad_tables_plain`` for the sphere variant, K4), per table block
+and per scene leaf after the chain to the scene, as max|a - b| / max|b|.
+No card and no nvcc are needed: this checks the hand-derived adjoints
+before a kernel's first run on the card.  The cases are chip_smoke.py's
+mesh cases on a 192-triangle torus (the reference mesh material, a
+Lambertian mesh, a metal mesh under a constant sky, no spheres, a
+dielectric, an emitter, 40 gating boxes) and two sphere scenes.
+
+    python tools/host_megagrad_check.py [--size 48x27x2/d6] [case ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+HERE = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE.parent))
+
+import opencl_ray_tracer_tpu_torch as ot  # noqa: E402
+from opencl_ray_tracer_tpu_torch.io import parse_obj  # noqa: E402
+from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj  # noqa: E402
+from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg  # noqa: E402
+from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
+from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm  # noqa: E402
+from opencl_ray_tracer_tpu_torch.scene import materials as mat  # noqa: E402
+from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy  # noqa: E402
+
+CSRC = HERE.parent / "opencl_ray_tracer_tpu_torch" / "kernels" / "csrc"
+SHIM = r'''
+#pragma once
+#include <math.h>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+using std::isnan;
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+#define __constant__
+struct Dim3 { unsigned x; };
+static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1};
+inline void __syncthreads() {}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float atomicAdd(float* p, float v) { float o = *p; *p += v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long o = *p; *p += v; return o; }
+inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+'''
+# Reads the tables from the working directory, runs every pixel as its own
+# block of one thread, and writes gcam (22), gsph (16 x tab_w), gtri
+# (10 x t_pad) and the four counts.
+DRIVER = r'''
+#include <vector>
+static std::vector<char> rd(const char* f) {
+  FILE* fp = fopen(f, "rb"); fseek(fp, 0, SEEK_END); long n = ftell(fp);
+  fseek(fp, 0, SEEK_SET); std::vector<char> b(n);
+  if (fread(b.data(), 1, n, fp) != (size_t)n) exit(2);
+  fclose(fp); return b; }
+int main(int argc, char** argv) {
+  if (argc != 16) return 2;
+  int a = 1;
+  const int mesh = atoi(argv[a++]), ns = atoi(argv[a++]);
+  const int tab_w = atoi(argv[a++]), t_pad = atoi(argv[a++]);
+  const int n_chunks = atoi(argv[a++]), n_boxes = atoi(argv[a++]);
+  const int mesh_type = atoi(argv[a++]), n_pix = atoi(argv[a++]);
+  const unsigned seed = (unsigned)atoi(argv[a++]);
+  const int n_samples = atoi(argv[a++]), width = atoi(argv[a++]);
+  const int height = atoi(argv[a++]), max_depth = atoi(argv[a++]);
+  const float t_min = (float)atof(argv[a++]);
+  const int flags = atoi(argv[a++]);
+  auto cam = rd("cam.bin"), sph = rd("sph.bin"), g = rd("g.bin");
+  std::vector<char> tri, cl, sub, cb, bx;
+  if (mesh) { tri = rd("tri.bin"); cl = rd("cluster.bin"); sub = rd("sub.bin");
+              cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); }
+  const float* gp = (const float*)g.data();
+  std::vector<float> cam_part((size_t)n_pix * 22, 0.f), gsph(16 * tab_w, 0.f);
+  std::vector<float> gtri(10 * (t_pad > 0 ? t_pad : 1), 0.f);
+  std::vector<float> rec((size_t)n_pix * max_depth * kRecMesh);
+  unsigned long long counts[4] = {0, 0, 0, 0};
+  Params p{};
+  p.cam = (const float*)cam.data(); p.sph = (const float*)sph.data();
+  p.g_r = gp; p.g_g = gp + n_pix; p.g_b = gp + 2 * n_pix;
+  p.cam_part = cam_part.data(); p.gsph = gsph.data(); p.rec = rec.data();
+  p.counts = counts; p.tab_w = tab_w; p.n_spheres = ns; p.n_pix = n_pix;
+  p.pix_offset = 0; p.n_threads = n_pix; p.seed = seed; p.sample_base = 0;
+  p.n_samples = n_samples; p.width = width; p.height = height;
+  p.max_depth = max_depth; p.t_min = t_min; p.flags = flags;
+  if (mesh) {
+    p.mt = MeshTables{(const float*)tri.data(), t_pad,
+                      (const float*)cl.data(), (const float*)sub.data(),
+                      (const int*)cb.data(), n_chunks,
+                      (const float*)bx.data(), n_boxes};
+    p.mesh_type = mesh_type; p.gtri = gtri.data();
+  }
+  for (int b = 0; b < n_pix; ++b) {
+    blockIdx.x = b;
+    if (mesh) megagrad<true>(p); else megagrad<false>(p);
+  }
+  std::vector<float> gcam(22, 0.f);
+  for (int b = 0; b < n_pix; ++b)
+    for (int k = 0; k < 22; ++k) gcam[k] += cam_part[b * 22 + k];
+  FILE* fp = fopen("out.bin", "wb");
+  fwrite(gcam.data(), 4, 22, fp); fwrite(gsph.data(), 4, gsph.size(), fp);
+  fwrite(gtri.data(), 4, gtri.size(), fp); fwrite(counts, 8, 4, fp);
+  fclose(fp);
+  return 0;
+}
+'''
+
+
+def build(work: pathlib.Path) -> pathlib.Path:
+    """The host program of megagrad.cu, compiled in ``work``."""
+    for header in CSRC.glob("*.cuh"):
+        (work / header.name).write_text(header.read_text())
+    (work / "shim.h").write_text(SHIM)
+    src = (CSRC / "megagrad.cu").read_text().replace(
+        "#include <cuda_runtime.h>", '#include "shim.h"')
+    src = src[:src.index("// Threads a variant launches")] + "}  // namespace\n"
+    (work / "megagrad_host.cpp").write_text(src + DRIVER)
+    exe = work / "megagrad_host"
+    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-o",
+                    str(exe), str(work / "megagrad_host.cpp")], check=True)
+    return exe
+
+
+def torus(sky=None, **material):
+    tris, aabb = parse_obj(make_torus_obj(12, 8), (0.5, 0.5, 0.5),
+                           (0.3, 0.0, -1.6))
+    scene = ot.reference_scene(16 / 9, mesh_tris=tris, mesh_aabb=aabb,
+                               sky=sky)
+    t = scene.triangles
+    fields = {k: (torch.tensor(v).expand(t.count, 3).clone() if k == "albedo"
+                  else torch.full_like(getattr(t, k), v))
+              for k, v in material.items()}
+    return dataclasses.replace(scene,
+                               triangles=dataclasses.replace(t, **fields))
+
+
+def split_boxes(scene, n_boxes=40):
+    """chip_smoke.py's split: triangle i in gating box i % n_boxes."""
+    t = scene.triangles
+    bid = torch.arange(t.count, dtype=torch.int32) % n_boxes
+    pts = torch.stack([t.p0, t.p1, t.p2], 1)
+    lo = torch.stack([pts[bid == b].reshape(-1, 3).amin(0)
+                      for b in range(n_boxes)])
+    hi = torch.stack([pts[bid == b].reshape(-1, 3).amax(0)
+                      for b in range(n_boxes)])
+    away = (torch.arange(n_boxes) % 3 == 0)[:, None] * 50.0
+    return dataclasses.replace(
+        scene, triangles=dataclasses.replace(t, box_id=bid),
+        boxes=ot.BoundingBoxes(lo + away, hi + away))
+
+
+def cases():
+    lamb = dict(mat_type=mat.LAMBERTIAN, albedo=(0.7, 0.6, 0.5), fuzz=0.0)
+    return {
+        "mesh_reference_material": torus(),
+        "mesh_lambertian": torus(**lamb),
+        "mesh_metal_const_sky": torus(sky=ot.Sky.constant((0.3, 0.5, 0.8)),
+                                      albedo=(0.8, 0.7, 0.3), fuzz=0.2,
+                                      ior=0.0, mat_type=mat.METAL),
+        "mesh_only": dataclasses.replace(torus(**lamb),
+                                         spheres=ot.Spheres.empty()),
+        "mesh_dielectric": torus(mat_type=mat.DIELECTRIC, ior=1.5),
+        "mesh_emissive": torus(mat_type=mat.EMISSIVE,
+                               albedo=(2.0, 1.5, 1.0)),
+        "mesh_40_boxes": split_boxes(torus(**lamb)),
+        "readme_spheres": ot.readme_scene(),
+        "reference_spheres": ot.reference_scene(),
+    }
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-12))
+
+
+def check(exe, work, scene, cfg, seed=7):
+    """(per-block errors, per-leaf errors, the kernel's counts)."""
+    mesh = scene.triangles.count > 0
+    n, n_pix = scene.spheres.count, cfg.width * cfg.height
+    sph = mk.sphere_table(scene)
+    if mesh:
+        cam, tab = mm.mesh_camera_table(scene), mm.mesh_tables(scene)
+        flags = mm.specialize_mesh_flags(scene)
+        img = torch.stack(mm.render_mesh(cam, sph, n, tab, cfg,
+                                         scene.sky.kind, flags, seed, n_pix),
+                          -1)
+        arrays = {"tri": tab.tri, "cluster": tab.cluster, "sub": tab.sub,
+                  "chunk_box": tab.chunk_box, "boxes": tab.boxes}
+        dims = (tab.tri.shape[1], tab.chunk_box.shape[0],
+                tab.boxes.shape[0], int(flags[5]))
+    else:
+        cam, flags = mk.camera_table(scene), mk.specialize_flags(scene)
+        img = torch.stack(mk.render_spheres(cam, sph, n, cfg, scene.sky.kind,
+                                            flags, seed, n_pix), -1)
+        arrays, dims = {}, (0, 0, 0, 0)
+    g = ((2.0 / img.numel() / cfg.spp) * img.T).contiguous()
+    for name, arr in {"cam": cam, "sph": sph, "g": g, **arrays}.items():
+        arr.contiguous().numpy().tofile(work / f"{name}.bin")
+    bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
+    subprocess.run([str(exe), str(int(mesh)), str(n), str(sph.shape[1]),
+                    *map(str, dims), str(n_pix), str(seed), str(cfg.spp),
+                    str(cfg.width), str(cfg.height), str(cfg.max_depth),
+                    str(cfg.t_min), str(bits)], check=True, cwd=work)
+    out = np.fromfile(work / "out.bin", dtype=np.float32)
+    w, t_pad = sph.shape[1], max(dims[0], 1)
+    kcam = torch.zeros_like(cam)
+    kcam[0, :22] = torch.from_numpy(out[:22].copy())
+    ksph = torch.from_numpy(out[22:22 + 16 * w].reshape(16, w).copy())
+    ktri = torch.from_numpy(out[22 + 16 * w:22 + 16 * w + 10 * t_pad]
+                            .reshape(10, t_pad).copy())
+    counts = np.frombuffer(out[-8:].tobytes(), dtype=np.uint64).tolist()
+    args = (cam, sph, n) + ((tab,) if mesh else ()) + (
+        cfg, scene.sky.kind, flags, g[0], g[1], g[2], seed, n_pix)
+    rows = [mk.F_CX, mk.F_CY, mk.F_CZ, mk.F_ALR, mk.F_ALG, mk.F_ALB,
+            mk.F_FUZZ]
+    if mesh:
+        pcam, psph, ptri = mg.render_grad_mesh_tables_plain(*args)
+        ior = tab.feats.ior.clamp(min=1e-8)
+        folded = ktri.clone()
+        folded[8] = ktri[8] - ktri[9] / (ior * ior)
+        folded[9] = 0.0
+        blocks = {"gcam": rel(kcam, pcam), "gtri_0_3": rel(folded[:4],
+                                                           ptri[:4]),
+                  "gtri_4_9": rel(folded[4:], ptri[4:])}
+        got = mg.tri_grads_to_scene(scene, tab.plan, ktri,
+                                    mg.table_grads_to_scene(scene, kcam,
+                                                            ksph))
+        want = mg.tri_grads_to_scene(scene, tab.plan, ptri,
+                                     mg.table_grads_to_scene(scene, pcam,
+                                                             psph))
+    else:
+        pcam, psph = mg.render_grad_tables_plain(*args)
+        blocks = {"gcam": rel(kcam, pcam)}
+        got = mg.table_grads_to_scene(scene, kcam, ksph)
+        want = mg.table_grads_to_scene(scene, pcam, psph)
+    if n and float(psph[rows].abs().max()) > 0:
+        blocks["gsph"] = rel(ksph[rows], psph[rows])
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    leaves = {k: float(np.abs(a[k] - b[k]).max()
+                       / max(np.abs(b[k]).max(), 1e-9))
+              for k in b if b[k].size and np.abs(b[k]).max() > 0}
+    return blocks, leaves, counts
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", default="48x27x2/d6")
+    ap.add_argument("case", nargs="*")
+    args = ap.parse_args()
+    dims, depth = args.size.split("/d")
+    width, height, spp = map(int, dims.split("x"))
+    cfg = ot.RenderConfig(width=width, height=height, spp=spp,
+                          max_depth=int(depth), nan_policy="zero")
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        exe = build(work)
+        for name, scene in cases().items():
+            if args.case and name not in args.case:
+                continue
+            blocks, leaves, counts = check(exe, work, scene, cfg)
+            print(name, "counts", counts)
+            print("  blocks", {k: f"{v:.1e}" for k, v in blocks.items()})
+            print("  leaves", {k: f"{v:.1e}" for k, v in leaves.items()})
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("OMP_NUM_THREADS", "4")
+    main()
