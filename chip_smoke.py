@@ -94,8 +94,37 @@ Phases, each printing JSON lines on standard output:
    grad_backend="plain")`` on the 15,360-triangle scene at 160x90, 2 spp,
    depth 8, whose winner search is the closest-triangle kernel; its loss
    and leaves against the kernel route's.
-17. the kernels line and the result line.  Each of phases 12 to 16 prints
-   its seconds.
+17. hdr_lookup: the texel the kernels' HDR lookup picks
+   (``csrc/common.cuh::hdr_texel``) against the plain version's
+   (``scene/sky.py::texel_index``) on 2^20 random directions and a
+   1024x512 image: all equal.
+18. hdr_parity: the mesh megakernel's HDR body against its plain version
+   at 160x90, 8 spp, depth 8, on the README spheres under the flagship's
+   sky (no triangles) and on both flagship scenes (``flagship_scene``:
+   the reference scene with the 576-triangle torus, and with the
+   15,360-triangle procedural torus as its obj_path, under the
+   tone-mapped procedural 1024x512 sky); the forward tolerance of phase 8.
+19. hdr_grad_parity: the HDR emit pass (K6) against its plain version
+   (directions and throughputs within 1e-6 on at least 99.99% of the
+   samples, non-sky sums within 1e-6), and the fused gradient through K6
+   and K7 against the same steps through their plain versions, per leaf
+   (max|a - b| / max|b|: albedo 5e-3, vertices 5e-4, sky image 5e-3 with
+   more than 99.9% of texels within 1e-6), at 160x90, 4 spp, depth 6, on
+   the scenes of phase 18; each pass and its plain version timed alone
+   on the 576-triangle scene.
+20. hdr_main_path: ``render()`` and ``render_grad_sampled()`` of both
+   flagship scenes at ``REFERENCE_DEFAULTS``, one warm-up and the minimum
+   of 3 each, counts set to 0 just before and read just after (the
+   forward runs K2 alone, the gradient K6 and K7 alone); the image of
+   render() bit-identical to K2's, the fused route's image within the
+   forward tolerance of it; K2, K6 and K7 alone by CUDA events, with
+   their counts and bounds, and the fwd+bwd's host remainder; then a
+   5-step ``fit_scene`` of ``sky.image`` from a sky scaled by 0.85
+   towards the true sky's image, whose loss must fall.
+21. hdr_scene_json: ``scene_from_json`` with ``assets/sky.hdr`` rendered
+   through K2.
+22. the kernels line and the result line.  Each of phases 12 to 16 and
+   21 prints its seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
@@ -1016,6 +1045,374 @@ def mesh_grad_phases(dev, k2) -> dict:
     }
 
 
+def flagship_scenes() -> dict:
+    """The reference executable's default scene (``flagship_scene``) with
+    the bundled 576-triangle torus and with the 15,360-triangle procedural
+    torus (the F1 car's count) passed as its obj_path."""
+    import os
+    import tempfile
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "torus_15360.obj")
+        with open(path, "w") as f:
+            f.write(make_torus_obj(128, 60))
+        big = ot.flagship_scene(16 / 9, obj_path=path)
+    return {"torus_576": ot.flagship_scene(16 / 9), "torus_15360": big}
+
+
+def hdr_phases(dev) -> list:
+    """Phases 17 to 21 (see the module docstring): the kernels-line
+    entries of K2's HDR body, K6 and K7."""
+    import numpy as np
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
+    from opencl_ray_tracer_tpu_torch.scene.sky import texel_index
+
+    def loss_fn(img):
+        return torch.mean(img ** 2)
+
+    def zero_counts():
+        mm.LAUNCHES = mk.LAUNCHES = im.LAUNCHES = 0
+        mg.LAUNCHES = mg.MESH_LAUNCHES = 0
+        mg.EMIT_LAUNCHES = mg.CONSUME_LAUNCHES = 0
+
+    def counts():
+        return {"mesh_megakernel": mm.LAUNCHES, "hdr_emit": mg.EMIT_LAUNCHES,
+                "hdr_consume": mg.CONSUME_LAUNCHES,
+                "sphere_megakernel": mk.LAUNCHES,
+                "sphere_megagrad": mg.LAUNCHES,
+                "mesh_megagrad": mg.MESH_LAUNCHES, "closest_tri": im.LAUNCHES}
+
+    def table_bytes(cam, sph, tab):
+        return (cam.numel() + sph.numel() + tab.tri.numel()
+                + tab.cluster.numel() + tab.sub.numel() + tab.boxes.numel()
+                + tab.chunk_box.numel()) * 4
+
+    # ---- 17. hdr_lookup: the kernels' texel against the plain version's
+    # on 2^20 directions ----
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d = torch.randn((2**20, 3), generator=gen, device=dev)
+    y, x = texel_index(torch.zeros((512, 1024, 3), device=dev), d)
+    k_texel = mm.hdr_texels(d, 1024, 512)
+    texel_agree = float((k_texel == y * 1024 + x).float().mean())
+    emit({"phase": "hdr_lookup", "directions": d.shape[0],
+          "image": "1024x512", "texels_equal": texel_agree})
+    if texel_agree != 1.0:
+        fail(f"hdr_lookup: the kernels' texels differ from the plain "
+             f"version's on {1 - texel_agree:.2e} of the directions")
+    del d, y, x, k_texel
+
+    # ---- 18. hdr_parity: K2's HDR body against render_mesh_plain ----
+    flagship = flagship_scenes()
+    readme_hdr = dataclasses.replace(ot.readme_scene(16 / 9),
+                                     sky=flagship["torus_576"].sky)
+    small = ot.RenderConfig(width=160, height=90, spp=8, max_depth=8)
+    k2_parity = {}
+    for name, scene in (("readme_hdr_0_triangles", readme_hdr),
+                        *flagship.items()):
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+        args = (cam, sph, n, tab, small, scene.sky.kind, flags, 7,
+                small.width * small.height)
+        k = torch.stack(mm.render_mesh(*args, sky_image=image), -1)
+        torch.cuda.synchronize()
+        k_ms = kernel_ms(lambda: mm.render_mesh(*args, sky_image=image))
+        t_plain, p = timed(lambda: torch.stack(mm.render_mesh_plain(
+            *args, sky_image=image), -1), reps=1)
+        stats = compare(k, p)
+        k2_parity[name] = dict(stats, kernel_ms=k_ms, plain_ms=1e3 * t_plain)
+        emit({"phase": "hdr_parity", "case": name, "size": "160x90x8/d8",
+              **k2_parity[name]})
+        if not torch.isfinite(k).all():
+            fail(f"hdr_parity {name}: kernel output is not finite")
+        check_close(f"hdr_parity {name}", stats)
+
+    # ---- 19. hdr_grad_parity: K6 against hdr_emit_plain, and the fused
+    # route through K6 and K7 against the same route through their plain
+    # versions, per leaf ----
+    gcfg = ot.RenderConfig(width=160, height=90, spp=4, max_depth=6,
+                           nan_policy="zero")
+
+    def fused(scene, cfg, emit_fn, consume_fn, seed=7):
+        """The fused route's leaves (HdrRenderFn's steps) with the given
+        passes: the gradient Scene, the image, the emit pass's outputs and
+        the consume pass's inputs (the cotangent planes, the sky
+        values)."""
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+        n_pix = cfg.width * cfg.height
+        emit_, emis = emit_fn(cam, sph, n, tab, cfg, flags, seed, n_pix)
+        sky, flat = mg.hdr_lookup(image, emit_)
+        img = mg.hdr_image(emit_, emis, sky, cfg).T.reshape(
+            cfg.height, cfg.width, 3)
+        img_ = img.detach().requires_grad_()
+        (g_img,) = torch.autograd.grad(loss_fn(img_), img_)
+        planes = mg._planes(g_img, cfg.spp)
+        g_sky = mg.hdr_sky_cot(image, emit_, sky, flat, *planes)
+        gcam, gsph, gtri = consume_fn(cam, sph, n, tab, cfg, flags, *planes,
+                                      sky, seed, n_pix)
+        s = scene.to(dev)
+        grads = mg.table_grads_to_scene(s, gcam, gsph)
+        if tab.plan is not None:
+            grads = mg.tri_grads_to_scene(s, tab.plan, gtri, grads)
+        grads = dataclasses.replace(grads, sky=dataclasses.replace(
+            grads.sky, image=g_sky))
+        return grads, img, (emit_, emis), (planes, sky)
+
+    grad_tol = {"spheres.albedo": 5e-3, "triangles.p0": 5e-4,
+                "triangles.p1": 5e-4, "triangles.p2": 5e-4,
+                "triangles.albedo": 5e-3, "sky.image": 5e-3}
+    k67_parity = {}
+    for name, scene in (("readme_hdr_0_triangles", readme_hdr),
+                        *flagship.items()):
+        kg, kimg, (kemit, kemis), (planes, sky) = fused(
+            scene, gcfg, mg.hdr_emit, mg.hdr_consume)
+        torch.cuda.synchronize()
+        t_plain, (pg, pimg, (pemit, pemis), _) = timed(
+            lambda: fused(scene, gcfg, mg.hdr_emit_plain,
+                          mg.hdr_consume_plain), reps=1)
+        dev_ = (kemit - pemit).abs().amax(0)
+        samples_equal = float((dev_ <= 1e-6).float().mean())
+        emis_err = float((kemis - pemis).abs().max())
+        a, b = scene_to_numpy(kg), scene_to_numpy(pg)
+        rel = {k: float(np.abs(a[k] - b[k]).max())
+               / max(float(np.abs(b[k]).max()), 1e-9)
+               for k in grad_tol if b[k].size and np.abs(b[k]).max() > 0}
+        sky_within = float((np.abs(a["sky.image"] - b["sky.image"])
+                            <= 1e-6).mean())
+        k67_parity[name] = dict(
+            samples_equal=samples_equal, emis_max_abs_err=emis_err,
+            rel_err=rel, sky_texels_within_1e6=sky_within,
+            image=compare(kimg, pimg), fused_plain_ms=1e3 * t_plain,
+            max_abs_err=max(float(np.abs(a[k] - b[k]).max())
+                            for k in grad_tol if b[k].size))
+        if name == "torus_576":
+            # each pass and its plain version alone, on the same inputs
+            cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+            args = (cam, sph, n, tab, gcfg, flags)
+            n_pix = gcfg.width * gcfg.height
+            k67_parity[name].update(
+                k6_ms=kernel_ms(lambda: mg.hdr_emit(*args, 7, n_pix)),
+                k6_plain_ms=1e3 * timed(lambda: mg.hdr_emit_plain(
+                    *args, 7, n_pix), reps=1)[0],
+                k7_ms=kernel_ms(lambda: mg.hdr_consume(
+                    *args, *planes, sky, 7, n_pix)),
+                k7_plain_ms=1e3 * timed(lambda: mg.hdr_consume_plain(
+                    *args, *planes, sky, 7, n_pix), reps=1)[0])
+        emit({"phase": "hdr_grad_parity", "case": name, "size": "160x90x4/d6",
+              **k67_parity[name], "tolerance": grad_tol})
+        bad = {k: v for k, v in rel.items() if not v < grad_tol[k]}
+        if (samples_equal < 0.9999 or emis_err > 1e-6 or bad
+                or sky_within <= 0.999
+                or not float(np.abs(b["sky.image"]).max()) > 0):
+            fail(f"hdr_grad_parity {name}: kernels and plain versions "
+                 f"disagree: {k67_parity[name]}")
+        del kemit, pemit, planes, sky
+
+    # ---- 20. hdr_main_path: render() and render_grad_sampled() of both
+    # flagship scenes at REFERENCE_DEFAULTS, counts set to 0 just before
+    # and read just after; each kernel alone by CUDA events; a sky fit ----
+    ref = ot.REFERENCE_DEFAULTS
+    n_pix = ref.width * ref.height
+    zero_counts()
+    renders = {}
+    for name, scene in flagship.items():
+        ot.render(scene, ref, seed=0)  # warm-up
+        renders[name] = timed(lambda: ot.render(scene, ref, seed=0))
+    fwd_launches = counts()
+    if fwd_launches["mesh_megakernel"] < 1 or any(
+            v for k, v in fwd_launches.items() if k != "mesh_megakernel"):
+        fail(f"the HDR forward main path ran other kernels: {fwd_launches}")
+    zero_counts()
+    grads_runs = {}
+    for name, scene in flagship.items():
+        ot.render_grad_sampled(scene, ref, loss_fn, seed=0)  # warm-up
+        grads_runs[name] = timed(lambda: ot.render_grad_sampled(
+            scene, ref, loss_fn, seed=0))
+    bwd_launches = counts()
+    if (bwd_launches["hdr_emit"] < 1 or bwd_launches["hdr_consume"] < 1
+            or any(v for k, v in bwd_launches.items()
+                   if k not in ("hdr_emit", "hdr_consume"))):
+        fail(f"the HDR gradient main path ran other kernels: {bwd_launches}")
+    main = {}
+    for name, scene in flagship.items():
+        secs, img = renders[name]
+        gsecs, (loss, gimg, grads) = grads_runs[name]
+        mean = float(img.mean())
+        flips = compare(gimg, img)
+        if not (img.shape == (ref.height, ref.width, 3)
+                and bool(torch.isfinite(img).all()) and mean > 0.05
+                and torch.isfinite(loss)
+                and float(grads.sky.image.abs().max()) > 0
+                and bool(torch.isfinite(grads.sky.image).all())):
+            fail(f"HDR main path {name}: mean {mean}, loss {float(loss)}")
+        check_close(f"HDR fused image {name} against render()", flips)
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+        c2 = torch.zeros(2, dtype=torch.int64, device=dev)
+        k2_img = torch.stack(mm.render_mesh(
+            cam, sph, n, tab, ref, scene.sky.kind, flags, 0, n_pix,
+            counts=c2, sky_image=image), -1).reshape(img.shape)
+        if not torch.equal(k2_img, img):
+            fail(f"HDR main path {name}: render() differs from K2")
+        k2_ms = kernel_ms(lambda: mm.render_mesh(
+            cam, sph, n, tab, ref, scene.sky.kind, flags, 0, n_pix,
+            sky_image=image))
+        c6 = torch.zeros(2, dtype=torch.int64, device=dev)
+        emit_, emis = mg.hdr_emit(cam, sph, n, tab, ref, flags, 0, n_pix,
+                                  counts=c6)
+        k6_ms = kernel_ms(lambda: mg.hdr_emit(cam, sph, n, tab, ref, flags, 0,
+                                              n_pix))
+        sky, flat = mg.hdr_lookup(image, emit_)
+        g = ((2.0 / gimg.numel() / ref.spp)
+             * gimg.reshape(-1, 3).T).contiguous()
+        c7 = torch.zeros(4, dtype=torch.int64, device=dev)
+        mg.hdr_consume(cam, sph, n, tab, ref, flags, g[0], g[1], g[2], sky,
+                       0, n_pix, counts=c7)
+        k7_ms = kernel_ms(lambda: mg.hdr_consume(
+            cam, sph, n, tab, ref, flags, g[0], g[1], g[2], sky, 0, n_pix))
+        c2, c6, c7 = c2.tolist(), c6.tolist(), c7.tolist()
+        tb = table_bytes(cam, sph, tab)
+        k2_bound = bound_of(c2[0] * n * FLOPS_PER_SPHERE_TEST
+                            + c2[1] * FLOPS_PER_TRI_TEST,
+                            tb + image.numel() * 4 + 3 * n_pix * 4)
+        k6_bound = bound_of(c6[0] * n * FLOPS_PER_SPHERE_TEST
+                            + c6[1] * FLOPS_PER_TRI_TEST,
+                            tb + (emit_.numel() + emis.numel()) * 4)
+        replay, reverse, tests, reverse_tri = c7
+        k7_bound = bound_of(replay * n * FLOPS_PER_SPHERE_TEST
+                            + tests * FLOPS_PER_TRI_TEST
+                            + (reverse - reverse_tri)
+                            * FLOPS_PER_REVERSE_BOUNCE
+                            + reverse_tri * FLOPS_PER_TRI_REVERSE_BOUNCE,
+                            2 * tb + (3 * n_pix + sky.numel()
+                                      + 10 * tab.tri.shape[1]) * 4)
+        main[name] = dict(
+            render_ms=1e3 * secs, k2_ms=k2_ms, k2_counts=c2,
+            k2_bound=k2_bound, fwd_bwd_ms=1e3 * gsecs, k6_ms=k6_ms,
+            k6_counts=c6, k6_bound=k6_bound, k7_ms=k7_ms, k7_counts=c7,
+            k7_bound=k7_bound,
+            fwd_bwd_host_ms=1e3 * gsecs - k6_ms - k7_ms,
+            loss=float(loss), image_mean=mean,
+            fused_image_against_render=flips,
+            sky_grad_max=float(grads.sky.image.abs().max()))
+        emit({"phase": "hdr_main_path", "case": name, "size": "1280x720x5/d32",
+              **main[name], "forward_launches": fwd_launches,
+              "fwd_bwd_launches": bwd_launches})
+        del emit_, emis, sky, flat
+
+    # a 5-step fit of the sky image towards a target whose sky is the true
+    # one, from a perturbed sky; the loss must fall
+    fits = {}
+    for name, scene in flagship.items():
+        target = ot.render(scene, ref, seed=3)
+        init = dataclasses.replace(scene, sky=ot.Sky.hdr(
+            scene.sky.image * 0.85))
+        stamps = [time.perf_counter()]
+
+        def on_step(i, loss, s):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        zero_counts()
+        _, losses = ot.fit_scene(target, init, ref,
+                                 param_paths=("sky.image",), steps=5,
+                                 seed=3, sample_new_noise=False,
+                                 callback=on_step)
+        fits[name] = dict(losses=losses, launches=counts(),
+                          seconds_per_step=[b - a for a, b in
+                                            zip(stamps, stamps[1:])])
+        emit({"phase": "hdr_fit", "case": name, "size": "1280x720x5/d32",
+              **fits[name]})
+        if (not losses[-1] < losses[0] or mg.EMIT_LAUNCHES != 5
+                or mg.CONSUME_LAUNCHES != 5 or mm.LAUNCHES):
+            fail(f"HDR sky fit {name}: {fits[name]}")
+
+    # ---- 21. scene_from_json with assets/sky.hdr, rendered through K2 ----
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = json.dumps({"meshes": [{"path": "torus.obj",
+                                   "scale": [0.15, 0.15, 0.15],
+                                   "translate": [0.0, -0.5, -1.0]}],
+                       "sky": {"kind": "hdr", "path": "sky.hdr"}})
+    jscene = ot.scene_from_json(spec, os.path.join(here, "assets"))
+    mm.LAUNCHES = 0
+    jimg = ot.render(jscene, small, seed=0)
+    emit({"phase": "hdr_scene_json", "sky": list(jscene.sky.image.shape),
+          "sky_max": float(jscene.sky.image.max()),
+          "mesh_megakernel_launches": mm.LAUNCHES,
+          "image_mean": float(jimg.mean()),
+          "phase_seconds": time.perf_counter() - t_phase})
+    if (mm.LAUNCHES != 1 or not bool(torch.isfinite(jimg).all())
+            or tuple(jscene.sky.image.shape) != (128, 256, 3)):
+        fail("scene_from_json with an HDR sky did not render through K2")
+
+    m, m2 = main["torus_576"], main["torus_15360"]
+    p576 = k2_parity["torus_576"]
+    g576 = k67_parity["torus_576"]
+    common = dict(route="cuda", library_ms=None)
+    return [{
+        "name": "mesh_megakernel_hdr",
+        **common,
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megamesh.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megamesh.py:258 "
+                    "_make_kernel (HDR body: hdr at :277, :293, :405, :801)",
+        "launches": fwd_launches["mesh_megakernel"],
+        "max_abs_err": p576["max_abs_diff"],
+        "parity_max_abs_diff": max(v["max_abs_diff"]
+                                   for v in k2_parity.values()),
+        "ms": m["k2_ms"],
+        "plain_ms": p576["plain_ms"],
+        "plain_size": "160x90x8/d8 (kernel there: %.3f ms)"
+                      % p576["kernel_ms"],
+        "bound_ms": m["k2_bound"]["bound_ms"],
+        "bound_by": m["k2_bound"]["bound_by"],
+        "render_ms": {k: v["render_ms"] for k, v in main.items()},
+        "torus_15360_ms": m2["k2_ms"],
+        "torus_15360_bound_ms": m2["k2_bound"]["bound_ms"],
+        "texels_equal_2^20": texel_agree,
+    }, {
+        "name": "hdr_emit",
+        **common,
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megagrad.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megagrad.py:187 "
+                    "_make_grad_kernel (hdr_mode=\"emit\"; pallas_call at "
+                    ":2301, :2348 in _hdr_emit_window)",
+        "launches": bwd_launches["hdr_emit"],
+        "max_abs_err": g576["emis_max_abs_err"],
+        "samples_equal": g576["samples_equal"],
+        "ms": m["k6_ms"],
+        "plain_ms": g576["k6_plain_ms"],
+        "plain_size": "160x90x4/d6 (kernel there: %.3f ms)" % g576["k6_ms"],
+        "bound_ms": m["k6_bound"]["bound_ms"],
+        "bound_by": m["k6_bound"]["bound_by"],
+        "torus_15360_ms": m2["k6_ms"],
+        "torus_15360_bound_ms": m2["k6_bound"]["bound_ms"],
+    }, {
+        "name": "hdr_consume",
+        **common,
+        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megagrad.cu",
+        "replaces": "opencl_ray_tracer_tpu/kernels/megagrad.py:187 "
+                    "_make_grad_kernel (hdr_mode=\"consume\"; pallas_call at "
+                    ":2469, :2527 in _hdr_consume_window)",
+        "launches": bwd_launches["hdr_consume"],
+        "max_abs_err": g576["max_abs_err"],
+        "max_rel_err": max(g576["rel_err"].values()),
+        "ms": m["k7_ms"],
+        "plain_ms": g576["k7_plain_ms"],
+        "plain_size": "160x90x4/d6 (kernel there: %.3f ms)" % g576["k7_ms"],
+        "bound_ms": m["k7_bound"]["bound_ms"],
+        "bound_by": m["k7_bound"]["bound_by"],
+        "fwd_bwd_ms": {k: v["fwd_bwd_ms"] for k, v in main.items()},
+        "torus_15360_ms": m2["k7_ms"],
+        "torus_15360_bound_ms": m2["k7_bound"]["bound_ms"],
+        "fit_seconds_per_step": fits["torus_576"]["seconds_per_step"],
+    }]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1388,8 +1785,9 @@ def main() -> None:
 
     mesh_entries = mesh_phases(dev)
     mesh_grad_entry = mesh_grad_phases(dev, mesh_entries[0])
+    hdr_entries = hdr_phases(dev)
 
-    # ---- 17. kernels line, result line ----
+    # ---- 22. kernels line, result line ----
     r = full["readme"]
     gr = grad_full["readme"]
     emit({"kernels": [{
@@ -1430,7 +1828,7 @@ def main() -> None:
         "library_ms": None,
         "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
         "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
-    }, *mesh_entries, mesh_grad_entry]})
+    }, *mesh_entries, mesh_grad_entry, *hdr_entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

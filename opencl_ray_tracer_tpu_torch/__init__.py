@@ -5,14 +5,15 @@ It does what the JAX package beside it does, module for module, and is
 held against it by the tests.  ``render`` runs on the card unless the
 caller passes ``device="cpu"``, which selects the plain PyTorch tracer.
 This release covers scenes of spheres and triangle meshes under a
-gradient or constant sky in the forward render, and sphere scenes in the
-scene gradients (``render_and_grad``, ``render_grad_sampled``) and fitting
+gradient, constant or HDR sky, in the forward render, the scene gradients
+(``render_and_grad``, ``render_grad_sampled``) and fitting
 (``fit_scene``).
 """
 
 from .config import README_BENCH, REFERENCE_DEFAULTS, RenderConfig
 from .scene import (BoundingBoxes, Camera, Scene, Sky, Spheres, Triangles,
-                    book_cover_scene, materials, readme_scene,
+                    book_cover_scene, flagship_scene, materials,
+                    readme_scene,
                     reference_scene, scene_from_json, scene_from_numpy,
                     scene_to_json, scene_to_numpy)
 from .optimize import fit_scene
@@ -25,6 +26,7 @@ __all__ = [
     "RenderConfig", "REFERENCE_DEFAULTS", "README_BENCH",
     "Scene", "Camera", "Spheres", "Triangles", "BoundingBoxes", "Sky",
     "materials", "readme_scene", "reference_scene", "book_cover_scene",
+    "flagship_scene",
     "scene_from_numpy", "scene_to_numpy", "scene_from_json",
     "scene_to_json", "render", "render_rows",
     "render_and_grad", "render_grad_sampled", "fit_scene",

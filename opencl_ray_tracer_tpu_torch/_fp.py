@@ -27,6 +27,29 @@ def div(x, s):
     return x / torch.tensor(s, dtype=x.dtype, device=x.device)
 
 
+def sqrt(x):
+    """IEEE float32 square root on every device: ATen's vectorised CPU sqrt
+    is an approximation that misses the correctly rounded value in 0.65% of
+    arguments; the float64 root rounded to float32 is correctly rounded."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def atan2(y, x):
+    """atan2(y, x) as XLA computes it: on the CPU glibc's ``atan2f``, which
+    XLA:CPU calls and ATen's CPU kernel calls on operands with a non-unit
+    stride (on contiguous ones it takes a SIMD approximation that differs
+    in 15% of arguments); on CUDA, ATen's ``atan2``, which is CUDA's
+    ``atan2f`` as a kernel calls it."""
+    if y.device.type != "cpu":
+        return torch.atan2(y, x)
+    y, x = torch.broadcast_tensors(y, x)
+    ys = torch.empty(y.shape + (2,), dtype=y.dtype)[..., 0]
+    xs = torch.empty(x.shape + (2,), dtype=x.dtype)[..., 0]
+    ys.copy_(y)
+    xs.copy_(x)
+    return torch.atan2(ys, xs).contiguous()
+
+
 def dot3(a, b):
     """Dot product over the last axis of size 3, as an fma chain."""
     return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1],

@@ -2,8 +2,8 @@
 
 Watertight triangle meshes as OBJ text for the mesh pipeline, and an
 equirectangular HDR sky image, so that tests and demos need no asset from
-the reference checkout (its F1 car is not bundled).  Writing the asset
-files (``write_test_assets``) needs the HDR encoder of the HDR slice.
+the reference checkout (its F1 car is not bundled); ``write_test_assets``
+writes them as files.
 """
 
 from __future__ import annotations
@@ -98,3 +98,27 @@ def make_sky_image(width: int = 256, height: int = 128,
     ground = y < -0.02
     base[np.broadcast_to(ground[..., None], base.shape)] *= 0.35
     return (base + sun_term).astype(np.float32)
+
+
+def write_test_assets(directory: str) -> dict:
+    """Write the standard asset set (``uv_sphere.obj``, ``torus.obj``,
+    ``sky.hdr``) into ``directory``; returns their paths by name."""
+    import os
+
+    from .hdr import encode_hdr
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {}
+    p = os.path.join(directory, "uv_sphere.obj")
+    with open(p, "w") as f:
+        f.write(make_uv_sphere_obj())
+    paths["uv_sphere"] = p
+    p = os.path.join(directory, "torus.obj")
+    with open(p, "w") as f:
+        f.write(make_torus_obj())
+    paths["torus"] = p
+    p = os.path.join(directory, "sky.hdr")
+    with open(p, "wb") as f:
+        f.write(encode_hdr(make_sky_image()))
+    paths["sky"] = p
+    return paths

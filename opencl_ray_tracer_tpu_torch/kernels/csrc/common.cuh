@@ -1,6 +1,7 @@
 // Device code shared by the sphere megakernel (megakernel.cu), its backward
 // (megagrad.cu) and the mesh megakernel (megamesh.cu): the counter RNG, the
-// camera ray, the closest-sphere search, the sky and the material scatter.
+// camera ray, the closest-sphere search, the skies (gradient, constant and
+// the HDR image's texel) and the material scatter.
 // The backward replays the forward with exactly this code, so both take the
 // same discrete decisions (winner, root, front face, absorb, reflect or
 // refract) bit for bit.
@@ -30,6 +31,9 @@ constexpr int kFields = 13;
 constexpr int kCamSlots = 22;
 constexpr float kBig = 3.4e38f;
 constexpr float kTwoPi = 6.283185307179586f;
+// float32 1/(2 pi) and 1/pi, the HDR lookup's factors (scene/sky.py)
+constexpr float kInvTwoPi = (float)(0.5 / 3.14159265358979323846);
+constexpr float kInvPi = (float)(1.0 / 3.14159265358979323846);
 
 // Sphere-table rows (kernels/megakernel.py F_*).
 enum Field {
@@ -46,7 +50,8 @@ enum Material { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, EMISSIVE = 3 };
 // Flag bits (kernels/megakernel.py FLAG_*).
 enum Flag {
   HAS_METAL = 1, HAS_DIEL = 2, HAS_EMIT = 4, HAS_FUZZ = 8,
-  HAS_APERTURE = 16, CLAMP = 32, NAN_RUNNING_SUM = 64, SKY_CONST = 128
+  HAS_APERTURE = 16, CLAMP = 32, NAN_RUNNING_SUM = 64, SKY_CONST = 128,
+  SKY_HDR = 256
 };
 
 // pcg4d (Jarzynski & Olano 2020), the hash of rng/__init__.py.
@@ -184,6 +189,48 @@ __device__ __forceinline__ void sky_colour(const float* cam, int flags,
     sky[0] = fmaf(t, 0.5f, 1.f - t);
     sky[1] = fmaf(t, 0.7f, 1.f - t);
     sky[2] = fmaf(t, 1.f, 1.f - t);
+  }
+}
+
+// An HDR sky: the (h, w, 3) float32 image of its texels, row-major.
+struct HdrImage {
+  const float* px;
+  int w;
+  int h;
+};
+
+// The texel an HDR sky shows in direction d, with a = |d|^2 (its dot3): the
+// equirect lookup of scene/sky.py (Vec3ToUV, gpu_kernel.cl:234-241) in the
+// same operations, u = fma(atan2(z, x), 1/(2 pi), 0.5) and
+// v = fma(2 atan2(y, 1 + sqrt((1 - y)(1 + y))), -1/pi, 0.5) on the unit
+// direction, then x = int(u w), y = int(v h), truncated and clamped to the
+// image (gpu_kernel.cl:342-346).  Returns the texel's index y * w + x.
+__device__ __forceinline__ int hdr_texel(const HdrImage& im, const float d[3],
+                                         float a) {
+  const float len = sqrtf(a);
+  const float nx = d[0] / len, ny = d[1] / len, nz = d[2] / len;
+  const float u = fmaf(atan2f(nz, nx), kInvTwoPi, 0.5f);
+  const float y = fminf(fmaxf(ny, -1.f), 1.f);
+  const float as = 2.f * atan2f(y, 1.f + sqrtf((1.f - y) * (1.f + y)));
+  const float v = fmaf(as, -kInvPi, 0.5f);
+  int tx = (int)(u * (float)im.w);
+  int ty = (int)(v * (float)im.h);
+  tx = tx < 0 ? 0 : (tx > im.w - 1 ? im.w - 1 : tx);
+  ty = ty < 0 ? 0 : (ty > im.h - 1 ? im.h - 1 : ty);
+  return ty * im.w + tx;
+}
+
+// The sky of sky_colour above, or with SKY_HDR in flags the texel of the
+// HDR image im, read through the read-only cache.
+__device__ __forceinline__ void sky_colour(const float* cam, int flags,
+                                           const HdrImage& im,
+                                           const float d[3], float a,
+                                           float sky[3]) {
+  if (flags & SKY_HDR) {
+    const float* t = im.px + 3 * hdr_texel(im, d, a);
+    for (int k = 0; k < 3; ++k) sky[k] = __ldg(t + k);
+  } else {
+    sky_colour(cam, flags, d, a, sky);
   }
 }
 

@@ -1,20 +1,37 @@
 // Backward megakernels: the cotangents of the scene tables for an image
-// cotangent, one thread per pixel.  Two variants of one body:
+// cotangent, one thread per pixel.  Four instances of one body, each
+// replacing an instance of opencl_ray_tracer_tpu/kernels/megagrad.py::
+// _make_grad_kernel:
 //
-// - sphere_megagrad (K4): sphere scenes.  Replaces opencl_ray_tracer_tpu/
-//   kernels/megagrad.py::_make_grad_kernel, sphere variant (mesh=None,
-//   hdr_mode=None).
+// - sphere_megagrad (K4): sphere scenes (mesh=None, hdr_mode=None).
 // - mesh_megagrad (K5): spheres and one uniform-material triangle mesh in
-//   gating boxes.  Replaces the mesh variant of the same function
-//   (mesh=(n_chunks, chunk, chunk_box_ids, n_boxes, m_type), through
-//   _grad_tables_mesh_inner and its ladder).
+//   gating boxes (mesh=(n_chunks, chunk, chunk_box_ids, n_boxes, m_type),
+//   through _grad_tables_mesh_inner and its ladder).
+// - hdr_emit (K6): the HDR backward's first pass (hdr_mode="emit", through
+//   _hdr_emit_window and its ladder), on the scenes of the mesh megakernel's
+//   HDR scope, with or without triangles: the mesh instance's replay alone,
+//   which writes each sample's miss direction and throughput ((0, 0, 1) and
+//   0 for a sample that did not miss) and each pixel's sum of the sample
+//   contributions that are not sky (emitters, clamped, NaN as 0).  The
+//   caller looks the texels up and rebuilds the image from these; the
+//   lookup stays a torch op, as it stays an XLA op in the JAX package,
+//   since the image's cotangent is a scatter over the same texels.
+// - hdr_consume (K7): the second pass (hdr_mode="consume", through
+//   _hdr_consume_window and its ladder): K5 with each miss's sky value read
+//   from the caller's (3, n_samples, n_pix) rows instead of computed.  The
+//   nearest-texel lookup is constant in the direction, so a miss seeds the
+//   throughput's adjoint alone.  K6 and K7 replay with the same code, so
+//   their directions agree bit for bit.  A scene without triangles runs the
+//   mesh instance with no chunk and no gating box: no triangle is tested.
 //
 // The Pallas TPU kernels replay paths into a VMEM record ring and walk it
 // back with adjoints that jax.vjp derived at trace time.  Here the adjoints
 // are derived by hand (scatter_adjoint, bounce_adjoint and tri_adjoint
 // below) and checked against torch.autograd of the plain tracer.  The
 // ring, the tiles, the row batching, the tail-compaction ladder and its
-// constants are TPU scheduling and stay there.
+// constants, and the HDR passes' sample windows (GRAD_HDR_SPP_CHUNK, a bound
+// of VMEM) are TPU scheduling and stay there: K6 and K7 take every sample
+// in one launch.
 //
 // What it computes: for g = dL/d(pixel) / n_samples, the sum over pixels
 // and samples of g . d(sample contribution)/d(table) with the estimator of
@@ -114,6 +131,11 @@ enum Rec {
 
 enum Ending { END_BLACK, END_MISS, END_EMIT };
 
+// The sky of an instance: computed (K4, K5), emitted (K6) or consumed (K7).
+enum SkyMode { kSkyComputed = 0, kSkyEmit = 1, kSkyConsume = 2 };
+// Rows of K6's per-sample output: the miss direction and throughput.
+enum EmitRow { E_DX, E_DY, E_DZ, E_TR, E_TG, E_TB, kEmitRows };
+
 struct Params {
   const float* cam;
   const float* sph;
@@ -141,6 +163,11 @@ struct Params {
   MeshTables mt;
   int mesh_type;
   float* gtri;
+  // HDR passes: K6's outputs, (kEmitRows, n_samples, n_pix) and (3, n_pix);
+  // K7's sky values, (3, n_samples, n_pix)
+  float* emit;
+  float* emis;
+  const float* sky_rows;
 };
 
 // Subgradient of the clamp to [0, 1] at x, as jnp.clip's (min of max):
@@ -447,19 +474,21 @@ __device__ __forceinline__ void tri_adjoint(
     if (sink.g[r] != 0.f) atomicAdd(&gtri[(GT_MAT + r) * tp + j], sink.g[r]);
 }
 
-template <bool kMesh>
+template <bool kMesh, int kSky>
 __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
+  constexpr bool kEmit = kSky == kSkyEmit;
   constexpr int kR = kMesh ? kRecMesh : kRec;
   constexpr int kCamLoad = kMesh ? kMeshCamSlots : kCamSlots;
   __shared__ float s_sph[kFields * kMaxSpheres];
-  __shared__ float s_acc[kGradRows * kMaxSpheres];
+  __shared__ float s_acc[kEmit ? 1 : kGradRows * kMaxSpheres];
   __shared__ float s_cam[kCamLoad];
   __shared__ float s_gcam[kThreads / 32][kCamSlots];
   const int n = p.n_spheres;
   for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
     s_sph[(k / n) * kMaxSpheres + k % n] = p.sph[(k / n) * p.tab_w + k % n];
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
-    s_acc[(k / n) * kMaxSpheres + k % n] = 0.f;
+  if constexpr (!kEmit)
+    for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
+      s_acc[(k / n) * kMaxSpheres + k % n] = 0.f;
   for (int k = threadIdx.x; k < kCamLoad; k += blockDim.x)
     s_cam[k] = p.cam[k];
   __syncthreads();
@@ -474,8 +503,14 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
   unsigned int n_replay = 0, n_reverse = 0, n_tests = 0, n_reverse_tri = 0;
 
   for (int local = tid; local < p.n_pix; local += p.n_threads) {
-    const float g[3] = {p.g_r[local], p.g_g[local], p.g_b[local]};
-    if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f) continue;
+    float g[3] = {0.f, 0.f, 0.f};
+    if constexpr (!kEmit) {
+      g[0] = p.g_r[local];
+      g[1] = p.g_g[local];
+      g[2] = p.g_b[local];
+      if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f) continue;
+    }
+    float emis[3] = {0.f, 0.f, 0.f};  // K6: the non-sky sum
     const int lin = p.pix_offset + local;
     const uint32_t pix = (uint32_t)lin;
     const float px = (float)(lin % p.width);
@@ -541,20 +576,22 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
           break;
         }
         if (sc.absorbed || depth + 1 >= p.max_depth) break;  // black
-        float* r = rec + (size_t)depth * kR * rs;
-        r[R_OX * rs] = o[0];
-        r[R_OY * rs] = o[1];
-        r[R_OZ * rs] = o[2];
-        r[R_DX * rs] = d[0];
-        r[R_DY * rs] = d[1];
-        r[R_DZ * rs] = d[2];
-        r[R_TR * rs] = T[0];
-        r[R_TG * rs] = T[1];
-        r[R_TB * rs] = T[2];
-        r[R_WIN * rs] = (float)(tri_win ? n : bi);
-        if constexpr (kMesh) {
-          r[R_T * rs] = best_t;
-          r[R_TID * rs] = (float)ti;
+        if constexpr (!kEmit) {
+          float* r = rec + (size_t)depth * kR * rs;
+          r[R_OX * rs] = o[0];
+          r[R_OY * rs] = o[1];
+          r[R_OZ * rs] = o[2];
+          r[R_DX * rs] = d[0];
+          r[R_DY * rs] = d[1];
+          r[R_DZ * rs] = d[2];
+          r[R_TR * rs] = T[0];
+          r[R_TG * rs] = T[1];
+          r[R_TB * rs] = T[2];
+          r[R_WIN * rs] = (float)(tri_win ? n : bi);
+          if constexpr (kMesh) {
+            r[R_T * rs] = best_t;
+            r[R_TID * rs] = (float)ti;
+          }
         }
         for (int k = 0; k < 3; ++k) {
           o[k] = h[k];
@@ -563,13 +600,43 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         }
         ++depth;
       }
+      if constexpr (kEmit) {
+        // ---- K6: the miss record, and an emitter's contribution ----
+        const bool miss = ending == END_MISS;
+        const size_t plane = (size_t)p.n_samples * p.n_pix;
+        float* e = p.emit + (size_t)s * p.n_pix + local;
+        e[E_DX * plane] = miss ? d[0] : 0.f;
+        e[E_DY * plane] = miss ? d[1] : 0.f;
+        e[E_DZ * plane] = miss ? d[2] : 1.f;
+        e[E_TR * plane] = miss ? T[0] : 0.f;
+        e[E_TG * plane] = miss ? T[1] : 0.f;
+        e[E_TB * plane] = miss ? T[2] : 0.f;
+        if (ending == END_EMIT) {
+          for (int k = 0; k < 3; ++k) {
+            const float alb = win_tri
+                                  ? s_cam[C_MA + k]
+                                  : s_sph[(F_ALR + k) * kMaxSpheres + win];
+            float v = T[k] * alb;
+            if (flags & CLAMP) v = clamp01(v);
+            emis[k] = emis[k] + (isnan(v) ? 0.f : v);
+          }
+        }
+        continue;
+      }
       if (ending == END_BLACK) continue;
 
       // ---- 2. seed: c = T * src, clamped, NaN -> 0 ----
       float src[3];
-      if (ending == END_MISS)
-        sky_colour(s_cam, flags, d, dot3(d, d), src);
-      else if (win_tri)
+      if (ending == END_MISS) {
+        if constexpr (kSky == kSkyConsume) {
+          // the sky value K6's lookup gave this sample
+          for (int k = 0; k < 3; ++k)
+            src[k] = p.sky_rows[((size_t)k * p.n_samples + s) * p.n_pix +
+                                local];
+        } else {
+          sky_colour(s_cam, flags, d, dot3(d, d), src);
+        }
+      } else if (win_tri)
         for (int k = 0; k < 3; ++k) src[k] = s_cam[C_MA + k];
       else
         for (int k = 0; k < 3; ++k)
@@ -598,6 +665,9 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
             atomicAdd(&s_acc[(G_ALR + k) * kMaxSpheres + win],
                       gcv[k] * T[k]);
         }
+      } else if constexpr (kSky == kSkyConsume) {
+        // a constant sky value: no adjoint of the direction (the texel's
+        // cotangent is the caller's)
       } else if (flags & SKY_CONST) {
         for (int k = 0; k < 3; ++k) gcam[C_SKY + k] += gcv[k] * T[k];
       } else {
@@ -644,55 +714,71 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         }
       }
     }
+    if constexpr (kEmit)
+      for (int k = 0; k < 3; ++k)
+        p.emis[(size_t)k * p.n_pix + local] = emis[k];
   }
 
-  // ---- 4. flush: warp sums of the camera cotangents, then the block ----
-  for (int k = 0; k < kCamSlots; ++k) {
-    float v = gcam[k];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if ((threadIdx.x & 31) == 0) s_gcam[threadIdx.x / 32][k] = v;
-  }
-  if (p.counts != nullptr) {
-    const unsigned int w0 = __reduce_add_sync(0xffffffffu, n_replay);
-    const unsigned int w1 = __reduce_add_sync(0xffffffffu, n_reverse);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(&p.counts[0], (unsigned long long)w0);
-      atomicAdd(&p.counts[1], (unsigned long long)w1);
-    }
-    if constexpr (kMesh) {
-      const unsigned int w2 = __reduce_add_sync(0xffffffffu, n_tests);
-      const unsigned int w3 = __reduce_add_sync(0xffffffffu, n_reverse_tri);
+  if constexpr (kEmit) {
+    // K6 counts the bounces replayed and the triangle tests
+    if (p.counts != nullptr) {
+      const unsigned int w0 = __reduce_add_sync(0xffffffffu, n_replay);
+      const unsigned int w1 = __reduce_add_sync(0xffffffffu, n_tests);
       if ((threadIdx.x & 31) == 0) {
-        atomicAdd(&p.counts[2], (unsigned long long)w2);
-        atomicAdd(&p.counts[3], (unsigned long long)w3);
+        atomicAdd(&p.counts[0], (unsigned long long)w0);
+        atomicAdd(&p.counts[1], (unsigned long long)w1);
       }
     }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
-    const float v = s_acc[(k / n) * kMaxSpheres + k % n];
-    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
-  }
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
-    float v = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) v += s_gcam[w][k];
-    p.cam_part[blockIdx.x * kCamSlots + k] = v;
+  } else {
+    // ---- 4. flush: warp sums of the camera cotangents, then the block ----
+    for (int k = 0; k < kCamSlots; ++k) {
+      float v = gcam[k];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if ((threadIdx.x & 31) == 0) s_gcam[threadIdx.x / 32][k] = v;
+    }
+    if (p.counts != nullptr) {
+      const unsigned int w0 = __reduce_add_sync(0xffffffffu, n_replay);
+      const unsigned int w1 = __reduce_add_sync(0xffffffffu, n_reverse);
+      if ((threadIdx.x & 31) == 0) {
+        atomicAdd(&p.counts[0], (unsigned long long)w0);
+        atomicAdd(&p.counts[1], (unsigned long long)w1);
+      }
+      if constexpr (kMesh) {
+        const unsigned int w2 = __reduce_add_sync(0xffffffffu, n_tests);
+        const unsigned int w3 =
+            __reduce_add_sync(0xffffffffu, n_reverse_tri);
+        if ((threadIdx.x & 31) == 0) {
+          atomicAdd(&p.counts[2], (unsigned long long)w2);
+          atomicAdd(&p.counts[3], (unsigned long long)w3);
+        }
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
+      const float v = s_acc[(k / n) * kMaxSpheres + k % n];
+      if (v != 0.f)
+        atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
+    }
+    for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+      float v = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) v += s_gcam[w][k];
+      p.cam_part[blockIdx.x * kCamSlots + k] = v;
+    }
   }
 }
 
 // Threads a variant launches for n_pix pixels on the current device: at
 // most as many as can be resident at once, so that the record buffer
 // (n_threads * max_depth * record floats) stays small.
-template <bool kMesh>
+template <bool kMesh, int kSky>
 int threads_for(int n_pix) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megagrad<kMesh>,
-                                                    kThreads, 0) !=
-          cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, megagrad<kMesh, kSky>, kThreads, 0) != cudaSuccess)
     return -1;
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   const int cap = sms * (per_sm > 0 ? per_sm : 1);
@@ -702,11 +788,15 @@ int threads_for(int n_pix) {
 }  // namespace
 
 extern "C" int sphere_megagrad_threads(int n_pix) {
-  return threads_for<false>(n_pix);
+  return threads_for<false, kSkyComputed>(n_pix);
 }
 
 extern "C" int mesh_megagrad_threads(int n_pix) {
-  return threads_for<true>(n_pix);
+  return threads_for<true, kSkyComputed>(n_pix);
+}
+
+extern "C" int hdr_consume_threads(int n_pix) {
+  return threads_for<true, kSkyConsume>(n_pix);
 }
 
 // Launches the sphere variant on `stream` and returns cudaGetLastError():
@@ -750,8 +840,8 @@ extern "C" int sphere_megagrad_launch(
   p.max_depth = max_depth;
   p.t_min = t_min;
   p.flags = flags;
-  megagrad<false><<<n_threads / kThreads, kThreads, 0,
-                    (cudaStream_t)stream>>>(p);
+  megagrad<false, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
+                                  (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -806,7 +896,119 @@ extern "C" int mesh_megagrad_launch(
                     n_boxes};
   p.mesh_type = mesh_type;
   p.gtri = gtri;
-  megagrad<true><<<n_threads / kThreads, kThreads, 0,
-                   (cudaStream_t)stream>>>(p);
+  megagrad<true, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
+                                 (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The argument checks of the HDR passes: the mesh variant's, where the
+// scene may have no triangles (n_chunks and n_boxes 0).
+static bool hdr_args_ok(int tab_w, int n_spheres, int t_pad, int n_chunks,
+                        int n_boxes, int n_pix, int width, int height,
+                        int n_samples, int max_depth) {
+  const bool no_mesh = n_chunks == 0 && n_boxes == 0;
+  return n_spheres >= 0 && n_spheres <= kMaxMeshSpheres &&
+         tab_w >= n_spheres &&
+         (no_mesh || (n_chunks >= 1 && t_pad >= n_chunks * kChunk &&
+                      n_boxes >= 1)) &&
+         t_pad < (1 << 24) && n_pix >= 0 && width >= 1 && height >= 1 &&
+         n_samples >= 0 && max_depth >= 1;
+}
+
+// The parameters both HDR passes take.
+static Params hdr_params(const float* cam, const float* sph, int tab_w,
+                         int n_spheres, const float* tri, int t_pad,
+                         const float* cluster, const float* sub,
+                         const int* chunk_box, int n_chunks,
+                         const float* boxes, int n_boxes, int mesh_type,
+                         unsigned long long* counts, int n_pix,
+                         int pix_offset, unsigned int seed,
+                         unsigned int sample_base, int n_samples, int width,
+                         int height, int max_depth, float t_min, int flags) {
+  Params p{};
+  p.cam = cam;
+  p.sph = sph;
+  p.counts = counts;
+  p.tab_w = tab_w;
+  p.n_spheres = n_spheres;
+  p.n_pix = n_pix;
+  p.pix_offset = pix_offset;
+  p.seed = seed;
+  p.sample_base = sample_base;
+  p.n_samples = n_samples;
+  p.width = width;
+  p.height = height;
+  p.max_depth = max_depth;
+  p.t_min = t_min;
+  p.flags = flags;
+  p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
+                    n_boxes};
+  p.mesh_type = mesh_type;
+  return p;
+}
+
+// Launches K6 on `stream`, one thread per pixel, and returns
+// cudaGetLastError().  Tables as mesh_megagrad_launch's (n_chunks and
+// n_boxes may be 0: no triangles); emit (6 x n_samples x n_pix) receives
+// each sample's miss direction and throughput, emis (3 x n_pix) each
+// pixel's non-sky sum; counts, when not null, receives the bounces replayed
+// and the triangle tests.
+extern "C" int hdr_emit_launch(
+    const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* tri, int t_pad, const float* cluster, const float* sub,
+    const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
+    int mesh_type, float* emit, float* emis, unsigned long long* counts,
+    int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_pix, width,
+                   height, n_samples, max_depth))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
+                        chunk_box, n_chunks, boxes, n_boxes, mesh_type,
+                        counts, n_pix, pix_offset, seed, sample_base,
+                        n_samples, width, height, max_depth, t_min, flags);
+  const int blocks = (n_pix + kThreads - 1) / kThreads;
+  p.n_threads = blocks * kThreads;
+  p.emit = emit;
+  p.emis = emis;
+  megagrad<true, kSkyEmit><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks and n_boxes
+// may be 0: no triangles), with sky_rows (3 x n_samples x n_pix) the sky
+// value of each sample that missed.
+extern "C" int hdr_consume_launch(
+    const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* tri, int t_pad, const float* cluster, const float* sub,
+    const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
+    int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* sky_rows, float* cam_part, float* gsph, float* gtri,
+    float* rec, int n_threads, unsigned long long* counts, int n_pix,
+    int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_pix, width,
+                   height, n_samples, max_depth) ||
+      n_threads < kThreads || n_threads % kThreads != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
+                        chunk_box, n_chunks, boxes, n_boxes, mesh_type,
+                        counts, n_pix, pix_offset, seed, sample_base,
+                        n_samples, width, height, max_depth, t_min, flags);
+  p.g_r = g_r;
+  p.g_g = g_g;
+  p.g_b = g_b;
+  p.sky_rows = sky_rows;
+  p.cam_part = cam_part;
+  p.gsph = gsph;
+  p.gtri = gtri;
+  p.rec = rec;
+  p.n_threads = n_threads;
+  megagrad<true, kSkyConsume><<<n_threads / kThreads, kThreads, 0,
+                                (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,20 @@
 // Mesh megakernel: forward path tracing of a scene of at most 128 spheres
 // and one uniform-material triangle mesh in gating boxes, under a gradient or
-// constant sky, one thread per pixel.
+// constant sky, or of at most 128 spheres and no or such a mesh under an HDR
+// sky, one thread per pixel.
 //
-// Replaces the mesh body of opencl_ray_tracer_tpu/kernels/megamesh.py::
-// _make_kernel, the Pallas TPU kernel that intersects tiles of pixel rows
-// with triangle chunks on the MXU, wavefront by wavefront, with multi-round
-// tail compaction.  The compaction ladder, its overflow re-render, the row
-// batching and the HDR records are TPU scheduling and stay there.
+// Replaces opencl_ray_tracer_tpu/kernels/megamesh.py::_make_kernel, its mesh
+// body and its HDR body: the Pallas TPU kernel that intersects tiles of
+// pixel rows with triangle chunks on the MXU, wavefront by wavefront, with
+// multi-round tail compaction.  The compaction ladder, its overflow
+// re-render and the row batching are TPU scheduling and stay there.  So do
+// the HDR records: a TPU lane cannot gather from an image in VMEM, so the
+// Pallas kernel writes each miss's throughput and direction and XLA looks
+// the texels up afterwards.  A thread here reads the texel where its ray
+// misses (common.cuh::hdr_texel; a 1024x512 image is 6.3 MB and stays in
+// L2).  That is the same sum: in the scope of kernels/megamesh.py (texels
+// and albedos at most 1) a sky term is at most 1, so the clamp before the
+// average leaves it as it is.
 //
 // The per-pixel estimator is the sphere megakernel's (megakernel.cu),
 // unchanged: path regeneration, the same pcg4d slots, clamp-before-average,
@@ -18,8 +26,8 @@
 //
 // What bounds it: FP32 work, in the triangle tests (38 FLOPs each) and the
 // sphere tests (17 each), plus the slab tests that cull; device memory
-// holds only the tables, read through the caches, and three floats written
-// per pixel.
+// holds only the tables and an HDR sky's image, read through the caches
+// (one texel of 12 bytes per miss), and three floats written per pixel.
 //
 // What the design does about it: the culling of mesh.cuh, per ray and per
 // bounce: the gating boxes first, then each chunk's AABB and sub-boxes,
@@ -65,6 +73,7 @@ struct Params {
   int max_depth;
   float t_min;
   int flags;
+  HdrImage sky;
 };
 
 __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
@@ -116,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
     if (!(t < kBig)) {
       // miss: throughput times the sky (gpu_kernel.cl:342-347)
       float sky[3];
-      sky_colour(s_cam, flags, d, a, sky);
+      sky_colour(s_cam, flags, p.sky, d, a, sky);
       for (int k = 0; k < 3; ++k) c[k] = thr[k] * sky[k];
     } else {
       float h[3], nrm[3];
@@ -191,6 +200,8 @@ __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
 // Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
 // when the launch was refused.  Outputs are (n_pix,) float planes; counts,
 // when not null, receives the bounces traced and the triangle tests run.
+// With SKY_HDR in flags, sky is the (sky_h, sky_w, 3) image of an HDR sky
+// and the scene may have no triangles (n_chunks and n_boxes 0).
 extern "C" int mesh_megakernel_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
@@ -198,9 +209,14 @@ extern "C" int mesh_megakernel_launch(
     int mesh_type, float* out_r, float* out_g, float* out_b,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int width, int height, int spp, int max_depth,
-    float t_min, int flags, void* stream) {
+    float t_min, int flags, const float* sky, int sky_w, int sky_h,
+    void* stream) {
+  const bool hdr = (flags & SKY_HDR) != 0;
+  const bool no_mesh = hdr && n_chunks == 0 && n_boxes == 0;
   if (n_spheres < 0 || n_spheres > kMaxSpheres || tab_w < n_spheres ||
-      n_chunks < 1 || t_pad < n_chunks * kChunk || n_boxes < 1 ||
+      (!no_mesh && (n_chunks < 1 || t_pad < n_chunks * kChunk ||
+                    n_boxes < 1)) ||
+      (hdr && (sky == nullptr || sky_w < 1 || sky_h < 1)) ||
       n_pix < 0 || width < 1 || height < 1 ||
       spp < 1 || max_depth < 1)
     return (int)cudaErrorInvalidValue;
@@ -227,7 +243,34 @@ extern "C" int mesh_megakernel_launch(
   p.max_depth = max_depth;
   p.t_min = t_min;
   p.flags = flags;
+  p.sky = HdrImage{sky, sky_w, sky_h};
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   mesh_megakernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+    hdr_texel_kernel(const float* d, int n, HdrImage im, int* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float di[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  out[i] = hdr_texel(im, di, dot3(di, di));
+}
+
+}  // namespace
+
+// The texel index y * w + x that the kernel's HDR lookup gives for each of
+// the n directions d (n x 3), into out (n ints): the lookup alone, to hold
+// it against scene/sky.py's on the card.  Returns cudaGetLastError().
+extern "C" int hdr_texel_launch(const float* d, int n, int sky_w, int sky_h,
+                                int* out, void* stream) {
+  if (n < 0 || sky_w < 1 || sky_h < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  hdr_texel_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     (cudaStream_t)stream>>>(d, n, HdrImage{nullptr, sky_w,
+                                                             sky_h},
+                                             out);
   return (int)cudaGetLastError();
 }

@@ -147,9 +147,22 @@ def _build_tables(scene, plan: MeshPlan | None = None) -> MeshTables:
         feats=feats, plan=plan)
 
 
-def check_tables(tab: MeshTables) -> None:
+def empty_tables(device) -> MeshTables:
+    """The tables of a scene without triangles, which the mesh megakernel
+    and the HDR kernels take for a sphere scene under an HDR sky: no
+    chunk, no gating box, no plan."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return MeshTables(tri=zeros(TRI_ROWS, 0), cluster=zeros(0, 6),
+                      sub=zeros(0, 6), chunk_box=zeros(0, dtype=torch.int32),
+                      boxes=zeros(0, 6), feats=None, plan=None)
+
+
+def check_tables(tab: MeshTables, allow_empty: bool = False) -> None:
     """Raise unless the tables are what the kernels read (the chunks' box
-    ids are checked when ``mesh_tables`` builds them)."""
+    ids are checked when ``mesh_tables`` builds them); ``allow_empty``
+    also takes ``empty_tables``."""
     n_chunks = tab.chunk_box.shape[0]
     shapes = ((tab.tri, (TRI_ROWS, n_chunks * MESH_CHUNK), torch.float32),
               (tab.cluster, (n_chunks, 6), torch.float32),
@@ -160,6 +173,8 @@ def check_tables(tab: MeshTables) -> None:
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != tab.tri.device):
             raise ValueError("mesh tables do not match mesh_tables()")
+    if allow_empty and n_chunks == 0 and tab.boxes.shape[0] == 0:
+        return
     if n_chunks < 1 or tab.boxes.shape[0] < 1:
         raise ValueError("the mesh kernels take one or more chunks and "
                          "gating boxes")

@@ -29,6 +29,21 @@ cotangent (1/ior included) and row 9 stays 0, so the two agree on the
 scene's leaves.  ``MeshRenderFn`` is the image of a mesh scene through
 the mesh megakernel (K2), whose backward is K5.
 
+HDR skies take two more instances (the JAX package's ``hdr_mode`` "emit"
+and "consume", K6 and K7), for the scenes of the mesh megakernel's HDR
+scope with or without triangles.  ``hdr_emit`` (K6) replays every sample
+and returns its miss direction and throughput, and each pixel's sum of
+the contributions that are not sky; ``hdr_lookup`` reads the texels of
+those directions, ``hdr_image`` rebuilds the image from them, and
+``hdr_sky_cot`` scatters the image cotangent onto the texels (torch ops,
+as the JAX package keeps them in XLA).  ``hdr_consume`` (K7) is K5 with
+each sample's sky value given.  ``HdrRenderFn`` chains them: the image of
+an HDR scene through K6, whose backward is K7 and the texels' scatter, so
+that a forward and backward run no K2 (the JAX package's
+``render_grad_hdr_fused``).  Their plain versions ``hdr_emit_plain`` and
+``hdr_consume_plain`` are the plain wavefront recording the misses and
+the autograd of the plain wavefront with the sky values given.
+
 The backward always uses the order-invariant "zero" NaN policy, whatever
 ``cfg.nan_policy`` says: the running-sum policy is not linear in the
 samples.  The forward keeps ``cfg.nan_policy``.  A NaN-free render is the
@@ -43,7 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._fp import div, dot3, fma
+from .._fp import clip01, div, dot3, fma
 from ..config import RenderConfig
 from ..scene import (Scene, detached, float_leaves, gradient_scene,
                      requiring_grad)
@@ -54,7 +69,7 @@ from ..tracer.mesh_accel import T_T
 from ..tracer.wavefront import render_rows_wavefront
 from . import _build
 from .intersect_mm import (MeshTables, check_tables, closest_tri_plain,
-                           mesh_tables)
+                           empty_tables, mesh_tables)
 from .megakernel import (F_ALB, F_ALG, F_ALR, F_CX, F_CY, F_CZ, F_FUZZ,
                          F_INVIOR, F_INVR, F_IOR, F_R2, C_DUX, C_DUY, C_DUZ,
                          C_DVX, C_DVY, C_DVZ, C_HX, C_HY, C_HZ, C_LX, C_LY,
@@ -64,9 +79,9 @@ from .megakernel import (F_ALB, F_ALG, F_ALR, F_CX, F_CY, F_CZ, F_FUZZ,
                          render_spheres_plain,
                          scene_from_tables, specialize_flags, sphere_table,
                          unsupported_reason)
-from .megamesh import (mesh_camera_table, render_mesh,
+from .megamesh import (mesh_camera_table, plain_hit_fn, render_mesh,
                        specialize_mesh_flags, unsupported_mesh_reason)
-from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
+from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR, texel_index
 
 # The backward takes up to 256 spheres, as the JAX package's; the forward
 # kernel takes 128.
@@ -83,19 +98,23 @@ CAM_SLOTS = (C_OX, C_OY, C_OZ, C_HX, C_HY, C_HZ, C_VX, C_VY, C_VZ,
 GTRI_ROWS = 10
 # Floats the kernel records per bounce that goes on (sphere and mesh
 # variants); threads per block; camera-table slots the kernel writes
-# (C_OX .. C_SKY2).
+# (C_OX .. C_SKY2); rows of K6's per-sample output (the miss direction and
+# throughput).
 _REC = 10
 _REC_MESH = 12
+EMIT_ROWS = 6
 _THREADS = 128
 _CAM_USED = C_SKY2 + 1
 # Pixels and samples per autograd call of the plain version.
 _PLAIN_PIX_CHUNK = 2**17
 _PLAIN_SPP_CHUNK = 25
 
-# Launches of the sphere variant (K4) and of the mesh variant (K5) since
-# their counts were last set to 0.
+# Launches of the sphere variant (K4), the mesh variant (K5) and the HDR
+# passes (K6, K7) since their counts were last set to 0.
 LAUNCHES = 0
 MESH_LAUNCHES = 0
+EMIT_LAUNCHES = 0
+CONSUME_LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {
@@ -109,6 +128,15 @@ _SYMBOLS = {
          _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I,
          _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "mesh_megagrad_threads": ([_I], _I),
+    "hdr_emit_launch": (
+        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I,
+         _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
+         ctypes.c_float, _I, _P], _I),
+    "hdr_consume_launch": (
+        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+         _P, _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32,
+         _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
+    "hdr_consume_threads": ([_I], _I),
 }
 
 
@@ -119,13 +147,36 @@ def _library():
 def unsupported_grad_mesh_reason(scene: Scene) -> str | None:
     """Why the mesh variant (K5) does not cover this scene, or None: it
     takes the mesh megakernel's scenes (triangles of one uniform material
-    in one or more gating boxes, 0 to 128 spheres, a gradient or constant
-    sky)."""
+    in one or more gating boxes, 0 to 128 spheres) under a gradient or
+    constant sky."""
+    if scene.sky.kind == KIND_HDR:
+        return ("the mesh backward kernel (K5) takes a gradient or constant "
+                "sky: an HDR scene differentiates through K6 and K7 "
+                "(unsupported_grad_hdr_reason)")
     reason = unsupported_mesh_reason(scene)
-    if reason is None or scene.sky.kind == KIND_HDR:
-        return reason
+    if reason is None:
+        return None
     return ("the mesh backward kernel (K5) has the mesh megakernel's "
             f"scope: {reason}")
+
+
+def unsupported_grad_hdr_reason(scene: Scene) -> str | None:
+    """Why the HDR passes (K6, K7) do not cover this scene, or None: they
+    take the mesh megakernel's HDR scenes (0 to 128 spheres, triangles or
+    none, texels and albedos of at most 1), the JAX package's
+    ``supports_grad_hdr``."""
+    if scene.sky.kind != KIND_HDR:
+        return "the HDR backward kernels (K6, K7) take an HDR sky"
+    reason = unsupported_mesh_reason(scene)
+    if reason is None:
+        return None
+    return ("the HDR backward kernels (K6, K7) have the mesh megakernel's "
+            f"HDR scope: {reason}")
+
+
+def supports_grad_hdr(scene: Scene, cfg: RenderConfig) -> bool:
+    """True when the HDR passes cover this scene."""
+    return unsupported_grad_hdr_reason(scene) is None
 
 
 def supports_grad_mesh(scene: Scene, cfg: RenderConfig) -> bool:
@@ -134,13 +185,13 @@ def supports_grad_mesh(scene: Scene, cfg: RenderConfig) -> bool:
 
 
 def unsupported_grad_reason(scene: Scene) -> str | None:
-    """Why the backward kernel does not cover this scene, or None.  Mesh
-    scenes take the mesh variant's scope; the sphere variant takes twice
-    the forward kernel's spheres."""
+    """Why the backward kernels do not cover this scene, or None.  HDR
+    scenes take the HDR passes' scope, mesh scenes the mesh variant's; the
+    sphere variant takes twice the forward kernel's spheres."""
+    if scene.sky.kind == KIND_HDR:
+        return unsupported_grad_hdr_reason(scene)
     if scene.triangles.count > 0:
         return unsupported_grad_mesh_reason(scene)
-    if scene.sky.kind == KIND_HDR:
-        return unsupported_reason(scene)
     if not 0 < scene.spheres.count <= GRAD_MAX_SPHERES:
         return (f"the backward kernel takes 1 to {GRAD_MAX_SPHERES} "
                 "spheres; larger sphere scenes are not ported")
@@ -154,11 +205,14 @@ def supports_grad(scene: Scene, cfg: RenderConfig) -> bool:
 
 
 def _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
-                pix_offset, n_samples, counts, tab=None):
+                pix_offset, n_samples, counts, tab=None, n_counts=None):
     """The wrappers' argument checks: the sphere variant's, or with the
     mesh tables ``tab`` the mesh variant's (0 to 128 spheres, four
-    counts)."""
-    if sky_kind not in (KIND_GRADIENT, KIND_CONST):
+    counts), or with ``sky_kind`` HDR the HDR passes' (the mesh variant's,
+    whose tables may be ``empty_tables``; n_counts counts)."""
+    hdr = sky_kind == KIND_HDR
+    if sky_kind not in (KIND_GRADIENT, KIND_CONST) and not (
+            hdr and tab is not None):
         raise ValueError(f"the kernel takes a gradient or constant sky, "
                          f"not kind {sky_kind}")
     for name, t, rows in (("camera", cam, 1), ("sphere", sph, N_FIELDS)):
@@ -173,7 +227,7 @@ def _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
         raise ValueError(f"n_spheres must be in {lo}..{hi}")
     others = (sph, *planes)
     if tab is not None:
-        check_tables(tab)
+        check_tables(tab, allow_empty=hdr)
         if tab.tri.shape[1] >= 2**24:
             raise ValueError("the mesh backward takes fewer than 2**24 "
                              "triangle columns")
@@ -188,7 +242,8 @@ def _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
     if (n_pix < 0 or pix_offset < 0 or pix_offset + n_pix >= 2**31
             or n_samples < 0 or n_samples * cfg.max_depth >= 2**31):
         raise ValueError("pixel or sample counts out of range")
-    n_counts = 2 if tab is None else 4
+    if n_counts is None:
+        n_counts = 2 if tab is None else 4
     if counts is not None and (counts.dtype != torch.int64
                                or counts.numel() != n_counts
                                or counts.device != cam.device):
@@ -322,6 +377,9 @@ def render_grad_mesh_tables(cam, sph, n_spheres: int, tab: MeshTables,
     global MESH_LAUNCHES
     n_samples = cfg.spp if n_samples is None else n_samples
     planes = (g_r, g_g, g_b)
+    if sky_kind == KIND_HDR:
+        raise ValueError("the mesh backward kernel (K5) takes a gradient or "
+                         "constant sky; an HDR sky's is hdr_consume (K7)")
     _check_args(cam, sph, n_spheres, cfg, sky_kind, planes, n_pix,
                 pix_offset, n_samples, counts, tab)
     if cam.device.type == "cpu":
@@ -427,48 +485,85 @@ def render_grad_mesh_tables_plain(cam, sph, n_spheres: int, tab: MeshTables,
     ior cotangent and row 9 stays 0.  counts[0] receives the bounces
     traced; the other counts stay 0.  ``flags`` only prune the kernel's
     code."""
+    return _mesh_vjp_plain(cam, sph, n_spheres, tab, cfg, sky_kind,
+                           (g_r, g_g, g_b), seed, n_pix, pix_offset,
+                           sample_base, n_samples, counts, pix_chunk,
+                           spp_chunk)
+
+
+def _mesh_vjp_plain(cam, sph, n_spheres, tab, cfg, sky_kind, planes, seed,
+                    n_pix, pix_offset, sample_base, n_samples, counts,
+                    pix_chunk, spp_chunk, sky_rows=None):
+    """The body of the mesh variant's plain version (see
+    ``render_grad_mesh_tables_plain``); with ``sky_rows`` (3, n_samples,
+    n_pix) a miss takes the given sky value, a constant (K7's plain
+    version), and tables without triangles take the spheres' winner-only
+    hit."""
     n_samples = cfg.spp if n_samples is None else n_samples
     gcfg = cfg.replace(nan_policy="zero")
-    g = torch.stack([g_r, g_g, g_b], dim=-1)
+    g = torch.stack(planes, dim=-1)
     feats = tab.feats
+    t_pad = tab.tri.shape[1]
     gcam = torch.zeros_like(cam)
     gsph = torch.zeros_like(sph)
-    gtri = torch.zeros((GTRI_ROWS, tab.tri.shape[1]), dtype=torch.float32,
+    gtri = torch.zeros((GTRI_ROWS, t_pad), dtype=torch.float32,
                        device=cam.device)
     bounces = counts[:1] if counts is not None else None
+    # an HDR scene's misses read sky_rows: its image is never looked up
+    image = torch.zeros((1, 1, 3), device=cam.device)
     for p0 in range(0, n_pix, pix_chunk):
         m = min(pix_chunk, n_pix - p0)
         lin = torch.arange(pix_offset + p0, pix_offset + p0 + m,
                            device=cam.device)
+        miss_fn = (None if sky_rows is None
+                   else _given_sky(sky_rows, sample_base, p0, m))
         for s0 in range(0, n_samples, spp_chunk):
             # also under a backward pass, which turns grad mode off
             with torch.enable_grad():
                 leaves = [x.detach().requires_grad_() for x in (
-                    cam, sph, tab.tri[T_T:T_T + 4], feats.albedo,
-                    feats.fuzz, feats.ior)]
-                cam_, sph_, plane, albedo, fuzz, ior = leaves
-                scene, frame = scene_from_tables(cam_, sph_, n_spheres,
-                                                 sky_kind)
+                    (cam, sph, tab.tri[T_T:T_T + 4], feats.albedo,
+                     feats.fuzz, feats.ior) if t_pad else (cam, sph))]
+                scene, frame = scene_from_tables(
+                    leaves[0], leaves[1], n_spheres, sky_kind,
+                    image if sky_kind == KIND_HDR else None)
+                if t_pad:
+                    hit_fn = _plane_hit_fn(tab, scene, cfg.t_min, leaves[2],
+                                           (*leaves[3:], feats.mat_type))
+                else:
+                    hit_fn = make_grad_hit_fn(scene, cfg.t_min)
                 acc = render_rows_wavefront(
                     scene, gcfg, lin // cfg.width, lin % cfg.width, lin,
                     seed, sample_base + s0, min(spp_chunk, n_samples - s0),
-                    frame=frame, bounces=bounces,
-                    hit_fn=_plane_hit_fn(tab, scene, cfg.t_min, plane,
-                                        (albedo, fuzz, ior,
-                                         feats.mat_type)))
+                    frame=frame, bounces=bounces, hit_fn=hit_fn,
+                    miss_fn=miss_fn)
                 grads = torch.autograd.grad((acc * g[p0:p0 + m]).sum(),
                                             leaves, allow_unused=True)
-            ga, gs, gp, galb, gfz, gior = (
-                torch.zeros_like(x) if gx is None else gx
-                for gx, x in zip(grads, leaves))
-            gcam += ga
-            gsph += gs
-            gtri[0:3] += gp[0:3]
-            gtri[3] -= gp[3]
-            gtri[4:7] += galb.T
-            gtri[7] += gfz
-            gtri[8] += gior
+            grads = [torch.zeros_like(x) if gx is None else gx
+                     for gx, x in zip(grads, leaves)]
+            gcam += grads[0]
+            gsph += grads[1]
+            if t_pad:
+                gp, galb, gfz, gior = grads[2:]
+                gtri[0:3] += gp[0:3]
+                gtri[3] -= gp[3]
+                gtri[4:7] += galb.T
+                gtri[7] += gfz
+                gtri[8] += gior
     return gcam, gsph, gtri
+
+
+def _given_sky(sky_rows, sample_base: int, p0: int, m: int):
+    """miss_fn of the wavefront that returns the sky values of sky_rows
+    (3, n_samples, n_pix) for pixels p0 .. p0 + m, as constants."""
+    cols = torch.arange(p0, p0 + m, device=sky_rows.device)
+    last = sky_rows.shape[1] - 1
+    rows = sky_rows.detach()
+
+    def miss_fn(d, sample, throughput, miss):
+        s = torch.clamp(sample - sample_base, 0, last)
+        return rows[:, s, cols].T
+
+    return miss_fn
 
 
 def _planes(g_img, spp: int):
@@ -484,12 +579,21 @@ def render_grad_scene(scene: Scene, cfg: RenderConfig, g_img, seed: int = 0,
     the table cotangents of ``render_grad_tables`` (with g_img / spp)
     chained to the scene's leaves by ``table_grads_to_scene``; for a mesh
     scene those of ``render_grad_mesh_tables``, whose triangle cotangents
-    ``tri_grads_to_scene`` adds.  Runs on the scene's device; flags default
-    to ``specialize_flags(scene)`` (``specialize_mesh_flags`` for a mesh
-    scene)."""
+    ``tri_grads_to_scene`` adds; for an HDR scene the backward of
+    ``HdrRenderFn`` (K6, then K7 and the texels' scatter into
+    ``sky.image``).  Runs on the scene's device; flags default to
+    ``specialize_flags(scene)`` (``specialize_mesh_flags`` for a mesh or
+    HDR scene)."""
     reason = unsupported_grad_reason(scene)
     if reason is not None:
         raise NotImplementedError(reason)
+    if scene.sky.kind == KIND_HDR:
+        s = requiring_grad(scene)
+        img = render_hdr_differentiable(s, cfg, seed, flags)
+        leaves = float_leaves(s)
+        grads = torch.autograd.grad(img, list(leaves.values()), g_img,
+                                    allow_unused=True)
+        return gradient_scene(scene, dict(zip(leaves, grads)))
     if scene.triangles.count > 0:
         frozen = detached(scene)
         tab = mesh_tables(frozen)
@@ -672,3 +776,332 @@ def render_mesh_differentiable(scene: Scene, cfg: RenderConfig,
         t.albedo, t.fuzz, t.ior, scene.spheres.count,
         mesh_tables(frozen, plan=plan), cfg, scene.sky.kind,
         flags if flags is not None else specialize_mesh_flags(frozen), seed)
+
+
+def _emit_empty(n_samples: int, n_pix: int, device):
+    """K6's outputs before any sample: every direction (0, 0, 1), every
+    throughput and sum 0."""
+    emit = torch.zeros((EMIT_ROWS, n_samples, n_pix), dtype=torch.float32,
+                       device=device)
+    emit[2] = 1.0
+    return emit, torch.zeros((3, n_pix), dtype=torch.float32, device=device)
+
+
+def hdr_emit(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
+             flags, seed: int, n_pix: int, pix_offset: int = 0,
+             sample_base: int = 0, n_samples: int | None = None,
+             counts=None):
+    """K6, the HDR backward's first pass: (emit (6, n_samples, n_pix),
+    emis (3, n_pix)) for n_pix pixels from global pixel ``pix_offset`` over
+    n_samples samples (cfg.spp when None) from global sample
+    ``sample_base``.  emit rows 0-2 hold each sample's miss direction
+    ((0, 0, 1) where the sample did not miss), rows 3-5 its throughput
+    there (0 where it did not); emis each pixel's sum of the contributions
+    that are not sky, clamped when cfg.clamp_samples, NaN as 0.
+
+    cam: ``megamesh.mesh_camera_table``; sph: ``sphere_table``; tab:
+    ``intersect_mm.mesh_tables``, or ``empty_tables`` for a scene without
+    triangles; flags: ``specialize_mesh_flags``; counts: optional (2,)
+    int64 tensor that receives the bounces replayed and the triangle
+    tests.  CUDA tensors launch the kernel; CPU tensors run
+    ``hdr_emit_plain``."""
+    global EMIT_LAUNCHES
+    n_samples = cfg.spp if n_samples is None else n_samples
+    _check_args(cam, sph, n_spheres, cfg, KIND_HDR, (), n_pix, pix_offset,
+                n_samples, counts, tab, n_counts=2)
+    if cam.device.type == "cpu":
+        return hdr_emit_plain(cam, sph, n_spheres, tab, cfg, flags, seed,
+                              n_pix, pix_offset, sample_base, n_samples,
+                              counts)
+    if cam.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cam.device}")
+    if n_pix == 0 or n_samples == 0:
+        return _emit_empty(n_samples, n_pix, cam.device)
+    bits = _flag_bits(cfg.replace(nan_policy="zero"), KIND_HDR, flags[:5])
+    emit = torch.empty((EMIT_ROWS, n_samples, n_pix), dtype=torch.float32,
+                       device=cam.device)
+    emis = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
+    with torch.cuda.device(cam.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _library().hdr_emit_launch(
+            cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
+            tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
+            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
+            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            int(flags[5]), emit.data_ptr(), emis.data_ptr(),
+            counts.data_ptr() if counts is not None else None, n_pix,
+            pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
+            n_samples, cfg.width, cfg.height, cfg.max_depth, cfg.t_min,
+            bits, stream)
+    if rc != 0:
+        raise RuntimeError(f"HDR emit launch failed: CUDA error {rc}")
+    EMIT_LAUNCHES += 1
+    return emit, emis
+
+
+@torch.no_grad()
+def hdr_emit_plain(cam, sph, n_spheres: int, tab: MeshTables,
+                   cfg: RenderConfig, flags, seed: int, n_pix: int,
+                   pix_offset: int = 0, sample_base: int = 0,
+                   n_samples: int | None = None, counts=None,
+                   pix_chunk: int = _PLAIN_PIX_CHUNK):
+    """The plain PyTorch version of ``hdr_emit``, on the tables' device:
+    the plain wavefront over the scene the tables hold (the mesh
+    megakernel's plain hit) under the "zero" NaN policy, recording each
+    miss's direction and throughput in place of the sky's radiance, which
+    it takes as 0, so that what it sums is the rest; in chunks of at most
+    pix_chunk pixels.  counts[0] receives the bounces traced, counts[1]
+    the plain fold's triangle tests.  ``flags`` give the mesh's material
+    type and otherwise only prune the kernel's code."""
+    n_samples = cfg.spp if n_samples is None else n_samples
+    dev = cam.device
+    gcfg = cfg.replace(nan_policy="zero")
+    scene, frame = scene_from_tables(cam, sph, n_spheres, KIND_HDR,
+                                     torch.zeros((1, 1, 3), device=dev))
+    hit_fn = plain_hit_fn(cam, scene, tab, cfg, flags,
+                          counts[1:2] if counts is not None else None)
+    emit, emis = _emit_empty(n_samples, n_pix, dev)
+    for p0 in range(0, n_pix, pix_chunk):
+        m = min(pix_chunk, n_pix - p0)
+        lin = torch.arange(pix_offset + p0, pix_offset + p0 + m, device=dev)
+
+        def miss_fn(d, sample, throughput, miss, p0=p0):
+            r = torch.nonzero(miss)[:, 0]
+            s = sample[r] - sample_base
+            emit[0:3, s, p0 + r] = d[r].T
+            emit[3:6, s, p0 + r] = throughput[r].T
+            return torch.zeros_like(d)
+
+        acc = render_rows_wavefront(
+            scene, gcfg, lin // cfg.width, lin % cfg.width, lin, seed,
+            sample_base, n_samples, frame=frame,
+            bounces=counts[0:1] if counts is not None else None,
+            hit_fn=hit_fn, miss_fn=miss_fn)
+        emis[:, p0:p0 + m] = acc.T
+    return emit, emis
+
+
+def _check_sky_rows(sky_rows, n_samples: int, n_pix: int, device) -> None:
+    if (sky_rows.dtype != torch.float32 or not sky_rows.is_contiguous()
+            or sky_rows.shape != (3, n_samples, n_pix)
+            or sky_rows.device != device):
+        raise ValueError("sky_rows must be contiguous float32 of shape "
+                         "(3, n_samples, n_pix) on the tables' device")
+
+
+def hdr_consume(cam, sph, n_spheres: int, tab: MeshTables,
+                cfg: RenderConfig, flags, g_r, g_g, g_b, sky_rows, seed: int,
+                n_pix: int, pix_offset: int = 0, sample_base: int = 0,
+                n_samples: int | None = None, counts=None):
+    """K7, the HDR backward's second pass: the cotangents (gcam (1, 128),
+    gsph (16, W), gtri (10, T_pad)) of ``render_grad_mesh_tables`` for an
+    HDR scene, where the sky value of each sample that missed is
+    sky_rows[:, sample, pixel] ((3, n_samples, n_pix): the texels of K6's
+    directions), a constant.  Arguments as ``hdr_emit``'s and
+    ``render_grad_mesh_tables``'s; counts: optional (4,) int64 tensor, as
+    K5's.  CUDA tensors launch the kernel; CPU tensors run
+    ``hdr_consume_plain``."""
+    global CONSUME_LAUNCHES
+    n_samples = cfg.spp if n_samples is None else n_samples
+    planes = (g_r, g_g, g_b)
+    _check_args(cam, sph, n_spheres, cfg, KIND_HDR, planes, n_pix,
+                pix_offset, n_samples, counts, tab)
+    _check_sky_rows(sky_rows, n_samples, n_pix, cam.device)
+    if cam.device.type == "cpu":
+        return hdr_consume_plain(cam, sph, n_spheres, tab, cfg, flags, g_r,
+                                 g_g, g_b, sky_rows, seed, n_pix, pix_offset,
+                                 sample_base, n_samples, counts)
+    if cam.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cam.device}")
+    bits = _flag_bits(cfg.replace(nan_policy="zero"), KIND_HDR, flags[:5])
+    lib = _library()
+    gsph = torch.zeros_like(sph)
+    t_pad = tab.tri.shape[1]
+    gtri = torch.zeros((GTRI_ROWS, t_pad), dtype=torch.float32,
+                       device=cam.device)
+    with torch.cuda.device(cam.device):
+        n_threads = lib.hdr_consume_threads(max(n_pix, 1))
+        if n_threads <= 0:
+            raise RuntimeError("HDR consume: occupancy query failed")
+        rec = torch.empty(n_threads * cfg.max_depth * _REC_MESH,
+                          dtype=torch.float32, device=cam.device)
+        cam_part = torch.zeros((n_threads // _THREADS, _CAM_USED),
+                               dtype=torch.float32, device=cam.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hdr_consume_launch(
+            cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
+            tab.tri.data_ptr(), t_pad, tab.cluster.data_ptr(),
+            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
+            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            int(flags[5]), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
+            sky_rows.data_ptr(), cam_part.data_ptr(), gsph.data_ptr(),
+            gtri.data_ptr(), rec.data_ptr(), n_threads,
+            counts.data_ptr() if counts is not None else None, n_pix,
+            pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
+            n_samples, cfg.width, cfg.height, cfg.max_depth, cfg.t_min,
+            bits, stream)
+    if rc != 0:
+        raise RuntimeError(f"HDR consume launch failed: CUDA error {rc}")
+    CONSUME_LAUNCHES += 1
+    gcam = torch.zeros_like(cam)
+    gcam[0, :_CAM_USED] = cam_part.sum(dim=0)
+    return gcam, gsph, gtri
+
+
+def hdr_consume_plain(cam, sph, n_spheres: int, tab: MeshTables,
+                      cfg: RenderConfig, flags, g_r, g_g, g_b, sky_rows,
+                      seed: int, n_pix: int, pix_offset: int = 0,
+                      sample_base: int = 0, n_samples: int | None = None,
+                      counts=None, pix_chunk: int = _PLAIN_PIX_CHUNK,
+                      spp_chunk: int = _PLAIN_SPP_CHUNK):
+    """The plain PyTorch version of ``hdr_consume``, on the tables' device:
+    ``render_grad_mesh_tables_plain``'s autograd of the plain wavefront
+    with each miss's sky value taken from sky_rows as a constant (and, for
+    tables without triangles, the spheres' winner-only hit).  gtri row 8
+    receives the whole ior cotangent and row 9 stays 0; counts[0]
+    receives the bounces traced.  ``flags`` only prune the kernel's
+    code."""
+    return _mesh_vjp_plain(cam, sph, n_spheres, tab, cfg, KIND_HDR,
+                           (g_r, g_g, g_b), seed, n_pix, pix_offset,
+                           sample_base, n_samples, counts, pix_chunk,
+                           spp_chunk, sky_rows=sky_rows)
+
+
+def hdr_lookup(image, emit):
+    """The sky values of K6's miss directions: (3, n_samples, n_pix) texels
+    of the (H, W, 3) image, and the flat texel index y * W + x of each
+    (``scene.sky.texel_index``, the lookup of the plain tracer and of the
+    mesh megakernel).  The lookup is constant in the direction."""
+    ty, tx = texel_index(image, emit[0:3].permute(1, 2, 0))
+    flat = ty * image.shape[1] + tx
+    return image.reshape(-1, 3)[flat].permute(2, 0, 1).contiguous(), flat
+
+
+def _sky_terms(emit, sky, clamp: bool):
+    """Each sample's sky term thr * sky, (3, n_samples, n_pix)."""
+    x = emit[3:6] * sky
+    return clip01(x) if clamp else x
+
+
+def hdr_image(emit, emis, sky, cfg: RenderConfig):
+    """(3, n_pix) mean radiance from K6's outputs and the sky values: the
+    non-sky sum plus each sample's sky term (clamped, NaN as 0, as the
+    estimator takes it), over cfg.spp."""
+    x = _sky_terms(emit, sky, cfg.clamp_samples)
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return div(emis + x.sum(dim=1), cfg.spp)
+
+
+def hdr_sky_cot(image, emit, sky, flat, g_r, g_g, g_b,
+                clamp: bool = True):
+    """The cotangent of the (H, W, 3) sky image for the cotangent planes
+    g_r, g_g, g_b ((n_pix,), divided by the number of samples): each
+    sample's throughput times its pixel's cotangent, times the clamp's
+    subgradient at its sky term (1 below 1, 1/2 at 1, 0 above, 0 for NaN,
+    the JAX package's ``_hdr_sky_cot``), added at its texel ``flat``
+    (``hdr_lookup``).  A sample that did not miss has throughput 0."""
+    g = torch.stack([g_r, g_g, g_b])[:, None, :]
+    contrib = emit[3:6] * g
+    if clamp:
+        x = emit[3:6] * sky
+        one = torch.ones_like(x)
+        cf = torch.where(x < 1.0, one,
+                         torch.where(x > 1.0, torch.zeros_like(x), one / 2))
+        cf = torch.where(torch.isnan(x), torch.zeros_like(x), cf)
+        contrib = contrib * cf
+    out = torch.zeros((image.shape[0] * image.shape[1], 3),
+                      dtype=torch.float32, device=image.device)
+    # index_add_ adds with atomics on the card; index_put_(accumulate=True)
+    # sorts the indices first: 17.6 ms for the 4.6 M samples of the
+    # flagship scene at REFERENCE_DEFAULTS on an NVIDIA H100 80GB HBM3 at
+    # 700 W (tools/hdr_host_profile.py)
+    out.index_add_(0, flat.reshape(-1),
+                   contrib.permute(1, 2, 0).reshape(-1, 3))
+    return out.reshape(image.shape)
+
+
+class HdrRenderFn(torch.autograd.Function):
+    """(H, W, 3) image of an HDR scene's tables from ``hdr_emit`` (K6 on
+    CUDA), its texels (``hdr_lookup``) and ``hdr_image``, whose backward is
+    ``hdr_consume`` (K7) with the texels' values, ``hdr_sky_cot`` for the
+    sky image and ``tri_cotangents`` for the triangles: the JAX package's
+    ``render_grad_hdr_fused``, in which a forward and backward trace each
+    path twice and the mesh megakernel not at all.  Both passes take the
+    "zero" NaN policy.
+
+    apply(cam, sph, p0, p1, p2, albedo, fuzz, ior, image, n_spheres, tab,
+    cfg, flags, seed): as ``MeshRenderFn``'s, with the sky image; tab
+    ``empty_tables`` for a scene without triangles."""
+
+    @staticmethod
+    def forward(ctx, cam, sph, p0, p1, p2, albedo, fuzz, ior, image,
+                n_spheres, tab, cfg, flags, seed):
+        n_pix = cfg.width * cfg.height
+        emit, emis = hdr_emit(cam.detach(), sph.detach(), n_spheres, tab,
+                              cfg, flags, seed, n_pix)
+        sky, flat = hdr_lookup(image.detach(), emit)
+        img = hdr_image(emit, emis, sky, cfg)
+        ctx.save_for_backward(cam, sph, p0, p1, p2, ior, image)
+        ctx.stash = (emit, sky, flat)
+        ctx.args = (n_spheres, tab, cfg, flags, seed)
+        return img.T.reshape(cfg.height, cfg.width, 3)
+
+    @staticmethod
+    def backward(ctx, g_img):
+        cam, sph, p0, p1, p2, ior, image = ctx.saved_tensors
+        emit, sky, flat = ctx.stash
+        n_spheres, tab, cfg, flags, seed = ctx.args
+        planes = _planes(g_img, cfg.spp)
+        g_sky = hdr_sky_cot(image, emit, sky, flat, *planes,
+                            clamp=cfg.clamp_samples)
+        gcam, gsph, gtri = hdr_consume(
+            cam.detach(), sph.detach(), n_spheres, tab, cfg, flags, *planes,
+            sky, seed, cfg.width * cfg.height)
+        cots = ((None,) * 6 if tab.plan is None
+                else tri_cotangents(p0, p1, p2, ior, tab.plan, gtri))
+        return (gcam, gsph, *cots, g_sky, None, None, None, None, None)
+
+
+def render_hdr_differentiable(scene: Scene, cfg: RenderConfig,
+                              seed: int = 0, flags=None, plan=None,
+                              check_scope: bool = True):
+    """(H, W, 3) image of an HDR scene through ``HdrRenderFn``: autograd
+    reaches the camera and spheres through the table builders, the
+    triangles through K7's cotangents and the sky image through the
+    texels' scatter.  flags default to ``specialize_mesh_flags(scene)``;
+    plan, the order of the mesh tables, to the scene's own (a fit passes
+    its first plan).  check_scope False skips ``supports_grad_hdr``: a fit
+    holds its initial scene to it, and a step may carry a texel past 1,
+    which the passes still compute exactly (the image and both cotangents
+    take the clamp where the sky term exceeds 1)."""
+    if check_scope:
+        reason = unsupported_grad_hdr_reason(scene)
+        if reason is not None:
+            raise NotImplementedError(reason)
+    frozen = detached(scene)
+    t = scene.triangles
+    tab = (mesh_tables(frozen, plan=plan) if t.count
+           else empty_tables(scene.spheres.center.device))
+    return HdrRenderFn.apply(
+        mesh_camera_table(scene), sphere_table(scene), t.p0, t.p1, t.p2,
+        t.albedo, t.fuzz, t.ior, scene.sky.image.contiguous(),
+        scene.spheres.count, tab, cfg,
+        flags if flags is not None else specialize_mesh_flags(frozen), seed)
+
+
+def render_grad_hdr_fused(scene: Scene, cfg: RenderConfig, loss_fn,
+                          seed: int = 0, plan=None):
+    """(loss, image, gradient Scene) of an HDR scene in one pass of K6 and
+    one of K7 (``render_hdr_differentiable``), the JAX package's fused
+    pipeline: the image is rebuilt from K6's outputs, the loss's image
+    cotangent taken from it, and K7 walks the paths back; no separate
+    forward render runs.  grads.sky.image holds the per-texel cotangent.
+    Runs on the scene's device."""
+    s = requiring_grad(scene)
+    img = render_hdr_differentiable(s, cfg, seed, plan=plan)
+    loss = loss_fn(img)
+    leaves = float_leaves(s)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return (loss.detach(), img.detach(),
+            gradient_scene(s, dict(zip(leaves, grads))))

@@ -49,6 +49,7 @@ FLAG_APERTURE = 16
 FLAG_CLAMP = 32
 FLAG_NAN_RUNNING_SUM = 64
 FLAG_SKY_CONST = 128
+FLAG_SKY_HDR = 256
 
 # Launches of the CUDA kernel since the count was last set to 0.
 LAUNCHES = 0
@@ -71,8 +72,9 @@ def unsupported_reason(scene: Scene) -> str | None:
                 "renders through the mesh megakernel (K2) and differentiates "
                 "through the mesh backward kernel (K5)")
     if scene.sky.kind == KIND_HDR:
-        return ("HDR skies are not ported yet: the HDR slice (slice 4) "
-                "ports them")
+        return ("the sphere megakernel takes a gradient or constant sky: "
+                "an HDR scene renders through the mesh megakernel's HDR "
+                "body (K2) and differentiates through K6 and K7")
     if not 0 < scene.spheres.count <= MAX_SPHERES:
         return (f"the sphere megakernel takes 1 to {MAX_SPHERES} spheres; "
                 "render() draws larger sphere scenes with the plain tracer")
@@ -148,7 +150,8 @@ def _flag_bits(cfg: RenderConfig, sky_kind: int, flags) -> int:
             | (FLAG_APERTURE if has_aperture else 0)
             | (FLAG_CLAMP if cfg.clamp_samples else 0)
             | (FLAG_NAN_RUNNING_SUM if cfg.nan_policy == "running_sum" else 0)
-            | (FLAG_SKY_CONST if sky_kind == KIND_CONST else 0))
+            | (FLAG_SKY_CONST if sky_kind == KIND_CONST else 0)
+            | (FLAG_SKY_HDR if sky_kind == KIND_HDR else 0))
 
 
 def _check_args(cam, sph, n_spheres, n_pix, pix_offset, cfg, sky_kind,
@@ -214,10 +217,12 @@ def render_spheres(cam, sph, n_spheres: int, cfg: RenderConfig,
     return out[0], out[1], out[2]
 
 
-def scene_from_tables(cam, sph, n_spheres: int, sky_kind: int):
+def scene_from_tables(cam, sph, n_spheres: int, sky_kind: int,
+                      sky_image=None):
     """The scene the tables hold, for the plain tracer: (scene, frame).
     Spheres are rebuilt from the centre, radius, albedo, fuzz, ior and type
-    rows; the camera enters as the frame of the camera table."""
+    rows; the camera enters as the frame of the camera table; an HDR sky
+    takes ``sky_image``."""
     c = cam[0]
     frame = dict(origin=c[C_OX:C_OZ + 1], horizontal=c[C_HX:C_HZ + 1],
                  vertical=c[C_VX:C_VZ + 1],
@@ -230,8 +235,9 @@ def scene_from_tables(cam, sph, n_spheres: int, sky_kind: int):
                       albedo=sph[F_ALR:F_ALB + 1, :n].T, fuzz=sph[F_FUZZ, :n],
                       ior=sph[F_IOR, :n],
                       mat_type=sph[F_TYPE, :n].detach().to(torch.int32))
-    sky = Sky(torch.zeros((1, 1, 3), device=cam.device),
-              c[C_SKY0:C_SKY2 + 1], sky_kind)
+    image = (sky_image if sky_image is not None
+             else torch.zeros((1, 1, 3), device=cam.device))
+    sky = Sky(image, c[C_SKY0:C_SKY2 + 1], sky_kind)
     # the camera enters as `frame`
     return Scene(None, spheres, Triangles.empty(), BoundingBoxes.empty(),
                  sky), frame

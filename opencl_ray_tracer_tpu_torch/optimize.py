@@ -33,18 +33,26 @@ def insert_params(scene: Scene, params: dict) -> Scene:
 def _kernel_scope(scene: Scene, param_paths) -> str | None:
     """Why the kernel route of ``fit_scene`` does not take this fit, or
     None."""
-    if scene.triangles.count == 0:
+    hdr = scene.sky.kind == KIND_HDR
+    if scene.triangles.count == 0 and not hdr:
         from .kernels.megakernel import unsupported_reason
         return unsupported_reason(scene)
-    from .kernels.megagrad import unsupported_grad_mesh_reason
-    reason = unsupported_grad_mesh_reason(scene)
+    from .kernels.megagrad import (unsupported_grad_hdr_reason,
+                                   unsupported_grad_mesh_reason)
+    reason = (unsupported_grad_hdr_reason(scene) if hdr
+              else unsupported_grad_mesh_reason(scene))
     materials = [p for p in param_paths if p.startswith("triangles.")
                  and p not in ("triangles.p0", "triangles.p1",
                                "triangles.p2")]
+    sky = [p for p in param_paths if p.startswith("sky.")
+           and not (hdr and p == "sky.image")]
     if reason is None and materials:
         reason = (f"fitting {', '.join(materials)} takes the plain route: "
                   "the mesh kernels need one uniform mesh material, which "
                   "a step would break")
+    if reason is None and hdr and sky:
+        reason = (f"fitting {', '.join(sky)} takes the plain route: the "
+                  "HDR kernels read the sky's image alone")
     return reason
 
 
@@ -82,7 +90,12 @@ def fit_scene(
     mesh tables in the initial scene's plan, rebuilt from the moved
     vertices every step (the plan is built once per fit).  The mesh route
     fits any leaf but the triangles' materials (a step would break the
-    uniform material its scope needs); fitting those takes "plain".
+    uniform material its scope needs); fitting those takes "plain".  An
+    HDR scene takes the HDR passes (K6 and K7, the JAX package's fused
+    pipeline: no forward render) the same way, with the first plan when it
+    has triangles; its scope is held on the initial scene, as in the JAX
+    package, and it fits ``sky.image`` besides; fitting another sky leaf
+    or the triangles' materials takes "plain".
     "plain" is autograd of the plain per-sample tracer (cfg.early_stop
     off); "auto" is "kernel" on CUDA for a scene in the kernels' scope and
     "plain" otherwise.  An explicit "kernel" out of scope raises
@@ -101,13 +114,13 @@ def fit_scene(
     if grad_backend not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown grad_backend: {grad_backend}")
     reason = _kernel_scope(init_scene, param_paths)
-    if init_scene.triangles.count > 0 and init_scene.sky.kind == KIND_HDR:
-        raise NotImplementedError(reason)
+    hdr = init_scene.sky.kind == KIND_HDR
     device = resolve_device(device)
     if grad_backend == "auto":
         grad_backend = ("kernel" if device.type == "cuda"
                         and (reason is None
-                             or init_scene.triangles.count == 0)
+                             or (init_scene.triangles.count == 0
+                                 and not hdr))
                         else "plain")
     if grad_backend == "kernel" and reason is not None:
         raise NotImplementedError(reason)
@@ -118,7 +131,21 @@ def fit_scene(
             return torch.mean((img - target) ** 2)
 
     dcfg = cfg.replace(early_stop=False)
-    if grad_backend == "kernel" and init_scene.triangles.count > 0:
+    if grad_backend == "kernel" and hdr:
+        from .kernels.intersect_mm import MESH_CHUNK
+        from .kernels.megagrad import render_hdr_differentiable
+        from .kernels.megamesh import specialize_mesh_flags
+        from .tracer.clusters import plan_for_scene
+        flags = specialize_mesh_flags(init_scene, conservative=True)
+        plan = (plan_for_scene(init_scene, MESH_CHUNK)
+                if init_scene.triangles.count else None)
+        gcfg = cfg.replace(nan_policy="zero")
+
+        def render_fn(scene, step_seed):
+            return render_hdr_differentiable(scene, gcfg, step_seed,
+                                             flags=flags, plan=plan,
+                                             check_scope=False)
+    elif grad_backend == "kernel" and init_scene.triangles.count > 0:
         from .kernels.intersect_mm import MESH_CHUNK
         from .kernels.megagrad import render_mesh_differentiable
         from .kernels.megamesh import specialize_mesh_flags

@@ -149,14 +149,15 @@ def gradient_scene(scene: Scene, grads: dict) -> Scene:
     return replace_leaves(scene, leaves)
 
 
-from .presets import book_cover_scene, readme_scene, reference_scene  # noqa: E402
+from .presets import (book_cover_scene, flagship_scene,  # noqa: E402
+                      readme_scene, reference_scene)
 from .builder import scene_from_json, scene_to_json  # noqa: E402
 
 __all__ = [
     "Scene", "Camera", "Spheres", "Triangles", "BoundingBoxes", "Sky",
     "camera_frame", "make_rays", "rays_from_frame", "sky_colour",
     "direction_to_uv", "materials", "readme_scene", "reference_scene",
-    "book_cover_scene", "scene_from_numpy", "scene_to_numpy", "get_leaf",
+    "book_cover_scene", "flagship_scene", "scene_from_numpy", "scene_to_numpy", "get_leaf",
     "replace_leaves", "float_leaves", "requiring_grad", "detached",
     "gradient_scene",
     "scene_from_json", "scene_to_json",

@@ -15,7 +15,8 @@
 
 Every field is optional, with the reference's defaults.  Mesh ``i`` is
 gated by bounding box ``i``, the AABB of its transformed vertices
-(``main.cpp:119-120``).  HDR skies wait for the HDR slice (slice 4).
+(``main.cpp:119-120``).  An HDR sky's path is relative to the same base
+directory; ``tonemap`` (default true) applies the reference's tone map.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ def _mat_type(name) -> int:
 
 
 def scene_from_json(source: str, base_dir: str | None = None) -> Scene:
-    """A Scene from a JSON string or the path of a JSON file; mesh paths
-    are relative to base_dir (default: the file's directory, or ".")."""
+    """A Scene from a JSON string or the path of a JSON file; mesh and HDR
+    paths are relative to base_dir (default: the file's directory, or
+    ".")."""
     if os.path.exists(source):
         base_dir = base_dir or os.path.dirname(os.path.abspath(source))
         with open(source) as f:
@@ -74,9 +76,11 @@ def scene_from_json(source: str, base_dir: str | None = None) -> Scene:
     elif kind == "const":
         sky = Sky.constant(sky_spec.get("colour", (1.0, 1.0, 1.0)))
     elif kind == "hdr":
-        raise NotImplementedError(
-            "HDR skies are not ported yet: the HDR slice (slice 4) ports "
-            "the .hdr loader")
+        from ..io.hdr import load_hdr, tone_map
+        img = load_hdr(os.path.join(base_dir, sky_spec["path"]))
+        if sky_spec.get("tonemap", True):
+            img = tone_map(img)
+        sky = Sky.hdr(img)
     else:
         raise ValueError(f"unknown sky kind: {kind}")
 

@@ -6,6 +6,8 @@
   mesh in its gating box hardcoded in ``main.cpp:80-133``.
 - ``book_cover_scene``: the RTiOW random-spheres scene, deterministic in
   its seed.
+- ``flagship_scene``: the reference executable's default render, the
+  reference scene with its mesh and a tone-mapped HDR sky, from assets.
 """
 
 from __future__ import annotations
@@ -105,3 +107,29 @@ def book_cover_scene(n_random: int = 96, seed: int = 3,
         vfov_deg=20.0, aspect_ratio=aspect_ratio,
         focus_dist=10.0, aperture_deg=0.6)
     return _scene(camera, Spheres.from_list(entries))
+
+
+def flagship_scene(aspect_ratio: float = 16.0 / 9.0, obj_path: str = None,
+                   hdr_path: str = None):
+    """The reference executable's default render (``main.cpp:118-150``),
+    assembled from assets: the mesh at ``obj_path`` (the F1 car, which
+    this repository does not bundle; by default the bundled
+    ``assets/torus.obj``) under the reference transform, the 8 spheres,
+    and an HDR sky (``hdr_path``, by default the procedural
+    ``make_sky_image(1024, 512)``: the reference's skybox is a missing LFS
+    blob), tone-mapped (``main.cpp:150``)."""
+    import os
+
+    from ..io.hdr import load_hdr, tone_map
+    from ..io.obj import load_obj
+    from ..io.procgen import make_sky_image
+
+    assets = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
+    if obj_path is None:
+        obj_path = os.path.join(assets, "torus.obj")
+    tris, aabb = load_obj(obj_path, scale=(0.15, 0.15, 0.15),
+                          translate=(0.0, -0.5, -1.0))
+    img = (load_hdr(hdr_path) if hdr_path is not None
+           else make_sky_image(1024, 512))
+    return reference_scene(aspect_ratio=aspect_ratio, mesh_tris=tris,
+                           mesh_aabb=aabb, sky=Sky.hdr(tone_map(img)))

@@ -3,22 +3,24 @@
 ``render`` runs on the card unless the caller asks for the CPU.  On CUDA
 it routes as the JAX package's ``render`` does (``kernel_route``): with
 ``cfg.backend`` "auto" or "pallas", a scene in the mesh megakernel's scope
-(triangles of one material in gating boxes, at most 128 spheres) goes
-through it, a sphere scene in the sphere megakernel's scope through that;
-every other scene, and every scene under another backend, goes through the
-plain tracer below (``render_rows``) on the card, whose triangle hit is
-the closest-triangle kernel from 256 triangles.  An HDR sky raises
-``NotImplementedError`` (slice 4).  Nothing falls back: a kernel that
-fails to build or launch raises.  With ``device="cpu"`` the plain tracer
-renders, the oracle the kernels are held against.
+(triangles of one material in gating boxes, at most 128 spheres; or an
+HDR sky with texels and albedos of at most 1, with or without triangles)
+goes through it, a sphere scene in the sphere megakernel's scope through
+that; every other scene, and every scene under another backend, goes
+through the plain tracer below (``render_rows``) on the card, whose
+triangle hit is the closest-triangle kernel from 256 triangles.  Nothing
+falls back: a kernel that fails to build or launch raises.  With
+``device="cpu"`` the plain tracer renders, the oracle the kernels are
+held against.
 
 Gradients: ``render_and_grad`` is autograd of the plain per-sample tracer;
 ``render_grad_sampled`` is the full-size gradient, through the forward and
-backward kernels on the card ("kernel": the sphere kernels, or for a mesh
-scene the mesh megakernel and the mesh backward kernel) or through
-autograd of the plain wavefront tracer in pixel and sample chunks ("plain",
-the CPU's route).  On the card a kernel that fails to build or launch
-raises; nothing falls back.
+backward kernels on the card ("kernel": the sphere kernels; for a mesh
+scene the mesh megakernel and the mesh backward kernel; for an HDR scene
+the HDR passes, the JAX package's fused pipeline) or through autograd of
+the plain wavefront tracer in pixel and sample chunks ("plain", the CPU's
+route).  On the card a kernel that fails to build or launch raises;
+nothing falls back.
 
 Pixel conventions are the reference kernel's (``gpu_kernel.cl:626-627``):
 u = (col + jitter)/W, v = (row + jitter)/H with row 0 at the image
@@ -119,14 +121,11 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
 
 def kernel_route(scene: Scene, cfg: RenderConfig) -> str | None:
     """The kernel ``render`` takes on the card: "megamesh", "megakernel",
-    or None for the plain tracer.  Raises ``NotImplementedError`` for an
-    HDR sky."""
+    or None for the plain tracer.  An HDR scene takes the mesh
+    megakernel's HDR body when it is in its scope (``supports_mesh``), as
+    in the JAX package, and the plain tracer otherwise."""
     from ..kernels.megakernel import supports
     from ..kernels.megamesh import supports_mesh
-    if scene.sky.kind == KIND_HDR:
-        raise NotImplementedError(
-            "HDR skies are not ported yet: the HDR slice (slice 4) ports "
-            "them")
     if cfg.backend in ("auto", "pallas"):
         if supports_mesh(scene, cfg):
             return "megamesh"
@@ -223,44 +222,56 @@ def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
         leaves in the same chunks, with the winner-only hit whose triangle
         search ``winner_backend`` picks (``diffhit.make_grad_hit_fn``:
         "auto" is the closest-triangle kernel on CUDA).
-    "auto" is "kernel" on CUDA and "plain" on the CPU; on CUDA a mesh
-    scene outside the kernels' scope takes "plain".
+    HDR scenes, with or without triangles:
+      - "kernel": ``kernels.megagrad.render_grad_hdr_fused``, the HDR
+        emit pass (K6), the texels' lookup, the image rebuilt from them,
+        and the consume pass (K7) with the texels' scatter into
+        ``sky.image``; no forward render runs.  For scenes in their scope
+        (``supports_grad_hdr``: texels and albedos at most 1);
+      - "plain": as for mesh scenes.
+    "auto" is "kernel" on CUDA and "plain" on the CPU; on CUDA a mesh or
+    HDR scene outside the kernels' scope takes "plain".
 
     The gradient treats a NaN sample with the order-invariant "zero"
-    policy on every backend; the image keeps cfg.nan_policy.  A scene
-    outside the backend's scope (and any HDR sky) raises
-    ``NotImplementedError`` naming the reason, before anything moves to
-    the device, and on CUDA a kernel failure raises."""
-    from ..kernels.megagrad import (render_mesh_differentiable,
+    policy on every backend; the image keeps cfg.nan_policy, but for the
+    HDR kernel route's, which is rebuilt under "zero".  A scene outside
+    the backend's scope raises ``NotImplementedError`` naming the reason,
+    before anything moves to the device, and on CUDA a kernel failure
+    raises."""
+    from ..kernels.megagrad import (render_grad_hdr_fused,
+                                    render_mesh_differentiable,
                                     render_tables_differentiable,
+                                    unsupported_grad_hdr_reason,
                                     unsupported_grad_mesh_reason,
                                     unsupported_grad_reason)
     from ..kernels.megakernel import unsupported_reason
-    if scene.sky.kind == KIND_HDR:
-        raise NotImplementedError(
-            "HDR skies are not ported yet: the HDR slice (slice 4) ports "
-            "them")
     device = resolve_device(device)
+    hdr = scene.sky.kind == KIND_HDR
     mesh = scene.triangles.count > 0
+    # the kernel route's scope: the HDR passes', K5's, or K1's
+    kernel_reason = (unsupported_grad_hdr_reason(scene) if hdr
+                     else unsupported_grad_mesh_reason(scene) if mesh
+                     else unsupported_reason(scene))
     if grad_backend == "auto":
-        in_scope = not mesh or unsupported_grad_mesh_reason(scene) is None
+        in_scope = not (hdr or mesh) or kernel_reason is None
         grad_backend = ("kernel" if device.type == "cuda" and in_scope
                         else "plain")
     rows = row_chunk or max(1, 2**17 // cfg.width)
     if grad_backend == "kernel":
         chunks = None
-        reason = (unsupported_grad_mesh_reason(scene) if mesh
-                  else unsupported_reason(scene))
+        reason = kernel_reason
     elif grad_backend == "plain":
         chunks = (rows * cfg.width, spp_chunk)
-        reason = None if mesh else unsupported_grad_reason(scene)
+        reason = None if hdr or mesh else unsupported_grad_reason(scene)
     else:
         raise ValueError(f"unknown grad_backend: {grad_backend}")
     if reason is not None:
         raise NotImplementedError(reason)
-    if mesh and grad_backend == "plain":
-        return _mesh_grad_plain(scene, cfg, loss_fn, seed, chunks,
-                                winner_backend, device)
+    if (hdr or mesh) and grad_backend == "plain":
+        return _grad_plain(scene, cfg, loss_fn, seed, chunks, winner_backend,
+                           device)
+    if hdr:
+        return render_grad_hdr_fused(scene.to(device), cfg, loss_fn, seed)
     s = requiring_grad(scene.to(device))
     if mesh:
         img = render_mesh_differentiable(s, cfg, seed)
@@ -274,9 +285,9 @@ def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
             gradient_scene(s, dict(zip(leaves, grads))))
 
 
-def _mesh_grad_plain(scene: Scene, cfg: RenderConfig, loss_fn, seed: int,
-                     chunks, winner_backend: str, device):
-    """render_grad_sampled's "plain" route for a mesh scene (the JAX
+def _grad_plain(scene: Scene, cfg: RenderConfig, loss_fn, seed: int, chunks,
+                winner_backend: str, device):
+    """render_grad_sampled's "plain" route for a mesh or HDR scene (the JAX
     package's jnp route): the image through ``render()``, then autograd of
     the plain wavefront over (pixels, samples) chunks of ``chunks``."""
     img = render(scene, cfg, seed, device=device)

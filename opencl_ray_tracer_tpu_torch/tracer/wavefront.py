@@ -23,7 +23,7 @@ from .scatter import scatter
 
 def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                           sample_offset, n_samples, frame=None,
-                          bounces=None, hit_fn=None):
+                          bounces=None, hit_fn=None, miss_fn=None):
     """Radiance sum over n_samples samples per pixel, (R,3); divide by
     n_samples for the mean.  rows/cols/pixel_ids: (R,) int64.
 
@@ -31,6 +31,10 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
     when None.  bounces: an optional int64 tensor of one element to which
     the number of ray bounces traced (the active rays of every iteration)
     is added.  hit_fn(o, d) -> HitInfo replaces ``closest_hit``.
+    miss_fn(d, sample, throughput, miss) -> (R,3) replaces the sky's
+    radiance ``sky_colour(scene.sky, d)``: the HDR passes' plain versions
+    record the misses (miss: the rays that miss now, sample: each ray's
+    sample id) or read given sky values there.
 
     The loop is differentiable as it stands: autograd records the
     iterations that ran, so no fixed trip count is needed.
@@ -74,7 +78,8 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
         cont = would_cont & ~(depth + 1 >= cfg.max_depth)
         term = active & ~cont
 
-        sky = sky_colour(scene.sky, d)
+        sky = (miss_fn(d, sample, throughput, miss_now)
+               if miss_fn is not None else sky_colour(scene.sky, d))
         c = torch.where(miss_now[:, None], throughput * sky,
                         torch.where(emit_now[:, None],
                                     throughput * h.albedo, zero))

@@ -503,3 +503,125 @@ def test_failing_mesh_grad_launch_raises(cuda, monkeypatch):
                                ot.RenderConfig(width=8, height=4, spp=1,
                                                max_depth=2),
                                lambda im: im.mean())
+
+
+def hdr_scenes():
+    """The HDR cases: tests/test_megamesh.py's mesh scene and the README
+    spheres under its tone-mapped procedural sky."""
+    from opencl_ray_tracer_tpu_torch.io.hdr import tone_map
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_sky_image
+    sky = ot.Sky.hdr(tone_map(make_sky_image(64, 32)))
+    return {"mesh": dataclasses.replace(mesh_scenes()["mesh"], sky=sky),
+            "readme": dataclasses.replace(ot.readme_scene(), sky=sky)}
+
+
+@pytest.mark.gpu
+def test_hdr_texels_match_plain_on_card(cuda):
+    """The kernels' HDR lookup and the plain version's pick the same texel
+    of a 1024x512 image on 2^20 directions."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.scene.sky import texel_index
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    d = torch.randn((2**20, 3), generator=gen, device=cuda)
+    y, x = texel_index(torch.zeros((512, 1024, 3), device=cuda), d)
+    assert torch.equal(mm.hdr_texels(d, 1024, 512), y * 1024 + x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(hdr_scenes()))
+def test_hdr_forward_matches_plain_on_card(cuda, case):
+    """K2's HDR body against its plain version on the same inputs, and
+    render() through it."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = hdr_scenes()[case]
+    cfg = ot.RenderConfig(width=48, height=32, spp=4, max_depth=6)
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, cuda)
+    args = (cam, sph, n, tab, cfg, scene.sky.kind, flags, 5,
+            cfg.width * cfg.height)
+    k = torch.stack(mm.render_mesh(*args, sky_image=image), -1)
+    p = torch.stack(mm.render_mesh_plain(*args, sky_image=image), -1)
+    diff = (k - p).abs()
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99
+    before = mm.LAUNCHES
+    img = ot.render(scene, cfg, seed=5)
+    assert mm.LAUNCHES == before + 1
+    assert torch.equal(img.reshape(-1, 3), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(hdr_scenes()))
+def test_hdr_passes_match_plain_on_card(cuda, case):
+    """K6 against hdr_emit_plain, K7 against hdr_consume_plain on the same
+    sky values and image cotangent, and the fused route's leaves against
+    the plain route's."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = hdr_scenes()[case]
+    cfg = ot.RenderConfig(width=40, height=24, spp=3, max_depth=5,
+                          nan_policy="zero")
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, cuda)
+    n_pix = cfg.width * cfg.height
+    emit, emis = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 2, n_pix)
+    pemit, pemis = mg.hdr_emit_plain(cam, sph, n, tab, cfg, flags, 2, n_pix)
+    same = ((emit - pemit).abs().amax(0) <= 1e-6).float().mean()
+    assert same >= 0.999
+    assert float((emis - pemis).abs().max()) <= 1e-6
+    sky, _ = mg.hdr_lookup(image, emit)
+    img = mg.hdr_image(emit, emis, sky, cfg)
+    g = ((2.0 / img.numel() / cfg.spp) * img).contiguous()
+    k = mg.hdr_consume(cam, sph, n, tab, cfg, flags, g[0], g[1], g[2], sky,
+                       2, n_pix)
+    p = mg.hdr_consume_plain(cam, sph, n, tab, cfg, flags, g[0], g[1], g[2],
+                             sky, 2, n_pix)
+    rows = [mk.F_ALR, mk.F_ALG, mk.F_ALB]
+    assert float((k[1][rows] - p[1][rows]).abs().max()) <= 1e-4 * float(
+        p[1][rows].abs().max())
+    counts = (mg.EMIT_LAUNCHES, mg.CONSUME_LAUNCHES, mm.LAUNCHES)
+    loss, _, grads = ot.render_grad_sampled(
+        scene, cfg, lambda im: torch.mean(im ** 2), seed=2)
+    assert (mg.EMIT_LAUNCHES, mg.CONSUME_LAUNCHES, mm.LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    ploss, _, pgrads = ot.render_grad_sampled(
+        scene, cfg, lambda im: torch.mean(im ** 2), seed=2,
+        grad_backend="plain")
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * float(ploss)
+    a, b = scene_to_numpy(grads), scene_to_numpy(pgrads)
+    for key in ("spheres.albedo", "sky.image"):
+        assert np.abs(b[key]).max() > 0
+        assert (np.abs(a[key] - b[key]).max()
+                <= 5e-3 * np.abs(b[key]).max()), key
+
+
+@pytest.mark.gpu
+def test_hdr_render_and_grad_on_card(cuda):
+    """render_and_grad under an HDR sky on the card (autograd of the plain
+    per-sample tracer there) against the same on the CPU."""
+    scene = hdr_scenes()["mesh"]
+    cfg = ot.RenderConfig(width=24, height=16, spp=2, max_depth=4,
+                          nan_policy="zero")
+    loss, grads = ot.render_and_grad(scene, cfg,
+                                     lambda im: torch.mean(im ** 2), seed=2)
+    closs, cgrads = ot.render_and_grad(scene, cfg,
+                                       lambda im: torch.mean(im ** 2),
+                                       seed=2, device="cpu")
+    assert grads.sky.image.device.type == "cuda"
+    assert abs(float(loss) - float(closs)) <= 1e-4 * float(closs)
+    a, b = scene_to_numpy(grads), scene_to_numpy(cgrads)
+    for key in ("spheres.albedo", "sky.image"):
+        assert np.abs(b[key]).max() > 0
+        assert (np.abs(a[key] - b[key]).max()
+                <= 5e-3 * np.abs(b[key]).max()), key
+
+
+@pytest.mark.gpu
+def test_failing_hdr_launch_raises(cuda, monkeypatch):
+    class Failing:
+        def hdr_emit_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(mg, "_library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ot.render_grad_sampled(hdr_scenes()["readme"],
+                               ot.RenderConfig(width=8, height=4, spp=1,
+                                               max_depth=2),
+                               lambda im: im.mean())

@@ -111,10 +111,15 @@ def test_render_needs_cuda_by_default(monkeypatch):
 def test_unsupported_scenes_raise_on_cuda():
     from opencl_ray_tracer_tpu_torch.tracer.render import kernel_route
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
+    # an HDR sky never takes the sphere megakernel: texels at most 1 take
+    # the mesh megakernel's HDR body, brighter ones the plain tracer
     hdr = dataclasses.replace(ot.readme_scene(),
                               sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
-    with pytest.raises(NotImplementedError, match="HDR slice"):
-        ot.render(hdr, cfg, device="cuda")
+    assert "HDR body" in mk.unsupported_reason(hdr)
+    assert kernel_route(hdr, cfg) == "megamesh"
+    bright = dataclasses.replace(
+        hdr, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
+    assert kernel_route(bright, cfg) is None
     # more spheres than the kernel takes: the plain tracer on the card, as
     # the JAX package's render() takes its jnp tracer
     many = ot.book_cover_scene(n_random=200)

@@ -126,9 +126,21 @@ def test_scene_from_json_matches_jax(case):
 
 
 def test_scene_json_hdr_sky_raises():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """An HDR sky loads, tone-mapped by default (tests/test_torch_hdr_io.py
+    holds it against the JAX package); a missing file raises."""
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets")
+    scene = ot.scene_from_json(json.dumps({"sky": {"kind": "hdr",
+                                                   "path": "sky.hdr"}}),
+                               assets)
+    assert scene.sky.kind == ot.scene.sky.KIND_HDR
+    assert tuple(scene.sky.image.shape) == (128, 256, 3)
+    assert 0.0 <= float(scene.sky.image.min()) <= float(
+        scene.sky.image.max()) <= 1.0
+    with pytest.raises(FileNotFoundError):
         ot.scene_from_json(json.dumps({"sky": {"kind": "hdr",
-                                               "path": "sky.hdr"}}))
+                                               "path": "missing.hdr"}}),
+                           assets)
 
 
 @pytest.mark.parametrize("name", ["readme_scene", "reference_scene"])

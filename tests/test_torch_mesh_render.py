@@ -13,8 +13,9 @@
   package's (``supports_mesh`` on the cases of test_megamesh.py:76-92
   without an HDR sky, ``specialize_mesh_flags``, the camera table).
 - Routing: on the card ``render`` sends such scenes to the mesh
-  megakernel; the gradient entry points refuse an HDR sky (slice 4) and,
-  on the kernel route, a mesh of more than one material.
+  megakernel; the gradient entry points' kernel routes refuse an HDR sky
+  brighter than 1, the fit of a sky leaf other than its image, and a mesh
+  of more than one material.
 
 The CUDA kernel against its plain version is in test_torch_kernels_gpu.py.
 """
@@ -150,9 +151,14 @@ def test_scope_needs_one_material_and_a_box():
         boxes=ot.BoundingBoxes(scene.boxes.box_min.expand(40, 3),
                                scene.boxes.box_max.expand(40, 3)))
     assert kernel_route(many, cfg) == "megamesh"
+    # an HDR sky: the mesh megakernel's HDR body for texels at most 1, the
+    # plain tracer for brighter ones
     hdr = dataclasses.replace(scene, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ot.render(hdr, cfg, device="cuda")
+    assert kernel_route(hdr, cfg) == "megamesh"
+    bright = dataclasses.replace(
+        scene, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
+    assert kernel_route(bright, cfg) is None
+    assert "at most 1" in mm.unsupported_mesh_reason(bright)
 
 
 @pytest.mark.parametrize("material", ["metal", "dielectric", "emissive"])
@@ -201,20 +207,25 @@ def test_mesh_inputs_are_cached_by_content():
 
 
 def test_gradients_refuse_mesh_scenes():
-    """Mesh gradients are ported (tests/test_torch_mesh_grad.py); an HDR
-    sky still refuses, naming slice 4, and an explicit "kernel" route
-    refuses a mesh of more than one material, before anything moves to the
-    card (this machine has none)."""
-    scene = _mesh_scene(ot, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
+    """Mesh and HDR gradients are ported (tests/test_torch_mesh_grad.py,
+    tests/test_torch_hdr_grad.py); an explicit "kernel" route refuses an
+    HDR sky brighter than 1, naming the bound, the fit of a sky leaf the
+    HDR kernels do not take, and a mesh of more than one material, before
+    anything moves to the card (this machine has none)."""
+    scene = _mesh_scene(ot, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="at most 1"):
         ot.render_grad_sampled(scene, cfg, lambda im: im.mean(),
-                               device="cuda")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ot.fit_scene(torch.zeros((4, 8, 3)), scene, cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+                               grad_backend="kernel", device="cuda")
+    with pytest.raises(NotImplementedError, match="at most 1"):
         ot.fit_scene(torch.zeros((4, 8, 3)), scene, cfg,
-                     grad_backend="plain", device="cuda")
+                     param_paths=("sky.image",), grad_backend="kernel",
+                     device="cuda")
+    dim = _mesh_scene(ot, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
+    with pytest.raises(NotImplementedError, match="sky.const_colour"):
+        ot.fit_scene(torch.zeros((4, 8, 3)), dim, cfg,
+                     param_paths=("sky.const_colour",),
+                     grad_backend="kernel", device="cuda")
     mixed = _mesh_scene(ot)
     t = mixed.triangles
     mixed = dataclasses.replace(mixed, triangles=dataclasses.replace(

@@ -1,10 +1,12 @@
 """The port's scene layer against the JAX package's: presets carried across
 by ``scene_from_numpy`` equal the port's own exactly; camera frames, rays
-and skies agree to 1e-6 (f32 tan/sin/cos/sqrt differ by a few ulp between
-XLA and ATen); RenderConfig JSON loads on both sides."""
+and the gradient and constant skies agree to 1e-6 (f32 tan/sin/cos/sqrt
+differ by a few ulp between XLA and ATen), the HDR lookup exactly;
+RenderConfig JSON loads on both sides."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,9 +75,23 @@ def test_aperture_jitters_origin():
     assert float(o.std(dim=0).max()) > 1e-3
 
 
-@pytest.mark.parametrize("kind", ["gradient", "constant"])
+@pytest.mark.parametrize("kind", ["gradient", "constant", "hdr"])
 def test_sky_colour_matches(kind):
     d = np.random.default_rng(3).normal(size=(3000, 3)).astype(np.float32)
+    if kind == "hdr":
+        # the lookup takes XLA's forms (scene/sky.py): under jax.jit, u, v
+        # and the texels of a 1024x512 image agree exactly
+        img = np.random.default_rng(4).uniform(
+            size=(512, 1024, 3)).astype(np.float32)
+        ju, jv = jax.jit(jsky.direction_to_uv)(jnp.asarray(d))
+        tu, tv = tsky.direction_to_uv(torch.tensor(d))
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        want = np.asarray(jax.jit(lambda x: jsky.sky_colour(
+            jsky.Sky.hdr(img), x))(jnp.asarray(d)))
+        got = tsky.sky_colour(tsky.Sky.hdr(img), torch.tensor(d)).numpy()
+        np.testing.assert_array_equal(got, want)
+        return
     if kind == "gradient":
         js, ts = jsky.Sky.gradient(), tsky.Sky.gradient()
     else:

@@ -6,13 +6,18 @@ adds, a warp's sums as the one lane's value, and the launchers cut off.
 It then runs the kernel as one thread per block over the pixels of a small
 image, and holds the cotangents it returns against the plain version's
 (``render_grad_mesh_tables_plain`` for the mesh variant, K5;
-``render_grad_tables_plain`` for the sphere variant, K4), per table block
-and per scene leaf after the chain to the scene, as max|a - b| / max|b|.
-No card and no nvcc are needed: this checks the hand-derived adjoints
-before a kernel's first run on the card.  The cases are chip_smoke.py's
-mesh cases on a 192-triangle torus (the reference mesh material, a
-Lambertian mesh, a metal mesh under a constant sky, no spheres, a
-dielectric, an emitter, 40 gating boxes) and two sphere scenes.
+``render_grad_tables_plain`` for the sphere variant, K4;
+``hdr_consume_plain`` for the HDR consume pass, K7), per table block and
+per scene leaf after the chain to the scene, as max|a - b| / max|b|; the
+HDR emit pass (K6) against ``hdr_emit_plain``, as the share of samples
+whose direction and throughput agree to 1e-6 and the largest difference
+of the non-sky sums.  No card and no nvcc are needed: this checks the
+hand-derived adjoints before a kernel's first run on the card.  The cases
+are chip_smoke.py's mesh cases on a 192-triangle torus (the reference
+mesh material, a Lambertian mesh, a metal mesh under a constant sky, no
+spheres, a dielectric, an emitter, 40 gating boxes), two sphere scenes,
+and under an HDR sky the reference mesh, the README spheres and an
+emissive sphere.
 
     python tools/host_megagrad_check.py [--size 48x27x2/d6] [case ...]
 """
@@ -35,7 +40,9 @@ sys.path.insert(0, str(HERE.parent))
 
 import opencl_ray_tracer_tpu_torch as ot  # noqa: E402
 from opencl_ray_tracer_tpu_torch.io import parse_obj  # noqa: E402
-from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj  # noqa: E402
+from opencl_ray_tracer_tpu_torch.io.hdr import tone_map  # noqa: E402
+from opencl_ray_tracer_tpu_torch.io.procgen import (  # noqa: E402
+    make_sky_image, make_torus_obj)
 from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg  # noqa: E402
 from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
 from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm  # noqa: E402
@@ -43,6 +50,8 @@ from opencl_ray_tracer_tpu_torch.scene import materials as mat  # noqa: E402
 from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy  # noqa: E402
 
 CSRC = HERE.parent / "opencl_ray_tracer_tpu_torch" / "kernels" / "csrc"
+# the HDR cases' sky: tests/test_megamesh.py's tone-mapped procedural sky
+SKY = tone_map(make_sky_image(64, 32))
 SHIM = r'''
 #pragma once
 #include <math.h>
@@ -70,7 +79,8 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 '''
 # Reads the tables from the working directory, runs every pixel as its own
 # block of one thread, and writes gcam (22), gsph (16 x tab_w), gtri
-# (10 x t_pad) and the four counts.
+# (10 x t_pad) and the four counts; in the emit mode (K6) the emit rows
+# (6 x spp x n_pix), the non-sky sums (3 x n_pix) and the four counts.
 DRIVER = r'''
 #include <vector>
 static std::vector<char> rd(const char* f) {
@@ -81,6 +91,7 @@ static std::vector<char> rd(const char* f) {
 int main(int argc, char** argv) {
   if (argc != 16) return 2;
   int a = 1;
+  // mesh: 0 sphere variant, 1 mesh variant, 2 K6, 3 K7
   const int mesh = atoi(argv[a++]), ns = atoi(argv[a++]);
   const int tab_w = atoi(argv[a++]), t_pad = atoi(argv[a++]);
   const int n_chunks = atoi(argv[a++]), n_boxes = atoi(argv[a++]);
@@ -92,8 +103,13 @@ int main(int argc, char** argv) {
   const int flags = atoi(argv[a++]);
   auto cam = rd("cam.bin"), sph = rd("sph.bin"), g = rd("g.bin");
   std::vector<char> tri, cl, sub, cb, bx;
-  if (mesh) { tri = rd("tri.bin"); cl = rd("cluster.bin"); sub = rd("sub.bin");
-              cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); }
+  if (mesh && t_pad > 0) {
+    tri = rd("tri.bin"); cl = rd("cluster.bin"); sub = rd("sub.bin");
+    cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); }
+  std::vector<char> sky_rows;
+  if (mesh == 3) sky_rows = rd("sky_rows.bin");
+  std::vector<float> emit((size_t)6 * n_samples * n_pix, -7.f);
+  std::vector<float> emis((size_t)3 * n_pix, -7.f);
   const float* gp = (const float*)g.data();
   std::vector<float> cam_part((size_t)n_pix * 22, 0.f), gsph(16 * tab_w, 0.f);
   std::vector<float> gtri(10 * (t_pad > 0 ? t_pad : 1), 0.f);
@@ -114,9 +130,21 @@ int main(int argc, char** argv) {
                       (const float*)bx.data(), n_boxes};
     p.mesh_type = mesh_type; p.gtri = gtri.data();
   }
+  p.emit = emit.data(); p.emis = emis.data();
+  p.sky_rows = mesh == 3 ? (const float*)sky_rows.data() : nullptr;
   for (int b = 0; b < n_pix; ++b) {
     blockIdx.x = b;
-    if (mesh) megagrad<true>(p); else megagrad<false>(p);
+    if (mesh == 0) megagrad<false, kSkyComputed>(p);
+    else if (mesh == 1) megagrad<true, kSkyComputed>(p);
+    else if (mesh == 2) megagrad<true, kSkyEmit>(p);
+    else megagrad<true, kSkyConsume>(p);
+  }
+  if (mesh == 2) {
+    FILE* fp = fopen("out.bin", "wb");
+    fwrite(emit.data(), 4, emit.size(), fp);
+    fwrite(emis.data(), 4, emis.size(), fp); fwrite(counts, 8, 4, fp);
+    fclose(fp);
+    return 0;
   }
   std::vector<float> gcam(22, 0.f);
   for (int b = 0; b < n_pix; ++b)
@@ -189,7 +217,95 @@ def cases():
         "mesh_40_boxes": split_boxes(torus(**lamb)),
         "readme_spheres": ot.readme_scene(),
         "reference_spheres": ot.reference_scene(),
+        "hdr_mesh": torus(sky=ot.Sky.hdr(SKY)),
+        "hdr_readme_spheres": dataclasses.replace(ot.readme_scene(),
+                                                  sky=ot.Sky.hdr(SKY)),
+        "hdr_emissive_sphere": dataclasses.replace(ot.reference_scene(),
+                                                   sky=ot.Sky.hdr(SKY)),
     }
+
+
+def _write(work, arrays: dict) -> None:
+    for name, arr in arrays.items():
+        arr.contiguous().numpy().tofile(work / f"{name}.bin")
+
+
+def _run(exe, work, mode, n, sph, dims, n_pix, seed, cfg, bits):
+    subprocess.run([str(exe), str(mode), str(n), str(sph.shape[1]),
+                    *map(str, dims), str(n_pix), str(seed), str(cfg.spp),
+                    str(cfg.width), str(cfg.height), str(cfg.max_depth),
+                    str(cfg.t_min), str(bits)], check=True, cwd=work)
+    return np.fromfile(work / "out.bin", dtype=np.float32)
+
+
+def check_hdr(exe, work, scene, cfg, seed=7):
+    """K6 and K7 as host code against their plain versions: (emit
+    agreement, per-block errors, per-leaf errors, K7's counts)."""
+    n, n_pix, spp = scene.spheres.count, cfg.width * cfg.height, cfg.spp
+    cam, sph, _, tab, flags, image = mm.mesh_inputs(scene, "cpu")
+    arrays = {"cam": cam, "sph": sph}
+    if tab.tri.shape[1]:
+        arrays.update(tri=tab.tri, cluster=tab.cluster, sub=tab.sub,
+                      chunk_box=tab.chunk_box, boxes=tab.boxes)
+    dims = (tab.tri.shape[1], tab.chunk_box.shape[0], tab.boxes.shape[0],
+            int(flags[5]))
+    bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
+    # K6
+    _write(work, {**arrays, "g": torch.zeros(3, n_pix)})
+    out = _run(exe, work, 2, n, sph, dims, n_pix, seed, cfg, bits)
+    m = 6 * spp * n_pix
+    k_emit = torch.from_numpy(out[:m].reshape(6, spp, n_pix).copy())
+    k_emis = torch.from_numpy(out[m:m + 3 * n_pix].reshape(3, n_pix).copy())
+    p_emit, p_emis = mg.hdr_emit_plain(cam, sph, n, tab, cfg, flags, seed,
+                                       n_pix)
+    same = ((k_emit - p_emit).abs().amax(0) <= 1e-6).float().mean()
+    dev = (k_emit - p_emit).abs().amax(0)
+    emit = {"samples_agree": float(same),
+            "within_1e-4": float((dev <= 1e-4).float().mean()),
+            "max_dev": float(dev.max()),
+            "emis_max_abs": float((k_emis - p_emis).abs().max())}
+    # K7 on the plain emit's sky values and the image's cotangent
+    sky, _ = mg.hdr_lookup(image, p_emit)
+    img = mg.hdr_image(p_emit, p_emis, sky, cfg)
+    g = ((2.0 / img.numel() / spp) * img).contiguous()
+    _write(work, {**arrays, "g": g, "sky_rows": sky})
+    out = _run(exe, work, 3, n, sph, dims, n_pix, seed, cfg, bits)
+    return emit, *_compare_mesh(out, cam, sph, n, tab, scene, g, sky, cfg,
+                                flags, seed, n_pix)
+
+
+def _compare_mesh(out, cam, sph, n, tab, scene, g, sky, cfg, flags, seed,
+                  n_pix):
+    w, t_pad = sph.shape[1], max(tab.tri.shape[1], 1)
+    kcam = torch.zeros_like(cam)
+    kcam[0, :22] = torch.from_numpy(out[:22].copy())
+    ksph = torch.from_numpy(out[22:22 + 16 * w].reshape(16, w).copy())
+    ktri = torch.from_numpy(out[22 + 16 * w:22 + 16 * w + 10 * t_pad]
+                            .reshape(10, t_pad).copy())
+    counts = np.frombuffer(out[-8:].tobytes(), dtype=np.uint64).tolist()
+    pcam, psph, ptri = mg.hdr_consume_plain(cam, sph, n, tab, cfg, flags,
+                                            g[0], g[1], g[2], sky, seed,
+                                            n_pix)
+    blocks = {"gcam": rel(kcam, pcam)}
+    rows = [mk.F_CX, mk.F_CY, mk.F_CZ, mk.F_ALR, mk.F_ALG, mk.F_ALB,
+            mk.F_FUZZ]
+    if n and float(psph[rows].abs().max()) > 0:
+        blocks["gsph"] = rel(ksph[rows], psph[rows])
+    got = mg.table_grads_to_scene(scene, kcam, ksph)
+    want = mg.table_grads_to_scene(scene, pcam, psph)
+    if tab.tri.shape[1]:
+        ior = tab.feats.ior.clamp(min=1e-8)
+        folded = ktri.clone()
+        folded[8] = ktri[8] - ktri[9] / (ior * ior)
+        folded[9] = 0.0
+        blocks["gtri_4_9"] = rel(folded[4:], ptri[4:])
+        got = mg.tri_grads_to_scene(scene, tab.plan, ktri, got)
+        want = mg.tri_grads_to_scene(scene, tab.plan, ptri, want)
+    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    leaves = {k: float(np.abs(a[k] - b[k]).max()
+                       / max(np.abs(b[k]).max(), 1e-9))
+              for k in b if b[k].size and np.abs(b[k]).max() > 0}
+    return blocks, leaves, counts
 
 
 def rel(a, b) -> float:
@@ -280,7 +396,12 @@ def main() -> None:
         for name, scene in cases().items():
             if args.case and name not in args.case:
                 continue
-            blocks, leaves, counts = check(exe, work, scene, cfg)
+            if scene.sky.kind == ot.scene.sky.KIND_HDR:
+                emit, blocks, leaves, counts = check_hdr(exe, work, scene,
+                                                         cfg)
+                print(name, "emit", emit)
+            else:
+                blocks, leaves, counts = check(exe, work, scene, cfg)
             print(name, "counts", counts)
             print("  blocks", {k: f"{v:.1e}" for k, v in blocks.items()})
             print("  leaves", {k: f"{v:.1e}" for k, v in leaves.items()})
