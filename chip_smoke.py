@@ -103,15 +103,18 @@ Phases, each printing JSON lines on standard output:
    sky (no triangles) and on both flagship scenes (``flagship_scene``:
    the reference scene with the 576-triangle torus, and with the
    15,360-triangle procedural torus as its obj_path, under the
-   tone-mapped procedural 1024x512 sky); the forward tolerance of phase 8.
+   tone-mapped procedural 1024x512 sky); then at the main path's size
+   and seed (``REFERENCE_DEFAULTS``, 1280x720x5/d32) with 576 triangles;
+   the forward tolerance of phase 8.
 19. hdr_grad_parity: the HDR emit pass (K6) against its plain version
    (directions and throughputs within 1e-6 on at least 99.99% of the
    samples, non-sky sums within 1e-6), and the fused gradient through K6
    and K7 against the same steps through their plain versions, per leaf
    (max|a - b| / max|b|: albedo 5e-3, vertices 5e-4, sky image 5e-3 with
    more than 99.9% of texels within 1e-6), at 160x90, 4 spp, depth 6, on
-   the scenes of phase 18; each pass and its plain version timed alone
-   on the 576-triangle scene.
+   the scenes of phase 18, and at the main path's depth and samples on
+   320x180 (5 spp, depth 32) on both flagship scenes; then each pass and
+   its plain version timed alone there on the 576-triangle scene.
 20. hdr_main_path: ``render()`` and ``render_grad_sampled()`` of both
    flagship scenes at ``REFERENCE_DEFAULTS``, one warm-up and the minimum
    of 3 each, counts set to 0 just before and read just after (the
@@ -1131,6 +1134,25 @@ def hdr_phases(dev) -> list:
         if not torch.isfinite(k).all():
             fail(f"hdr_parity {name}: kernel output is not finite")
         check_close(f"hdr_parity {name}", stats)
+    # at the main path's size and seed, on the 576-triangle scene (the
+    # plain version's fold over 15,360 triangles would take minutes there)
+    ref = ot.REFERENCE_DEFAULTS
+    scene = flagship["torus_576"]
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+    args = (cam, sph, n, tab, ref, scene.sky.kind, flags, 0,
+            ref.width * ref.height)
+    k = torch.stack(mm.render_mesh(*args, sky_image=image), -1)
+    t_plain, p = timed(lambda: torch.stack(mm.render_mesh_plain(
+        *args, sky_image=image), -1), reps=1)
+    stats = compare(k, p)
+    k2_full = dict(stats, plain_ms=1e3 * t_plain)
+    emit({"phase": "hdr_parity", "case": "torus_576",
+          "size": "1280x720x5/d32", **k2_full})
+    if not torch.isfinite(k).all():
+        fail("hdr_parity torus_576 at 1280x720x5/d32: kernel output is not "
+             "finite")
+    check_close("hdr_parity torus_576 at 1280x720x5/d32", stats)
+    del k, p
 
     # ---- 19. hdr_grad_parity: K6 against hdr_emit_plain, and the fused
     # route through K6 and K7 against the same route through their plain
@@ -1166,14 +1188,16 @@ def hdr_phases(dev) -> list:
     grad_tol = {"spheres.albedo": 5e-3, "triangles.p0": 5e-4,
                 "triangles.p1": 5e-4, "triangles.p2": 5e-4,
                 "triangles.albedo": 5e-3, "sky.image": 5e-3}
-    k67_parity = {}
-    for name, scene in (("readme_hdr_0_triangles", readme_hdr),
-                        *flagship.items()):
-        kg, kimg, (kemit, kemis), (planes, sky) = fused(
-            scene, gcfg, mg.hdr_emit, mg.hdr_consume)
+
+    def grad_parity(name, scene, cfg, size):
+        """K6 against its plain version, and the fused route through K6
+        and K7 against the same route through their plain versions, per
+        leaf, under the tolerances above; fails on a disagreement."""
+        kg, kimg, (kemit, kemis), _ = fused(scene, cfg, mg.hdr_emit,
+                                            mg.hdr_consume)
         torch.cuda.synchronize()
         t_plain, (pg, pimg, (pemit, pemis), _) = timed(
-            lambda: fused(scene, gcfg, mg.hdr_emit_plain,
+            lambda: fused(scene, cfg, mg.hdr_emit_plain,
                           mg.hdr_consume_plain), reps=1)
         dev_ = (kemit - pemit).abs().amax(0)
         samples_equal = float((dev_ <= 1e-6).float().mean())
@@ -1184,34 +1208,48 @@ def hdr_phases(dev) -> list:
                for k in grad_tol if b[k].size and np.abs(b[k]).max() > 0}
         sky_within = float((np.abs(a["sky.image"] - b["sky.image"])
                             <= 1e-6).mean())
-        k67_parity[name] = dict(
+        out = dict(
             samples_equal=samples_equal, emis_max_abs_err=emis_err,
             rel_err=rel, sky_texels_within_1e6=sky_within,
             image=compare(kimg, pimg), fused_plain_ms=1e3 * t_plain,
             max_abs_err=max(float(np.abs(a[k] - b[k]).max())
                             for k in grad_tol if b[k].size))
-        if name == "torus_576":
-            # each pass and its plain version alone, on the same inputs
-            cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
-            args = (cam, sph, n, tab, gcfg, flags)
-            n_pix = gcfg.width * gcfg.height
-            k67_parity[name].update(
-                k6_ms=kernel_ms(lambda: mg.hdr_emit(*args, 7, n_pix)),
-                k6_plain_ms=1e3 * timed(lambda: mg.hdr_emit_plain(
-                    *args, 7, n_pix), reps=1)[0],
-                k7_ms=kernel_ms(lambda: mg.hdr_consume(
-                    *args, *planes, sky, 7, n_pix)),
-                k7_plain_ms=1e3 * timed(lambda: mg.hdr_consume_plain(
-                    *args, *planes, sky, 7, n_pix), reps=1)[0])
-        emit({"phase": "hdr_grad_parity", "case": name, "size": "160x90x4/d6",
-              **k67_parity[name], "tolerance": grad_tol})
+        emit({"phase": "hdr_grad_parity", "case": name, "size": size,
+              **out, "tolerance": grad_tol})
         bad = {k: v for k, v in rel.items() if not v < grad_tol[k]}
         if (samples_equal < 0.9999 or emis_err > 1e-6 or bad
                 or sky_within <= 0.999
                 or not float(np.abs(b["sky.image"]).max()) > 0):
-            fail(f"hdr_grad_parity {name}: kernels and plain versions "
-                 f"disagree: {k67_parity[name]}")
-        del kemit, pemit, planes, sky
+            fail(f"hdr_grad_parity {name} at {size}: kernels and plain "
+                 f"versions disagree: {out}")
+        return out
+
+    for name, scene in (("readme_hdr_0_triangles", readme_hdr),
+                        *flagship.items()):
+        grad_parity(name, scene, gcfg, "160x90x4/d6")
+    # the main path's depth and samples on a quarter of its width and height
+    deep = ot.REFERENCE_DEFAULTS.replace(width=320, height=180,
+                                         nan_policy="zero")
+    k67_deep = {name: grad_parity(name, scene, deep, "320x180x5/d32")
+                for name, scene in flagship.items()}
+    # each pass and its plain version alone, on the same inputs
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(flagship["torus_576"],
+                                                    dev)
+    args = (cam, sph, n, tab, deep, flags)
+    n_pix = deep.width * deep.height
+    _, _, _, (planes, sky) = fused(flagship["torus_576"], deep, mg.hdr_emit,
+                                   mg.hdr_consume)
+    passes = dict(
+        k6_ms=kernel_ms(lambda: mg.hdr_emit(*args, 7, n_pix)),
+        k6_plain_ms=1e3 * timed(lambda: mg.hdr_emit_plain(
+            *args, 7, n_pix), reps=1)[0],
+        k7_ms=kernel_ms(lambda: mg.hdr_consume(
+            *args, *planes, sky, 7, n_pix)),
+        k7_plain_ms=1e3 * timed(lambda: mg.hdr_consume_plain(
+            *args, *planes, sky, 7, n_pix), reps=1)[0])
+    emit({"phase": "hdr_pass_times", "case": "torus_576",
+          "size": "320x180x5/d32", **passes})
+    del planes, sky
 
     # ---- 20. hdr_main_path: render() and render_grad_sampled() of both
     # flagship scenes at REFERENCE_DEFAULTS, counts set to 0 just before
@@ -1351,8 +1389,7 @@ def hdr_phases(dev) -> list:
         fail("scene_from_json with an HDR sky did not render through K2")
 
     m, m2 = main["torus_576"], main["torus_15360"]
-    p576 = k2_parity["torus_576"]
-    g576 = k67_parity["torus_576"]
+    g576 = k67_deep["torus_576"]
     common = dict(route="cuda", library_ms=None)
     return [{
         "name": "mesh_megakernel_hdr",
@@ -1361,13 +1398,12 @@ def hdr_phases(dev) -> list:
         "replaces": "opencl_ray_tracer_tpu/kernels/megamesh.py:258 "
                     "_make_kernel (HDR body: hdr at :277, :293, :405, :801)",
         "launches": fwd_launches["mesh_megakernel"],
-        "max_abs_err": p576["max_abs_diff"],
-        "parity_max_abs_diff": max(v["max_abs_diff"]
-                                   for v in k2_parity.values()),
+        "max_abs_err": k2_full["max_abs_diff"],
+        "parity_max_abs_diff": max(v["max_abs_diff"] for v in
+                                   (*k2_parity.values(), k2_full)),
         "ms": m["k2_ms"],
-        "plain_ms": p576["plain_ms"],
-        "plain_size": "160x90x8/d8 (kernel there: %.3f ms)"
-                      % p576["kernel_ms"],
+        "plain_ms": k2_full["plain_ms"],
+        "plain_size": "1280x720x5/d32",
         "bound_ms": m["k2_bound"]["bound_ms"],
         "bound_by": m["k2_bound"]["bound_by"],
         "render_ms": {k: v["render_ms"] for k, v in main.items()},
@@ -1385,8 +1421,9 @@ def hdr_phases(dev) -> list:
         "max_abs_err": g576["emis_max_abs_err"],
         "samples_equal": g576["samples_equal"],
         "ms": m["k6_ms"],
-        "plain_ms": g576["k6_plain_ms"],
-        "plain_size": "160x90x4/d6 (kernel there: %.3f ms)" % g576["k6_ms"],
+        "plain_ms": passes["k6_plain_ms"],
+        "plain_size": "320x180x5/d32 (kernel there: %.3f ms)"
+                      % passes["k6_ms"],
         "bound_ms": m["k6_bound"]["bound_ms"],
         "bound_by": m["k6_bound"]["bound_by"],
         "torus_15360_ms": m2["k6_ms"],
@@ -1402,8 +1439,9 @@ def hdr_phases(dev) -> list:
         "max_abs_err": g576["max_abs_err"],
         "max_rel_err": max(g576["rel_err"].values()),
         "ms": m["k7_ms"],
-        "plain_ms": g576["k7_plain_ms"],
-        "plain_size": "160x90x4/d6 (kernel there: %.3f ms)" % g576["k7_ms"],
+        "plain_ms": passes["k7_plain_ms"],
+        "plain_size": "320x180x5/d32 (kernel there: %.3f ms)"
+                      % passes["k7_ms"],
         "bound_ms": m["k7_bound"]["bound_ms"],
         "bound_by": m["k7_bound"]["bound_by"],
         "fwd_bwd_ms": {k: v["fwd_bwd_ms"] for k, v in main.items()},

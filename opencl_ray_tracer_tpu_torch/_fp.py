@@ -30,7 +30,10 @@ def div(x, s):
 def sqrt(x):
     """IEEE float32 square root on every device: ATen's vectorised CPU sqrt
     is an approximation that misses the correctly rounded value in 0.65% of
-    arguments; the float64 root rounded to float32 is correctly rounded."""
+    arguments, so on the CPU the float64 root is rounded to float32; ATen's
+    CUDA sqrt is already correctly rounded, as a kernel's ``sqrtf``."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 

@@ -1063,21 +1063,16 @@ class HdrRenderFn(torch.autograd.Function):
 
 
 def render_hdr_differentiable(scene: Scene, cfg: RenderConfig,
-                              seed: int = 0, flags=None, plan=None,
-                              check_scope: bool = True):
+                              seed: int = 0, flags=None, plan=None):
     """(H, W, 3) image of an HDR scene through ``HdrRenderFn``: autograd
     reaches the camera and spheres through the table builders, the
     triangles through K7's cotangents and the sky image through the
     texels' scatter.  flags default to ``specialize_mesh_flags(scene)``;
     plan, the order of the mesh tables, to the scene's own (a fit passes
-    its first plan).  check_scope False skips ``supports_grad_hdr``: a fit
-    holds its initial scene to it, and a step may carry a texel past 1,
-    which the passes still compute exactly (the image and both cotangents
-    take the clamp where the sky term exceeds 1)."""
-    if check_scope:
-        reason = unsupported_grad_hdr_reason(scene)
-        if reason is not None:
-            raise NotImplementedError(reason)
+    its first plan).  The caller holds the scene to ``supports_grad_hdr``
+    (a fit holds its initial scene: a step may carry a texel past 1, which
+    the passes still compute exactly, the image and both cotangents taking
+    the clamp where the sky term exceeds 1)."""
     frozen = detached(scene)
     t = scene.triangles
     tab = (mesh_tables(frozen, plan=plan) if t.count
@@ -1096,7 +1091,8 @@ def render_grad_hdr_fused(scene: Scene, cfg: RenderConfig, loss_fn,
     pipeline: the image is rebuilt from K6's outputs, the loss's image
     cotangent taken from it, and K7 walks the paths back; no separate
     forward render runs.  grads.sky.image holds the per-texel cotangent.
-    Runs on the scene's device."""
+    Runs on the scene's device; the caller holds the scene to
+    ``supports_grad_hdr``, as ``render_grad_sampled`` does."""
     s = requiring_grad(scene)
     img = render_hdr_differentiable(s, cfg, seed, plan=plan)
     loss = loss_fn(img)

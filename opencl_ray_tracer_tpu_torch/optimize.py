@@ -143,8 +143,7 @@ def fit_scene(
 
         def render_fn(scene, step_seed):
             return render_hdr_differentiable(scene, gcfg, step_seed,
-                                             flags=flags, plan=plan,
-                                             check_scope=False)
+                                             flags=flags, plan=plan)
     elif grad_backend == "kernel" and init_scene.triangles.count > 0:
         from .kernels.intersect_mm import MESH_CHUNK
         from .kernels.megagrad import render_mesh_differentiable
