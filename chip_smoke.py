@@ -126,12 +126,40 @@ Phases, each printing JSON lines on standard output:
    towards the true sky's image, whose loss must fall.
 21. hdr_scene_json: ``scene_from_json`` with ``assets/sky.hdr`` rendered
    through K2.
-22. the kernels line and the result line.  Each of phases 12 to 16 and
-   21 prints its seconds.
+22. checkpoint_windows, the sphere megakernel's sample windows (raw sums
+   from the sums before them, acc0): ``render_checkpointed(chunk_spp=16)``
+   of the README scene at ``README_BENCH`` against ``render()`` under the
+   "running_sum" and "zero" NaN policies, and a render interrupted at 100
+   spp and resumed, each equal bit for bit, counts set to 0 just before
+   and read just after (16 launches); then a 16-spp window alone by CUDA
+   events with its acc0 and raw sum against the same window in mean mode
+   without acc0, in turns, with its bounces and bound; and a window from
+   sample 16 against its plain version at 160x90, the forward tolerance.
+23. the same for the mesh megakernel's windows at ``REFERENCE_DEFAULTS``
+   with ``chunk_spp=2`` (3 launches), on the mesh scene of phase 9 (576
+   triangles, gradient sky) and on ``flagship_scene()`` (HDR body), the
+   interrupted render resumed from 2 spp; and ``save_state`` alone at
+   1280x720 (an 11 MB npz).
+24. progressive: ``render(progress=..., progress_blocks=8)`` of the README
+   scene at ``README_BENCH`` and of the flagship at
+   ``REFERENCE_DEFAULTS``, counts set to 0 just before and read just after
+   (8 launches), equal to ``render()`` bit for bit, both timed.
+25. fit_resume: phase 7's fit interrupted after 3 steps
+   (``checkpoint_path=``) and resumed to 5, against phase 7's 5 steps: the
+   losses within 1e-5 relative (K4's atomics add in another order from
+   run to run).
+26. cli: ``python -m opencl_ray_tracer_tpu_torch.cli render --scene
+   reference --checkpoint ... --chunk-spp 2 --progress-image p.bmp -o
+   out.bmp`` at the CLI's defaults (the reference executable's
+   1280x720x5/d32) in a subprocess on the card; ``read_bmp`` of its output
+   equal to ``tonemap_u8(render())`` of the same scene.
+27. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
+   window-mode keys, and the result line.  Each of phases 12 to 16, 21 and
+   22 to 23 prints its seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
-other than nvidia-smi and nvcc, all waited for.
+other than nvidia-smi, nvcc and the CLI of phase 26, all waited for.
 """
 
 from __future__ import annotations
@@ -646,7 +674,9 @@ def mesh_phases(dev) -> tuple:
         "route": "cuda",
         "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megamesh.cu",
         "replaces": "opencl_ray_tracer_tpu/kernels/megamesh.py:258 "
-                    "_make_kernel (mesh body, gradient and constant skies)",
+                    "_make_kernel (mesh body, gradient and constant skies; "
+                    "windows: render_pallas_mesh :1028-1031, acc0 "
+                    ":1112-1114)",
         "launches": mesh_launches,
         "max_abs_err": r["max_abs_diff"],
         "parity_max_abs_diff": mesh_parity_max,
@@ -1451,6 +1481,248 @@ def hdr_phases(dev) -> list:
     }]
 
 
+def window_phases(dev, readme_img, fit) -> dict:
+    """Phases 22 to 26 (see the module docstring): the kernels' sample
+    windows through ``render_checkpointed``, the progressive render, a
+    resumed fit and the CLI; the window-mode keys of the K1 and K2 entries
+    of the kernels line, by entry name."""
+    import os
+    import tempfile
+    import numpy as np
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.io import read_bmp, tonemap_u8
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.parallel import save_state
+
+    tmp = tempfile.TemporaryDirectory()
+    bench, ref = ot.README_BENCH, ot.REFERENCE_DEFAULTS
+    readme = ot.readme_scene(16 / 9)
+    scenes = {"readme": readme, "mesh": torus_scene(),
+              "flagship": ot.flagship_scene(16 / 9)}
+    kernel_of = {"readme": "sphere_megakernel", "mesh": "mesh_megakernel",
+                 "flagship": "mesh_megakernel_hdr"}
+    out = {k: {} for k in kernel_of.values()}
+
+    def launches():
+        return mk.LAUNCHES + mm.LAUNCHES
+
+    def checkpointed(name, cfg, chunk, resume_at=None):
+        """render_checkpointed from scratch (or interrupted at resume_at
+        spp and resumed), counts set to 0 just before: (seconds, image,
+        launches)."""
+        path = os.path.join(tmp.name, f"{name}.npz")
+        if os.path.exists(path):
+            os.unlink(path)
+        if resume_at is not None:
+            ot.render_checkpointed(scenes[name], cfg.replace(spp=resume_at),
+                                   path, seed=0, chunk_spp=chunk)
+        mk.LAUNCHES = mm.LAUNCHES = 0
+        secs, img = timed(lambda: ot.render_checkpointed(
+            scenes[name], cfg, path, seed=0, chunk_spp=chunk), reps=1)
+        return secs, img, launches()
+
+    # ---- 22, 23. K1 and K2 windows through render_checkpointed ----
+    t_phase = time.perf_counter()
+    for name, cfg, chunk, resume_at in (("readme", bench, 16, 100),
+                                        ("mesh", ref, 2, 2),
+                                        ("flagship", ref, 2, 2)):
+        runs = {}
+        for policy in ("running_sum", "zero"):
+            pcfg = cfg.replace(nan_policy=policy)
+            if name == "readme" and policy == "running_sum":
+                mono_s, mono = timed(lambda: ot.render(scenes[name], pcfg))
+                if not torch.equal(mono, readme_img):
+                    fail("render() of the README scene changed between "
+                         "phases")
+            else:
+                ot.render(scenes[name], pcfg)   # warm-up
+                mono_s, mono = timed(lambda: ot.render(scenes[name], pcfg))
+            secs, img, n_launch = checkpointed(name, pcfg, chunk)
+            windows = -(-cfg.spp // chunk)
+            equal = torch.equal(img, mono)
+            runs[policy] = dict(monolithic_ms=1e3 * mono_s,
+                                checkpointed_ms=1e3 * secs,
+                                launches=n_launch, bit_equal=equal,
+                                max_abs_diff=float((img - mono).abs().max()))
+            if policy == "running_sum":
+                r_secs, r_img, r_launch = checkpointed(name, pcfg, chunk,
+                                                       resume_at)
+                runs["resumed"] = dict(
+                    interrupted_at_spp=resume_at,
+                    resumed_ms=1e3 * r_secs, launches=r_launch,
+                    bit_equal=torch.equal(r_img, mono))
+                if not runs["resumed"]["bit_equal"] or r_launch < 1:
+                    fail(f"{name}: the resumed render differs from "
+                         f"render(): {runs['resumed']}")
+            if not equal or n_launch != windows:
+                fail(f"{name} under {policy}: checkpointed render against "
+                     f"render(): {runs[policy]}, {windows} windows")
+        emit({"phase": "checkpoint_windows", "case": name,
+              "size": f"{cfg.width}x{cfg.height}x{cfg.spp}/d{cfg.max_depth}",
+              "chunk_spp": chunk, **runs})
+        out[kernel_of[name]]["checkpoint"] = runs
+
+    # the windowed kernel alone, by CUDA events, against its mean mode
+    # without acc0 on the same window, in turns; then one window against
+    # its plain version at 160x90 from the kernel's sums before it
+    for name, cfg, chunk in (("readme", bench, 16), ("mesh", ref, 2),
+                             ("flagship", ref, 2)):
+        scene = scenes[name]
+        if name == "readme":
+            s = scene.to(dev)
+            head = (mk.camera_table(s), mk.sphere_table(s), s.spheres.count)
+            tail = (s.sky.kind, mk.specialize_flags(s), 0)
+            fn, plain_fn, kw = mk.render_spheres, mk.render_spheres_plain, {}
+        else:
+            cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+            head, tail = (cam, sph, n, tab), (scene.sky.kind, flags, 0)
+            fn, plain_fn = mm.render_mesh, mm.render_mesh_plain
+            kw = {"sky_image": image}
+
+        def launch(c, base=0, acc0=None, mean=True, f=fn):
+            return torch.stack(f(*head, c, *tail, c.width * c.height,
+                                 sample_base=base, acc0=acc0, mean=mean,
+                                 **kw))
+
+        wcfg = cfg.replace(spp=chunk)
+        acc0 = launch(wcfg, mean=False)
+        counts = (torch.zeros(1 if name == "readme" else 2,
+                              dtype=torch.int64, device=dev))
+        if name == "readme":
+            fn(*head, wcfg, *tail, cfg.width * cfg.height,
+               sample_base=chunk, acc0=acc0, mean=False, bounces=counts)
+        else:
+            fn(*head, wcfg, *tail, cfg.width * cfg.height,
+               sample_base=chunk, acc0=acc0, mean=False, counts=counts,
+               **kw)
+        torch.cuda.synchronize()
+        raw_ms = mean_ms = float("inf")
+        for _ in range(3):
+            raw_ms = min(raw_ms, kernel_ms(lambda: launch(
+                wcfg, chunk, acc0, False), reps=1))
+            mean_ms = min(mean_ms, kernel_ms(lambda: launch(wcfg, chunk),
+                                             reps=1))
+        n_pix = cfg.width * cfg.height
+        c = counts.tolist()
+        n_sph = scene.spheres.count
+        flops = (c[0] * n_sph * FLOPS_PER_SPHERE_TEST
+                 + (c[1] * FLOPS_PER_TRI_TEST if len(c) > 1 else 0))
+        table_bytes = sum(t.numel() * t.element_size() for t in head
+                          if isinstance(t, torch.Tensor))
+        if name != "readme":
+            table_bytes += sum(t.numel() * t.element_size()
+                               for t in tab if isinstance(t, torch.Tensor))
+            if image is not None:
+                table_bytes += image.numel() * 4
+        bound = bound_of(flops, table_bytes + 2 * 3 * n_pix * 4)
+        small = cfg.replace(width=160, height=90, spp=chunk)
+        sm_acc0 = launch(small, mean=False)
+        k = launch(small, chunk, sm_acc0, False)
+        t_plain, p = timed(lambda: launch(small, chunk, sm_acc0, False,
+                                          f=plain_fn), reps=1)
+        stats = compare(k / (2 * chunk), p / (2 * chunk))
+        check_close(f"{name} window at 160x90", stats)
+        window = dict(window_spp=chunk, window_ms=raw_ms,
+                      mean_mode_ms=mean_ms, acc0_cost_ms=raw_ms - mean_ms,
+                      window_bounces=c[0], window_flops=flops,
+                      window_bytes=bound["bytes"],
+                      window_bound_ms=bound["bound_ms"],
+                      window_bound_by=bound["bound_by"],
+                      window_max_abs_err=stats["max_abs_diff"],
+                      window_parity=stats, window_plain_ms=1e3 * t_plain,
+                      window_parity_size=f"160x90x{chunk}/d{cfg.max_depth} "
+                                         f"from sample {chunk}")
+        emit({"phase": "window_kernel", "case": name,
+              "size": f"{cfg.width}x{cfg.height}, samples "
+                      f"[{chunk}, {2 * chunk}), d{cfg.max_depth}",
+              **window})
+        out[kernel_of[name]].update(window)
+        del acc0, sm_acc0
+
+    # save_state alone: the npz of one chunk at 1280x720 (11 MB)
+    acc = torch.zeros((720, 1280, 3), device=dev)
+    save_ms = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        save_state(os.path.join(tmp.name, "save.npz"), acc, i, 0)
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+    emit({"phase": "save_state", "bytes": os.path.getsize(
+        os.path.join(tmp.name, "save.npz")), "ms": save_ms})
+    out["sphere_megakernel"]["save_state_ms"] = min(save_ms)
+    emit({"phase": "windows_seconds", "seconds":
+          time.perf_counter() - t_phase})
+
+    # ---- 24. the progressive render ----
+    for name, cfg in (("readme", bench), ("flagship", ref)):
+        calls = []
+        mk.LAUNCHES = mm.LAUNCHES = 0
+        secs, img = timed(lambda: ot.render(
+            scenes[name], cfg, progress_blocks=8,
+            progress=lambda d, t, im: calls.append(d)), reps=1)
+        n_launch = launches()
+        mono_s, mono = timed(lambda: ot.render(scenes[name], cfg))
+        entry = dict(progressive_ms=1e3 * secs, monolithic_ms=1e3 * mono_s,
+                     blocks=len(calls), launches=n_launch,
+                     bit_equal=torch.equal(img, mono))
+        emit({"phase": "progressive", "case": name, **entry})
+        out[kernel_of[name]]["progressive"] = entry
+        if not entry["bit_equal"] or n_launch != 8 or len(calls) != 8:
+            fail(f"progressive {name}: {entry}")
+
+    # ---- 25. a fit interrupted after 3 steps and resumed to 5 ----
+    target, init, full_losses = fit
+    path = os.path.join(tmp.name, "fit.pt")
+    kw = dict(param_paths=("spheres.albedo",), sample_new_noise=False,
+              checkpoint_path=path, checkpoint_every=1)
+    mk.LAUNCHES = mg.LAUNCHES = 0
+    ot.fit_scene(target, init, bench, steps=3, **kw)
+    t0 = time.perf_counter()
+    _, losses = ot.fit_scene(target, init, bench, steps=5, **kw)
+    resume_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, full_losses))
+    emit({"phase": "fit_resume", "size": "1280x720x250/d50",
+          "losses": losses, "uninterrupted_losses": full_losses,
+          "max_rel_diff": rel, "tolerance": 1e-5,
+          "resumed_two_steps_s": resume_s,
+          "launches": {"sphere_megakernel": mk.LAUNCHES,
+                       "sphere_megagrad": mg.LAUNCHES}})
+    if rel > 1e-5 or mg.LAUNCHES != 5 or len(losses) != 5:
+        fail(f"fit resume: losses {losses} against {full_losses}")
+
+    # ---- 26. the CLI on the card, checkpointed with a progress image ----
+    out_bmp = os.path.join(tmp.name, "out.bmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.cli", "render",
+         "--scene", "reference", "--checkpoint",
+         os.path.join(tmp.name, "cli.npz"), "--chunk-spp", "2",
+         "--progress-image", os.path.join(tmp.name, "p.bmp"), "-o",
+         out_bmp], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the CLI failed: {proc.stderr[-2000:]}")
+    want = tonemap_u8(ot.render(scenes["flagship"], ref))
+    got = read_bmp(out_bmp)
+    with np.load(os.path.join(tmp.name, "cli.npz")) as z:
+        cli_spp = int(z["n_samples"])
+    equal = bool(np.array_equal(got, want))
+    rate = [ln for ln in proc.stdout.splitlines() if "samples/s" in ln]
+    emit({"phase": "cli", "args": proc.args[3:], "seconds": cli_s,
+          "bmp_equal_to_render": equal, "checkpoint_spp": cli_spp,
+          "stdout_rate": rate, "progress_lines": proc.stderr.count(
+              "Rendered")})
+    if not equal or cli_spp != ref.spp:
+        fail("the CLI's BMP differs from tonemap_u8(render())")
+    out["mesh_megakernel_hdr"]["cli_seconds"] = cli_s
+    tmp.cleanup()
+    del scenes, readme_img
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1824,16 +2096,19 @@ def main() -> None:
     mesh_entries = mesh_phases(dev)
     mesh_grad_entry = mesh_grad_phases(dev, mesh_entries[0])
     hdr_entries = hdr_phases(dev)
+    windows = window_phases(dev, main_runs["readme"][1],
+                            (target, init, losses))
 
-    # ---- 22. kernels line, result line ----
+    # ---- 27. kernels line, result line ----
     r = full["readme"]
     gr = grad_full["readme"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "sphere_megakernel",
         "route": "cuda",
         "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/megakernel.cu",
         "replaces": "opencl_ray_tracer_tpu/kernels/megakernel.py:277 "
-                    "_make_kernel",
+                    "_make_kernel (mean mode, and the raw-sum window mode: "
+                    "flags :283, acc0 :300, :368, epilogue :604-612)",
         "launches": launches,
         "max_abs_err": r["max_abs_diff"],
         "parity_max_abs_diff": parity_max,
@@ -1866,7 +2141,10 @@ def main() -> None:
         "library_ms": None,
         "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
         "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
-    }, *mesh_entries, mesh_grad_entry, *hdr_entries]})
+    }, *mesh_entries, mesh_grad_entry, *hdr_entries]
+    for entry in kernels:
+        entry.update(windows.get(entry["name"], {}))
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

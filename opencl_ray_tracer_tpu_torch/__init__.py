@@ -5,9 +5,12 @@ It does what the JAX package beside it does, module for module, and is
 held against it by the tests.  ``render`` runs on the card unless the
 caller passes ``device="cpu"``, which selects the plain PyTorch tracer.
 This release covers scenes of spheres and triangle meshes under a
-gradient, constant or HDR sky, in the forward render, the scene gradients
-(``render_and_grad``, ``render_grad_sampled``) and fitting
-(``fit_scene``).
+gradient, constant or HDR sky, in the forward render (whole, in row blocks
+with ``render(progress=)``, or checkpointed in sample windows with
+``render_checkpointed``), the scene gradients (``render_and_grad``,
+``render_grad_sampled``) and fitting (``fit_scene``, which can checkpoint
+and resume), and the command line (``python -m
+opencl_ray_tracer_tpu_torch.cli``).
 """
 
 from .config import README_BENCH, REFERENCE_DEFAULTS, RenderConfig
@@ -17,8 +20,9 @@ from .scene import (BoundingBoxes, Camera, Scene, Sky, Spheres, Triangles,
                     reference_scene, scene_from_json, scene_from_numpy,
                     scene_to_json, scene_to_numpy)
 from .optimize import fit_scene
+from .parallel import render_checkpointed
 from .tracer import (render, render_and_grad, render_grad_sampled,
-                     render_rows)
+                     render_rows, render_window)
 
 __version__ = "0.1.0"
 
@@ -28,6 +32,7 @@ __all__ = [
     "materials", "readme_scene", "reference_scene", "book_cover_scene",
     "flagship_scene",
     "scene_from_numpy", "scene_to_numpy", "scene_from_json",
-    "scene_to_json", "render", "render_rows",
-    "render_and_grad", "render_grad_sampled", "fit_scene",
+    "scene_to_json", "render", "render_rows", "render_window",
+    "render_checkpointed", "render_and_grad", "render_grad_sampled",
+    "fit_scene",
 ]

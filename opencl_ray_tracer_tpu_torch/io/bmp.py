@@ -48,7 +48,29 @@ def encode_bmp(img_u8) -> bytes:
     return bytes(out)
 
 
-def write_bmp(path: str, img) -> None:
-    """Tone-map a radiance image (``tonemap_u8``) and write it as BMP."""
+def write_bmp(path: str, img, already_u8: bool = False) -> None:
+    """Tone-map a radiance image (``tonemap_u8``) and write it as BMP;
+    already_u8 writes (H, W, 3) uint8 values as they are."""
+    u8 = _to_numpy(img).astype(np.uint8) if already_u8 else tonemap_u8(img)
     with open(path, "wb") as f:
-        f.write(encode_bmp(tonemap_u8(img)))
+        f.write(encode_bmp(u8))
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """A 24-bit uncompressed BMP file -> (H, W, 3) uint8 RGB, row 0 =
+    image bottom (a top-down file, of negative height, is flipped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, _, _, _, offset = struct.unpack_from("<2sIHHI", data, 0)
+    if magic != b"BM":
+        raise ValueError(f"{path} is not a BMP file")
+    _, w, h, _, bpp, comp = struct.unpack_from("<IiiHHI", data, 14)
+    if bpp != 24 or comp != 0:
+        raise ValueError(f"{path}: only 24-bit uncompressed BMP is read")
+    stride = (w * 3 + 3) // 4 * 4
+    rows = abs(h)
+    img = np.empty((rows, w, 3), np.uint8)
+    for y in range(rows):
+        row = np.frombuffer(data, np.uint8, w * 3, offset + y * stride)
+        img[y] = row.reshape(w, 3)[:, ::-1]
+    return img[::-1] if h < 0 else img

@@ -51,7 +51,7 @@ enum Material { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, EMISSIVE = 3 };
 enum Flag {
   HAS_METAL = 1, HAS_DIEL = 2, HAS_EMIT = 4, HAS_FUZZ = 8,
   HAS_APERTURE = 16, CLAMP = 32, NAN_RUNNING_SUM = 64, SKY_CONST = 128,
-  SKY_HDR = 256
+  SKY_HDR = 256, RAW_SUM = 512
 };
 
 // pcg4d (Jarzynski & Olano 2020), the hash of rng/__init__.py.

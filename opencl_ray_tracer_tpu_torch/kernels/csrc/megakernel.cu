@@ -22,6 +22,15 @@
 // NaN policy exact.  Left for later work: warp divergence from heavy-tailed
 // path lengths, register pressure, persistent or compacted scheduling.
 //
+// Sample windows (checkpointed renders): with acc0 a thread starts its sum
+// from the pixel's sum over the samples before sample_base, so the NaN
+// running-sum policy sees every earlier sample (gpu_kernel.cl:640-642), and
+// with RAW_SUM it stores the sum instead of the mean.  Its samples still
+// add in order, so windows that tile [0, spp) give the monolithic sum bit
+// for bit.  A launch with neither runs the instance without this code
+// (kWindow false), so a monolithic render reads no plane and keeps its
+// code.
+//
 // The arithmetic follows the plain PyTorch tracer op for op: divisions
 // where it divides, a division by sqrtf(a) rather than rsqrtf, IEEE sqrtf,
 // sinf and cosf, and fmaf exactly where the plain tracer fuses a
@@ -54,6 +63,7 @@ struct Params {
   float* out_r;
   float* out_g;
   float* out_b;
+  const float* acc0;            // (3, n_pix) sums to start from, or null
   unsigned long long* bounces;
   int tab_w;
   int n_spheres;
@@ -69,6 +79,9 @@ struct Params {
   int flags;
 };
 
+// kWindow: a sample window (acc0 or RAW_SUM); the monolithic instance
+// has no code for either.
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 sphere_megakernel(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];
@@ -92,6 +105,8 @@ sphere_megakernel(const Params p) {
   float o[3], d[3];
   float thr[3] = {1.f, 1.f, 1.f};
   float acc[3] = {0.f, 0.f, 0.f};
+  if (kWindow && valid && p.acc0 != nullptr)
+    for (int k = 0; k < 3; ++k) acc[k] = p.acc0[k * p.n_pix + local];
   int sample = 0;
   int depth = 0;
   unsigned int n_bounce = 0;
@@ -162,9 +177,11 @@ sphere_megakernel(const Params p) {
 #undef SPH
 
   if (valid) {
-    p.out_r[local] = acc[0] / (float)p.spp;
-    p.out_g[local] = acc[1] / (float)p.spp;
-    p.out_b[local] = acc[2] / (float)p.spp;
+    // the mean (gpu_kernel.cl:647), or the raw sum of a sample window
+    const bool raw = kWindow && (flags & RAW_SUM) != 0;
+    p.out_r[local] = raw ? acc[0] : acc[0] / (float)p.spp;
+    p.out_g[local] = raw ? acc[1] : acc[1] / (float)p.spp;
+    p.out_b[local] = raw ? acc[2] : acc[2] / (float)p.spp;
   }
   if (p.bounces != nullptr) {
     const unsigned int warp_sum = __reduce_add_sync(0xffffffffu, n_bounce);
@@ -176,11 +193,15 @@ sphere_megakernel(const Params p) {
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
-// when the launch was refused.  Outputs are (n_pix,) float planes; bounces,
+// when the launch was refused.  Outputs are (n_pix,) float planes: the mean
+// over the spp samples from sample_base, or with RAW_SUM in flags their sum.
+// acc0, when not null, is (3, n_pix) floats, the sums of the samples before
+// sample_base that each pixel's sum starts from (a sample window).  bounces,
 // when not null, receives the number of bounces traced.
 extern "C" int sphere_megakernel_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
-    float* out_r, float* out_g, float* out_b, unsigned long long* bounces,
+    float* out_r, float* out_g, float* out_b, const float* acc0,
+    unsigned long long* bounces,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int width, int height, int spp, int max_depth, float t_min, int flags,
     void* stream) {
@@ -194,6 +215,7 @@ extern "C" int sphere_megakernel_launch(
   p.out_r = out_r;
   p.out_g = out_g;
   p.out_b = out_b;
+  p.acc0 = acc0;
   p.bounces = bounces;
   p.tab_w = tab_w;
   p.n_spheres = n_spheres;
@@ -208,6 +230,9 @@ extern "C" int sphere_megakernel_launch(
   p.t_min = t_min;
   p.flags = flags;
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  sphere_megakernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  if (acc0 != nullptr || (flags & RAW_SUM))
+    sphere_megakernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  else
+    sphere_megakernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,10 @@
 //
 // The per-pixel estimator is the sphere megakernel's (megakernel.cu),
 // unchanged: path regeneration, the same pcg4d slots, clamp-before-average,
-// the NaN running sum, black on depth exhaustion.  Each bounce finds the
+// the NaN running sum, black on depth exhaustion, and its sample windows
+// (acc0, RAW_SUM).  JAX's compaction ladder sums a window's samples out of
+// order; a thread here sums them in order, so windows give the monolithic
+// sum bit for bit.  Each bounce finds the
 // closest sphere (common.cuh) and then the closest triangle nearer than it
 // (mesh.cuh, the test the closest-triangle kernel runs); a sphere wins a
 // tie.  A triangle hit takes the table's unit normal and the mesh material
@@ -62,6 +65,7 @@ struct Params {
   float* out_r;
   float* out_g;
   float* out_b;
+  const float* acc0;            // (3, n_pix) sums to start from, or null
   unsigned long long* counts;   // bounces, triangle tests
   int n_pix;
   int pix_offset;
@@ -76,7 +80,10 @@ struct Params {
   HdrImage sky;
 };
 
-__global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
+// kWindow: a sample window (acc0 or RAW_SUM), as in megakernel.cu.
+template <bool kWindow>
+__global__ void __launch_bounds__(kThreads)
+mesh_megakernel(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_cam[kMeshCamSlots];
   const int n = p.n_spheres;
@@ -98,6 +105,8 @@ __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
   float o[3], d[3];
   float thr[3] = {1.f, 1.f, 1.f};
   float acc[3] = {0.f, 0.f, 0.f};
+  if (kWindow && valid && p.acc0 != nullptr)
+    for (int k = 0; k < 3; ++k) acc[k] = p.acc0[k * p.n_pix + local];
   int sample = 0;
   int depth = 0;
   unsigned int n_bounce = 0;
@@ -181,9 +190,11 @@ __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
 #undef SPH
 
   if (valid) {
-    p.out_r[local] = acc[0] / (float)p.spp;
-    p.out_g[local] = acc[1] / (float)p.spp;
-    p.out_b[local] = acc[2] / (float)p.spp;
+    // the mean (gpu_kernel.cl:647), or the raw sum of a sample window
+    const bool raw = kWindow && (flags & RAW_SUM) != 0;
+    p.out_r[local] = raw ? acc[0] : acc[0] / (float)p.spp;
+    p.out_g[local] = raw ? acc[1] : acc[1] / (float)p.spp;
+    p.out_b[local] = raw ? acc[2] : acc[2] / (float)p.spp;
   }
   if (p.counts != nullptr) {
     const unsigned int bounce_sum = __reduce_add_sync(0xffffffffu, n_bounce);
@@ -198,7 +209,9 @@ __global__ void __launch_bounds__(kThreads) mesh_megakernel(const Params p) {
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
-// when the launch was refused.  Outputs are (n_pix,) float planes; counts,
+// when the launch was refused.  Outputs are (n_pix,) float planes, the mean
+// or with RAW_SUM the sum, from the sums of acc0 when it is not null, as
+// sphere_megakernel_launch's (megakernel.cu); counts,
 // when not null, receives the bounces traced and the triangle tests run.
 // With SKY_HDR in flags, sky is the (sky_h, sky_w, 3) image of an HDR sky
 // and the scene may have no triangles (n_chunks and n_boxes 0).
@@ -207,6 +220,7 @@ extern "C" int mesh_megakernel_launch(
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
     int mesh_type, float* out_r, float* out_g, float* out_b,
+    const float* acc0,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int width, int height, int spp, int max_depth,
     float t_min, int flags, const float* sky, int sky_w, int sky_h,
@@ -232,6 +246,7 @@ extern "C" int mesh_megakernel_launch(
   p.out_r = out_r;
   p.out_g = out_g;
   p.out_b = out_b;
+  p.acc0 = acc0;
   p.counts = counts;
   p.n_pix = n_pix;
   p.pix_offset = pix_offset;
@@ -245,7 +260,10 @@ extern "C" int mesh_megakernel_launch(
   p.flags = flags;
   p.sky = HdrImage{sky, sky_w, sky_h};
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  mesh_megakernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  if (acc0 != nullptr || (flags & RAW_SUM))
+    mesh_megakernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  else
+    mesh_megakernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -50,13 +50,14 @@ FLAG_CLAMP = 32
 FLAG_NAN_RUNNING_SUM = 64
 FLAG_SKY_CONST = 128
 FLAG_SKY_HDR = 256
+FLAG_RAW_SUM = 512
 
 # Launches of the CUDA kernel since the count was last set to 0.
 LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {"sphere_megakernel_launch": (
-    [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, ctypes.c_uint32,
+    [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint32,
      ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float, _I, _P], _I)}
 
 
@@ -154,6 +155,29 @@ def _flag_bits(cfg: RenderConfig, sky_kind: int, flags) -> int:
             | (FLAG_SKY_HDR if sky_kind == KIND_HDR else 0))
 
 
+def check_acc0(acc0, n_pix: int, device) -> None:
+    """Raise unless acc0 is None or the (3, n_pix) contiguous float32
+    planes of a window's starting sums on ``device``."""
+    if acc0 is not None and (acc0.dtype != torch.float32
+                             or acc0.shape != (3, n_pix)
+                             or not acc0.is_contiguous()
+                             or acc0.device != device):
+        raise ValueError("acc0 must be (3, n_pix) contiguous float32 planes "
+                         "on the tables' device")
+
+
+def acc0_planes(acc0, n_pix: int, device):
+    """A window's starting sums as the kernels take them: (3, n_pix)
+    contiguous float32 planes on ``device``, from (..., 3) pixel sums (a
+    tensor or an array); None stays None."""
+    if acc0 is None:
+        return None
+    if not isinstance(acc0, torch.Tensor):
+        acc0 = torch.tensor(acc0)   # a copy: the array may be read-only
+    acc0 = acc0.to(device=device, dtype=torch.float32)
+    return acc0.reshape(n_pix, 3).T.contiguous()
+
+
 def _check_args(cam, sph, n_spheres, n_pix, pix_offset, cfg, sky_kind,
                 bounces):
     if sky_kind not in (KIND_GRADIENT, KIND_CONST):
@@ -181,32 +205,38 @@ def _check_args(cam, sph, n_spheres, n_pix, pix_offset, cfg, sky_kind,
 
 def render_spheres(cam, sph, n_spheres: int, cfg: RenderConfig,
                    sky_kind: int, flags, seed: int, n_pix: int,
-                   pix_offset: int = 0, sample_base: int = 0, bounces=None):
+                   pix_offset: int = 0, sample_base: int = 0, bounces=None,
+                   acc0=None, mean: bool = True):
     """Mean radiance of n_pix pixels from global pixel ``pix_offset`` on,
     over cfg.spp samples with global ids from ``sample_base``: R, G and B
     planes of shape (n_pix,).
 
     cam/sph: ``camera_table``/``sphere_table``; flags: ``specialize_flags``;
     bounces: optional one-element int64 tensor that receives the number of
-    bounces traced.  CUDA tensors launch the kernel; CPU tensors run
-    ``render_spheres_plain``.
+    bounces traced.  A sample window of a checkpointed render: acc0, the
+    (3, n_pix) planes of the pixels' sums over the samples before
+    ``sample_base`` (``acc0_planes``), seeds each pixel's running sum, and
+    mean False returns the sum, acc0 included, instead of the mean.  CUDA
+    tensors launch the kernel; CPU tensors run ``render_spheres_plain``.
     """
     global LAUNCHES
     _check_args(cam, sph, n_spheres, n_pix, pix_offset, cfg, sky_kind,
                 bounces)
+    check_acc0(acc0, n_pix, cam.device)
     if cam.device.type == "cpu":
         return render_spheres_plain(cam, sph, n_spheres, cfg, sky_kind, flags,
                                     seed, n_pix, pix_offset, sample_base,
-                                    bounces)
+                                    bounces, acc0, mean)
     if cam.device.type != "cuda":
         raise ValueError(f"no kernel for device {cam.device}")
-    bits = _flag_bits(cfg, sky_kind, flags)
+    bits = _flag_bits(cfg, sky_kind, flags) | (0 if mean else FLAG_RAW_SUM)
     fn = _library().sphere_megakernel_launch
     out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                acc0.data_ptr() if acc0 is not None else None,
                 bounces.data_ptr() if bounces is not None else None,
                 n_pix, pix_offset, seed & 0xFFFFFFFF,
                 sample_base & 0xFFFFFFFF, cfg.width, cfg.height, cfg.spp,
@@ -246,7 +276,7 @@ def scene_from_tables(cam, sph, n_spheres: int, sky_kind: int,
 def render_spheres_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
                          sky_kind: int, flags, seed: int, n_pix: int,
                          pix_offset: int = 0, sample_base: int = 0,
-                         bounces=None):
+                         bounces=None, acc0=None, mean: bool = True):
     """The plain PyTorch version of ``render_spheres``, on the tables'
     device: the wavefront tracer over the scene the tables hold.  ``flags``
     only prune the kernel's code; the result does not depend on them."""
@@ -255,16 +285,27 @@ def render_spheres_plain(cam, sph, n_spheres: int, cfg: RenderConfig,
     lin = torch.arange(pix_offset, pix_offset + n_pix, device=dev)
     acc = render_rows_wavefront(scene, cfg, lin // cfg.width, lin % cfg.width,
                                 lin, seed, sample_base, cfg.spp, frame=frame,
-                                bounces=bounces)
-    img = div(acc, cfg.spp)
+                                bounces=bounces,
+                                acc0=None if acc0 is None else acc0.T)
+    img = div(acc, cfg.spp) if mean else acc
     return img[:, 0], img[:, 1], img[:, 2]
 
 
-def render_megakernel(scene: Scene, cfg: RenderConfig, seed: int = 0):
-    """(H, W, 3) image of a supported scene through ``render_spheres`` on
-    the scene's device."""
-    r, g, b = render_spheres(camera_table(scene), sphere_table(scene),
+def render_megakernel(scene: Scene, cfg: RenderConfig, seed: int = 0,
+                      rows: int | None = None, pix_offset: int = 0,
+                      sample_offset: int = 0, mean: bool = True, acc0=None):
+    """(rows, W, 3) image of a supported scene through ``render_spheres``
+    on the scene's device: ``rows`` whole rows (None: cfg.height) from
+    global pixel ``pix_offset`` on, the mean over cfg.spp samples from
+    ``sample_offset``, or with mean False their sum from the sums acc0
+    ((rows, W, 3) or None)."""
+    rows = cfg.height if rows is None else rows
+    n_pix = rows * cfg.width
+    cam = camera_table(scene)
+    r, g, b = render_spheres(cam, sphere_table(scene),
                              scene.spheres.count, cfg, scene.sky.kind,
-                             specialize_flags(scene), seed,
-                             cfg.width * cfg.height)
-    return torch.stack([r, g, b], dim=-1).reshape(cfg.height, cfg.width, 3)
+                             specialize_flags(scene), seed, n_pix,
+                             pix_offset, sample_offset,
+                             acc0=acc0_planes(acc0, n_pix, cam.device),
+                             mean=mean)
+    return torch.stack([r, g, b], dim=-1).reshape(rows, cfg.width, 3)

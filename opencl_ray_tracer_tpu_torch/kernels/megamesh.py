@@ -42,9 +42,9 @@ from . import _build
 from .intersect_mm import (MeshTables, cached, check_tables,
                            closest_tri_plain, empty_tables, leaves_key,
                            mesh_tables, tri_hit_fn)
-from .megakernel import (LANES, MAX_SPHERES, N_FIELDS, _flag_bits,
-                         camera_table, scene_from_tables, specialize_flags,
-                         sphere_table)
+from .megakernel import (FLAG_RAW_SUM, LANES, MAX_SPHERES, N_FIELDS,
+                         _flag_bits, acc0_planes, camera_table, check_acc0,
+                         scene_from_tables, specialize_flags, sphere_table)
 
 # Camera-table slots of the uniform mesh material (after C_SKY2 = 21).
 (C_MA_R, C_MA_G, C_MA_B, C_M_FUZZ, C_M_IOR, C_M_INVIOR) = range(22, 28)
@@ -54,9 +54,9 @@ LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {"mesh_megakernel_launch": (
-    [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
-     _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float,
-     _I, _P, _I, _I, _P], _I),
+    [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+     _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
+     ctypes.c_float, _I, _P, _I, _I, _P], _I),
     "hdr_texel_launch": ([_P, _I, _I, _I, _P, _P], _I)}
 
 
@@ -198,10 +198,11 @@ def _check_args(cam, sph, n_spheres, tab, n_pix, pix_offset, cfg, sky_kind,
 def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
                 sky_kind: int, flags, seed: int, n_pix: int,
                 pix_offset: int = 0, sample_base: int = 0, counts=None,
-                sky_image=None):
+                sky_image=None, acc0=None, mean: bool = True):
     """Mean radiance of n_pix pixels from global pixel ``pix_offset`` on,
     over cfg.spp samples with global ids from ``sample_base``: R, G and B
-    planes of shape (n_pix,).
+    planes of shape (n_pix,); with acc0 and mean False the sum of a sample
+    window, as ``megakernel.render_spheres``.
 
     cam: ``mesh_camera_table``; sph: ``sphere_table``; tab:
     ``intersect_mm.mesh_tables`` (``empty_tables`` for a scene without
@@ -213,13 +214,15 @@ def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
     global LAUNCHES
     _check_args(cam, sph, n_spheres, tab, n_pix, pix_offset, cfg, sky_kind,
                 counts, sky_image)
+    check_acc0(acc0, n_pix, cam.device)
     if cam.device.type == "cpu":
         return render_mesh_plain(cam, sph, n_spheres, tab, cfg, sky_kind,
                                  flags, seed, n_pix, pix_offset, sample_base,
-                                 counts, sky_image)
+                                 counts, sky_image, acc0, mean)
     if cam.device.type != "cuda":
         raise ValueError(f"no kernel for device {cam.device}")
-    bits = _flag_bits(cfg, sky_kind, flags[:5])
+    bits = (_flag_bits(cfg, sky_kind, flags[:5])
+            | (0 if mean else FLAG_RAW_SUM))
     out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -229,7 +232,7 @@ def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
             tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
             tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
             int(flags[5]), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(),
+            out[2].data_ptr(), acc0.data_ptr() if acc0 is not None else None,
             counts.data_ptr() if counts is not None else None, n_pix,
             pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
             cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.t_min, bits,
@@ -283,7 +286,8 @@ def plain_hit_fn(cam, scene, tab: MeshTables, cfg: RenderConfig, flags,
 def render_mesh_plain(cam, sph, n_spheres: int, tab: MeshTables,
                       cfg: RenderConfig, sky_kind: int, flags, seed: int,
                       n_pix: int, pix_offset: int = 0, sample_base: int = 0,
-                      counts=None, sky_image=None):
+                      counts=None, sky_image=None, acc0=None,
+                      mean: bool = True):
     """The plain PyTorch version of ``render_mesh``, on the tables' device:
     the wavefront tracer over the spheres of the sphere table and the
     triangles of the mesh tables, with the mesh material of the camera
@@ -300,8 +304,9 @@ def render_mesh_plain(cam, sph, n_spheres: int, tab: MeshTables,
     acc = render_rows_wavefront(
         scene, cfg, lin // cfg.width, lin % cfg.width, lin, seed,
         sample_base, cfg.spp, frame=frame,
-        bounces=counts[0:1] if counts is not None else None, hit_fn=hit_fn)
-    img = div(acc, cfg.spp)
+        bounces=counts[0:1] if counts is not None else None, hit_fn=hit_fn,
+        acc0=None if acc0 is None else acc0.T)
+    img = div(acc, cfg.spp) if mean else acc
     return img[:, 0], img[:, 1], img[:, 2]
 
 
@@ -333,12 +338,21 @@ def mesh_inputs(scene: Scene, device) -> tuple:
 
 
 def render_megamesh(scene: Scene, cfg: RenderConfig, seed: int = 0,
-                    device=None):
-    """(H, W, 3) image of a supported scene through ``render_mesh`` on
-    ``device`` (None: the scene's)."""
+                    device=None, rows: int | None = None,
+                    pix_offset: int = 0, sample_offset: int = 0,
+                    mean: bool = True, acc0=None):
+    """(rows, W, 3) image of a supported scene through ``render_mesh`` on
+    ``device`` (None: the scene's): ``rows`` whole rows (None: cfg.height)
+    from global pixel ``pix_offset`` on, the mean over cfg.spp samples from
+    ``sample_offset``, or with mean False their sum from the sums acc0
+    ((rows, W, 3) or None), as ``megakernel.render_megakernel``."""
     device = scene.triangles.p0.device if device is None else device
     cam, sph, n_spheres, tab, flags, image = mesh_inputs(scene, device)
+    rows = cfg.height if rows is None else rows
+    n_pix = rows * cfg.width
     r, g, b = render_mesh(cam, sph, n_spheres, tab, cfg, scene.sky.kind,
-                          flags, seed, cfg.width * cfg.height,
-                          sky_image=image)
-    return torch.stack([r, g, b], dim=-1).reshape(cfg.height, cfg.width, 3)
+                          flags, seed, n_pix, pix_offset, sample_offset,
+                          sky_image=image,
+                          acc0=acc0_planes(acc0, n_pix, cam.device),
+                          mean=mean)
+    return torch.stack([r, g, b], dim=-1).reshape(rows, cfg.width, 3)

@@ -9,6 +9,8 @@ ROADMAP item A12.
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Callable, Sequence
 
 import torch
@@ -71,6 +73,7 @@ def fit_scene(
     param_mask: dict | None = None,
     grad_backend: str = "auto",
     checkpoint_path: str | None = None,
+    checkpoint_every: int = 10,
     device=None,
 ):
     """Adam on the leaves at ``param_paths`` against ``target`` ((H, W, 3)
@@ -102,15 +105,20 @@ def fit_scene(
     ``NotImplementedError``.  ``device`` None means the card, and raises
     when there is none.
 
+    checkpoint_path: the fit's state (the parameters, Adam's state, the
+    losses and the step count) is written there atomically every
+    ``checkpoint_every`` steps and after the last; a fit started again with
+    the same arguments resumes from it, and with ``sample_new_noise`` its
+    step-indexed seeds continue where they stopped.
+
     Adam with torch's defaults performs optax.adam's update (both divide by
     sqrt(v_hat) + eps).
     """
     if soft:
         raise NotImplementedError(
             "soft-visibility fitting is not ported yet: ROADMAP item A12")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpointed fits are not ported yet: ROADMAP item A13")
+    if checkpoint_every < 1:
+        raise ValueError("checkpoint_every must be at least 1")
     if grad_backend not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown grad_backend: {grad_backend}")
     reason = _kernel_scope(init_scene, param_paths)
@@ -177,7 +185,10 @@ def fit_scene(
     masks = {k: torch.as_tensor(m, dtype=torch.float32, device=device)
              for k, m in (param_mask or {}).items()}
     losses = []
-    for i in range(steps):
+    start = 0
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        losses, start = _load_fit_state(checkpoint_path, params, opt)
+    for i in range(start, steps):
         step_seed = seed + i + 1 if sample_new_noise else seed
         opt.zero_grad()
         loss = loss_fn(render_fn(insert_params(init_scene, params),
@@ -192,6 +203,41 @@ def fit_scene(
             callback(i, losses[-1], insert_params(
                 init_scene, {p: v.detach().clone()
                              for p, v in params.items()}))
+        if checkpoint_path is not None and ((i + 1) % checkpoint_every == 0
+                                            or i + 1 == steps):
+            _save_fit_state(checkpoint_path, params, opt, losses, i + 1)
     return (insert_params(init_scene,
                           {p: v.detach() for p, v in params.items()}),
             losses)
+
+
+def _save_fit_state(path: str, params: dict, opt, losses, step: int) -> None:
+    """Write a fit's state to ``path`` atomically (a temporary file beside
+    it, then ``os.replace``): a crash while writing leaves the last state
+    whole."""
+    state = {"step": step, "losses": list(losses),
+             "params": {p: v.detach().cpu() for p, v in params.items()},
+             "adam": opt.state_dict()}
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               suffix=".tmp")
+    os.close(fd)
+    try:
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _load_fit_state(path: str, params: dict, opt):
+    """Put the state of ``_save_fit_state`` into params (in place) and the
+    optimizer; (losses, step)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if sorted(state["params"]) != sorted(params):
+        raise ValueError(f"fit checkpoint {path} holds the parameters "
+                         f"{sorted(state['params'])}, not {sorted(params)}")
+    with torch.no_grad():
+        for p, v in params.items():
+            v.copy_(state["params"][p])
+    opt.load_state_dict(state["adam"])
+    return [float(x) for x in state["losses"]], int(state["step"])

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from .._fp import fma
+from .._fp import cbrt, cos, fma, sin
 
 # Draw-slot layout within one (pixel, sample) stream: slots 0..3 are the
 # camera draws; bounce d uses slots BOUNCE_BASE + d*BOUNCE_STRIDE and the
@@ -94,19 +94,20 @@ def unit_vector_from_uniforms(u1, u2):
     z = 2.0 * u1 - 1.0
     phi = (2.0 * math.pi) * u2
     r = torch.sqrt(torch.clamp(fma(-z, z, 1.0), min=0.0))
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    return torch.stack([r * cos(phi), r * sin(phi), z], dim=-1)
 
 
 def in_unit_sphere_from_uniforms(u1, u2, u3):
     """Uniform point in the unit ball (``Vec3RandInUnitSphere``).
 
-    The radius is u3 ** (1/3): PyTorch has no cube root."""
-    return unit_vector_from_uniforms(u1, u2) * torch.pow(u3, 1.0 / 3.0)[..., None]
+    The radius is ``_fp.cbrt(u3)``, powf(u3, 1/3): PyTorch has no cube
+    root."""
+    return unit_vector_from_uniforms(u1, u2) * cbrt(u3)[..., None]
 
 
 def in_unit_disk_from_uniforms(u1, u2):
     """Uniform point in the unit disk, z = 0 (``Vec3RandInUnitDisk``)."""
     r = torch.sqrt(u1)
     theta = (2.0 * math.pi) * u2
-    return torch.stack([r * torch.cos(theta), r * torch.sin(theta),
+    return torch.stack([r * cos(theta), r * sin(theta),
                         torch.zeros_like(r)], dim=-1)

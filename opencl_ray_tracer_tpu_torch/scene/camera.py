@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from .._fp import dot3, fma
+from .._fp import dot3, fma, tan
 from ..rng import in_unit_disk_from_uniforms
 from .geometry import tensors_to
 
@@ -64,7 +64,7 @@ def camera_frame(cam: Camera) -> dict:
     defocus_disc_v (all (3,)) and aperture_rad (0-d)."""
     aperture = cam.aperture_deg * _DEG          # cl_camera.cpp:6
     theta = cam.vfov_deg * _DEG                 # cl_camera.cpp:9
-    h = torch.tan(theta / 2.0)
+    h = tan(theta / 2.0)
     viewport_h = 2.0 * h * cam.focus_dist       # cl_camera.cpp:11
     viewport_w = cam.aspect_ratio * viewport_h
 
@@ -76,7 +76,7 @@ def camera_frame(cam: Camera) -> dict:
     vertical = v * viewport_h
     lower_left = fma(-w, cam.focus_dist,        # cl_camera.cpp:24
                      cam.look_from - horizontal / 2.0 - vertical / 2.0)
-    defocus_radius = cam.focus_dist * torch.tan(aperture / 2.0)  # :27
+    defocus_radius = cam.focus_dist * tan(aperture / 2.0)  # :27
     return dict(
         origin=cam.look_from,
         horizontal=horizontal,

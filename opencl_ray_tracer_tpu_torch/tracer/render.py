@@ -74,10 +74,20 @@ def triangle_hit_fn(scene: Scene, cfg: RenderConfig, expected_rays: int):
 
 
 def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
-                seed: int, hit_fn=None, remat: bool = False):
+                seed: int, hit_fn=None, remat: bool = False,
+                sample_offset: int = 0, spp: int | None = None,
+                mean: bool = True, acc0=None):
     """Plain-tracer render of n_rows rows from row_start on the scene's
     device: (n_rows, W, 3) mean radiance.  The RNG is keyed on global pixel
     ids, so row blocks compose into the full image exactly.
+
+    sample_offset and spp (None: cfg.spp) select the window of global
+    sample ids [sample_offset, sample_offset + spp), which is what a
+    sequential run draws there.  mean False returns the radiance sum
+    instead of the mean, and acc0 ((n_rows, W, 3), (n_rows * W, 3) or None)
+    seeds it: a window whose acc0 is the sum of the samples before it
+    reproduces the NaN running-sum policy of an uninterrupted run
+    (``gpu_kernel.cl:640-642``), and the result includes acc0.
 
     hit_fn(o, d) replaces the closest hit (``diffhit.make_grad_hit_fn``);
     without one, a scene with triangles takes ``triangle_hit_fn``.  remat
@@ -85,7 +95,7 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     (``torch.utils.checkpoint``) instead of keeping it, for the per-sample
     loop (cfg.early_stop False)."""
     width = cfg.width
-    n_samples = cfg.spp
+    n_samples = cfg.spp if spp is None else spp
     dev = scene.spheres.center.device
     if hit_fn is None and scene.triangles.count > 0:
         hit_fn = triangle_hit_fn(scene, cfg, n_rows * width)
@@ -94,17 +104,23 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     cols = torch.arange(width, device=dev).repeat(n_rows)
     pixel_ids = rows * width + cols
     frame = camera_frame(scene.camera)
+    if acc0 is not None:
+        if not isinstance(acc0, torch.Tensor):
+            acc0 = torch.tensor(acc0)   # a copy: the array may be read-only
+        acc0 = acc0.to(device=dev, dtype=torch.float32).reshape(-1, 3)
 
     if cfg.early_stop:
         acc = render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
-                                    0, n_samples, frame=frame, hit_fn=hit_fn)
+                                    sample_offset, n_samples, frame=frame,
+                                    hit_fn=hit_fn, acc0=acc0)
     else:
         def sample_colour(o, d, s):
             return trace(scene, o, d, pixel_ids, s, seed, cfg.max_depth,
                          t_min=cfg.t_min, hit_fn=hit_fn)
 
-        acc = torch.zeros((n_rows * width, 3), device=dev)
-        for s in range(n_samples):
+        acc = (torch.zeros((n_rows * width, 3), device=dev) if acc0 is None
+               else acc0)
+        for s in range(sample_offset, sample_offset + n_samples):
             u0, u1, u2, u3 = uniform4(seed, pixel_ids, s, SLOT_PIXEL_U)
             uu = div(cols.to(torch.float32) + u0, width)
             vv = div(rows.to(torch.float32) + u1, cfg.height)
@@ -116,7 +132,9 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
                 colour = sample_colour(o, d, s)
             acc = accumulate_sample(acc, colour, cfg.nan_policy,
                                     cfg.clamp_samples)
-    return div(acc, n_samples).reshape(n_rows, width, 3)
+    if mean:
+        acc = div(acc, n_samples)
+    return acc.reshape(n_rows, width, 3)
 
 
 def kernel_route(scene: Scene, cfg: RenderConfig) -> str | None:
@@ -134,20 +152,64 @@ def kernel_route(scene: Scene, cfg: RenderConfig) -> str | None:
     return None
 
 
-def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None):
+def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None,
+           progress=None, progress_blocks: int = 8):
     """Render the full image: (H, W, 3) f32 radiance on ``device``, row 0 =
     image bottom.  device None means CUDA, and raises when there is none;
-    on CUDA the route is ``kernel_route``'s."""
+    on CUDA the route is ``kernel_route``'s.
+
+    progress: optional callback ``progress(rows_done, total_rows, canvas)``
+    called after each of ``progress_blocks`` row blocks with the (H, W, 3)
+    canvas so far, on ``device``: the reference's full-frame BMP rewrite
+    after every block (``main.cpp:263-265``).  Each block takes the same
+    route with its global pixel offset, so the image is the one-shot
+    render's."""
     device = resolve_device(device)
+    if progress is not None:
+        return _render_progressive(scene, cfg, seed, device, progress,
+                                   progress_blocks)
+    return render_window(scene, cfg, seed, device)
+
+
+def render_window(scene: Scene, cfg: RenderConfig, seed: int = 0,
+                  device=None, row_start: int = 0, rows: int | None = None,
+                  sample_offset: int = 0, mean: bool = True, acc0=None):
+    """``rows`` image rows (None: cfg.height) from ``row_start`` on, over
+    the cfg.spp samples from global sample id ``sample_offset``, through
+    ``render``'s route on ``device`` (None: the card): the mean, or with
+    mean False the radiance sum from the sums acc0 ((rows, W, 3) or None),
+    as ``render_rows``.  The row blocks of ``render(progress=)`` and the
+    sample windows of ``parallel.render_checkpointed`` run here."""
+    device = resolve_device(device)
+    rows = cfg.height if rows is None else rows
+    window = dict(pix_offset=row_start * cfg.width, rows=rows,
+                  sample_offset=sample_offset, mean=mean, acc0=acc0)
     if device.type == "cuda":
         route = kernel_route(scene, cfg)
         if route == "megamesh":
             from ..kernels.megamesh import render_megamesh
-            return render_megamesh(scene, cfg, seed, device)
+            return render_megamesh(scene, cfg, seed, device, **window)
         if route == "megakernel":
             from ..kernels.megakernel import render_megakernel
-            return render_megakernel(scene.to(device), cfg, seed)
-    return _render_plain(scene.to(device), cfg, seed)
+            return render_megakernel(scene.to(device), cfg, seed, **window)
+    return _render_plain(scene.to(device), cfg, seed, row_start, rows,
+                         sample_offset, mean, acc0)
+
+
+def _render_progressive(scene: Scene, cfg: RenderConfig, seed: int, device,
+                        progress, progress_blocks: int):
+    """``render(progress=)``: row blocks of ``render_window`` written into
+    one canvas on the device, the callback after each."""
+    h = cfg.height
+    block = max(1, -(-h // max(1, progress_blocks)))
+    canvas = torch.zeros((h, cfg.width, 3), dtype=torch.float32,
+                         device=device)
+    for r0 in range(0, h, block):
+        n = min(block, h - r0)
+        canvas[r0:r0 + n] = render_window(scene, cfg, seed, device,
+                                          row_start=r0, rows=n)
+        progress(r0 + n, h, canvas)
+    return canvas
 
 
 # Rays per call of the plain tracer for a scene with triangles when
@@ -156,7 +218,10 @@ def render(scene: Scene, cfg: RenderConfig, seed: int = 0, device=None):
 _MESH_ROW_RAYS = 131072
 
 
-def _render_plain(scene: Scene, cfg: RenderConfig, seed: int):
+def _render_plain(scene: Scene, cfg: RenderConfig, seed: int,
+                  row_start: int = 0, rows: int | None = None,
+                  sample_offset: int = 0, mean: bool = True, acc0=None):
+    rows = cfg.height if rows is None else rows
     chunk = cfg.row_chunk or cfg.height
     if cfg.row_chunk is None and scene.triangles.count > 0:
         max_rows = max(1, _MESH_ROW_RAYS // cfg.width)
@@ -164,8 +229,12 @@ def _render_plain(scene: Scene, cfg: RenderConfig, seed: int):
                      if cfg.height % r == 0)
     if cfg.height % chunk:
         raise ValueError("row_chunk must divide height")
-    out = [render_rows(scene, cfg, r0, chunk, seed)
-           for r0 in range(0, cfg.height, chunk)]
+    out = []
+    for r0 in range(0, rows, chunk):
+        n = min(chunk, rows - r0)
+        out.append(render_rows(
+            scene, cfg, row_start + r0, n, seed, sample_offset=sample_offset,
+            mean=mean, acc0=None if acc0 is None else acc0[r0:r0 + n]))
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 
 

@@ -23,9 +23,15 @@ from .scatter import scatter
 
 def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                           sample_offset, n_samples, frame=None,
-                          bounces=None, hit_fn=None, miss_fn=None):
+                          bounces=None, hit_fn=None, miss_fn=None, acc0=None):
     """Radiance sum over n_samples samples per pixel, (R,3); divide by
     n_samples for the mean.  rows/cols/pixel_ids: (R,) int64.
+
+    acc0 ((R, 3) or None) seeds the running sum: a sample window whose acc0
+    is the sum over the samples before ``sample_offset`` sees them all in
+    the NaN running-sum policy (``gpu_kernel.cl:640-642``), so windows that
+    tile the samples give the one-shot sum exactly.  The result includes
+    acc0.
 
     frame: the camera frame (``camera_frame``), taken from scene.camera
     when None.  bounces: an optional int64 tensor of one element to which
@@ -55,7 +61,8 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
     depth = torch.zeros((r,), dtype=torch.int64, device=dev)
     o, d = camera_ray(sample)
     throughput = torch.ones((r, 3), device=dev)
-    acc = torch.zeros((r, 3), device=dev)
+    acc = (torch.zeros((r, 3), device=dev) if acc0 is None
+           else acc0.reshape(r, 3).to(torch.float32))
     zero = torch.zeros((), device=dev)
     one = torch.ones((), device=dev)
 

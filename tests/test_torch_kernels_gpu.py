@@ -24,6 +24,7 @@ through atomics.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -625,3 +626,145 @@ def test_failing_hdr_launch_raises(cuda, monkeypatch):
                                ot.RenderConfig(width=8, height=4, spp=1,
                                                max_depth=2),
                                lambda im: im.mean())
+
+
+
+def _window_cases():
+    return {"sphere": ot.readme_scene(), "mesh": mesh_scenes()["mesh"],
+            "hdr": hdr_scenes()["mesh"]}
+
+
+def _window_launcher(scene, cuda, plain=False):
+    """launch(cfg, sample_base, acc0, mean) -> (n_pix, 3) of K1 (a sphere
+    scene under a gradient sky) or K2 on the scene's inputs, or (plain) of
+    the kernel's plain version; seed 7."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.scene.sky import KIND_HDR
+    if scene.triangles.count == 0 and scene.sky.kind != KIND_HDR:
+        s = scene.to(cuda)
+        fn = mk.render_spheres_plain if plain else mk.render_spheres
+        head = (mk.camera_table(s), mk.sphere_table(s), s.spheres.count)
+        tail = (s.sky.kind, mk.specialize_flags(s), 7)
+        kw = {}
+    else:
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, cuda)
+        fn = mm.render_mesh_plain if plain else mm.render_mesh
+        head = (cam, sph, n, tab)
+        tail = (scene.sky.kind, flags, 7)
+        kw = {"sky_image": image}
+
+    def launch(cfg, sample_base=0, acc0=None, mean=True):
+        return torch.stack(fn(*head, cfg, *tail, cfg.width * cfg.height,
+                              sample_base=sample_base, acc0=acc0, mean=mean,
+                              **kw), -1)
+
+    return launch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["zero", "running_sum"])
+@pytest.mark.parametrize("case", ["sphere", "mesh", "hdr"])
+def test_window_kernels_sum_to_one_shot(cuda, case, policy):
+    """K1 and K2 (mesh and HDR bodies) in window mode: windows that tile
+    the samples, each from the sums before it (acc0) and returning the raw
+    sum, give the one-shot launch's sum bit for bit, and its mean divided
+    as the kernel divides is the one-shot mean; a window against its plain
+    version under the forward tolerance."""
+    from opencl_ray_tracer_tpu_torch._fp import div
+    launch = _window_launcher(_window_cases()[case], cuda)
+    cfg = ot.RenderConfig(width=50, height=30, spp=6, max_depth=6,
+                          nan_policy=policy)
+    acc = None
+    for s0, n in ((0, 2), (2, 3), (5, 1)):
+        acc = launch(cfg.replace(spp=n), s0,
+                     None if acc is None else acc.T.contiguous(), False)
+    assert torch.equal(acc, launch(cfg, mean=False))
+    assert torch.equal(div(acc, 6), launch(cfg))
+    start = launch(cfg.replace(spp=2), mean=False).T.contiguous()
+    got = launch(cfg.replace(spp=3), 2, start, False)
+    want = _window_launcher(_window_cases()[case], cuda, plain=True)(
+        cfg.replace(spp=3), 2, start, False)
+    diff = (got - want).abs() / 5
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99
+
+
+@pytest.mark.gpu
+def test_window_acc0_checked(cuda):
+    launch = _window_launcher(ot.readme_scene(), cuda)
+    cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
+    with pytest.raises(ValueError, match="acc0"):
+        launch(cfg, acc0=torch.zeros((32, 3), device=cuda))
+    with pytest.raises(ValueError, match="acc0"):
+        launch(cfg, acc0=torch.zeros((3, 32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sphere", "mesh", "hdr"])
+def test_checkpointed_and_progressive_on_card(cuda, case, tmp_path):
+    """render_checkpointed, interrupted and resumed, and render(progress=)
+    through the kernels: equal to render() bit for bit, the kernel
+    launched once per window and per row block."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = _window_cases()[case]
+    cfg = ot.RenderConfig(width=48, height=24, spp=5, max_depth=5)
+    want = ot.render(scene, cfg, seed=3)
+    path = str(tmp_path / "c.npz")
+    before = mk.LAUNCHES + mm.LAUNCHES
+    ot.render_checkpointed(scene, cfg.replace(spp=2), path, seed=3,
+                           chunk_spp=2)
+    got = ot.render_checkpointed(scene, cfg, path, seed=3, chunk_spp=2)
+    assert mk.LAUNCHES + mm.LAUNCHES == before + 3
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    calls = []
+    prog = ot.render(scene, cfg, seed=3, progress_blocks=4,
+                     progress=lambda d, t, img: calls.append(
+                         (d, t, img.device.type)))
+    assert mk.LAUNCHES + mm.LAUNCHES == before + 7
+    assert torch.equal(prog, want)
+    assert calls == [(6, 24, "cuda"), (12, 24, "cuda"), (18, 24, "cuda"),
+                     (24, 24, "cuda")]
+
+
+@pytest.mark.gpu
+def test_fit_resume_on_card(cuda, tmp_path):
+    """A fit through K1 and K4 interrupted after 2 steps and resumed to 4
+    follows the uninterrupted fit; K4's atomics add in another order from
+    run to run, so the losses agree within 1e-5 relative."""
+    true = ot.readme_scene()
+    cfg = ot.RenderConfig(width=64, height=36, spp=4, max_depth=6)
+    target = ot.render(true, cfg, seed=1)
+    init = dataclasses.replace(true, spheres=dataclasses.replace(
+        true.spheres, albedo=true.spheres.albedo + 0.1))
+    kw = dict(param_paths=("spheres.albedo",), seed=2)
+    _, full = ot.fit_scene(target, init, cfg, steps=4, **kw)
+    path = str(tmp_path / "fit.pt")
+    ot.fit_scene(target, init, cfg, steps=2, checkpoint_path=path,
+                 checkpoint_every=1, **kw)
+    _, resumed = ot.fit_scene(target, init, cfg, steps=4,
+                              checkpoint_path=path, **kw)
+    np.testing.assert_allclose(resumed, full, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cli_on_card(cuda, tmp_path):
+    """The CLI without --cpu renders on the card, checkpointed with a
+    progress image; its BMP is the tone-mapped render()."""
+    import subprocess
+    import sys
+    from opencl_ray_tracer_tpu_torch.io import read_bmp, tonemap_u8
+    out, ckpt = str(tmp_path / "out.bmp"), str(tmp_path / "c.npz")
+    prog = str(tmp_path / "p.bmp")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.cli", "render",
+         "--scene", "readme", "--width", "64", "--height", "36", "--spp",
+         "6", "--max-depth", "6", "--checkpoint", ckpt, "--chunk-spp", "4",
+         "--progress-image", prog, "-o", out],
+        capture_output=True, text=True, cwd=repo, timeout=600)
+    assert r.returncode == 0, r.stderr
+    assert "Rendered 6 / 6 samples" in r.stderr
+    want = ot.render(ot.readme_scene(), ot.RenderConfig(
+        width=64, height=36, spp=6, max_depth=6), seed=0)
+    np.testing.assert_array_equal(read_bmp(out), tonemap_u8(want))
+    np.testing.assert_array_equal(read_bmp(prog), tonemap_u8(want))

@@ -97,9 +97,12 @@ def test_unported_options_raise():
     target = torch.zeros((14, 24, 3))
     with pytest.raises(NotImplementedError, match="A12"):
         ot.fit_scene(target, ot.readme_scene(), cfg, soft=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    # checkpointed fits are ported (tests/test_torch_checkpoint.py); a
+    # checkpoint interval below one step is refused
+    with pytest.raises(ValueError, match="checkpoint_every"):
         ot.fit_scene(target, ot.readme_scene(), cfg,
-                     checkpoint_path="fit.npz", device="cpu")
+                     checkpoint_path="fit.npz", checkpoint_every=0,
+                     device="cpu")
     with pytest.raises(ValueError, match="grad_backend"):
         ot.fit_scene(target, ot.readme_scene(), cfg, grad_backend="pallas",
                      device="cpu")
