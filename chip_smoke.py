@@ -34,11 +34,19 @@ Phases, each printing JSON lines on standard output:
 6. gradient main path: ``render_grad_sampled`` of the README scene and the
    book cover at the main path's configuration with loss mean(img^2), one
    warm-up and the minimum of 3, counts set to 0 just before and read just
-   after; then the backward kernel alone by CUDA events, and the plain
-   gradient against it at depth 50 on 320x180 at 16 spp (one pixel per
-   kernel thread) and on the main path's 1280x720 at 2 spp (more pixels
-   than the kernel's resident threads, so each thread strides over
-   several; the plain gradient at 250 spp would take hours).
+   after; then the backward kernel (K4) alone by CUDA events with its
+   share of bound and the compiler's register line, and the plain gradient
+   against it at depth 50 on 320x180 at 16 spp and on the main path's
+   1280x720 at 2 spp (the plain gradient at 250 spp would take hours),
+   where each kernel thread takes several work items (pixel samples), and
+   two launches give equal camera cotangents.  6d: K4's split at the main
+   path's size on both scenes, the median of 5 CUDA-event times after a
+   warm-up, in turns: K1, K4, K4's earlier design (a pixel per thread) and
+   its timing cuts (the replay alone, the replay with its record writes,
+   plain adds instead of the shared atomics), the flat loop without each
+   of its options and at other register budgets, and the SIMT efficiency
+   of replay and walk back; every instance that is not a cut agrees with
+   K4 within 2e-3 (K4_AGREE) and counts the same bounces.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -154,7 +162,8 @@ Phases, each printing JSON lines on standard output:
    1280x720x5/d32) in a subprocess on the card; ``read_bmp`` of its output
    equal to ``tonemap_u8(render())`` of the same scene.
 27. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
-   window-mode keys, and the result line.  Each of phases 12 to 16, 21 and
+   window-mode keys and K4's the earlier design's time, and the result
+   line.  Each of phases 12 to 16, 21 and
    22 to 23 prints its seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
@@ -204,14 +213,42 @@ TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
 # (tools/mesh_fit_sweep.py measured the rates).
 FIT_SHIFT = 0.01
 FIT_LR = 1e-3
-# Libraries built at the start: label -> (source, macros).  The last is a
-# measurement variant, not on any path: the forward kernel with the
-# backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh).
+# Libraries built at the start: label -> (source, macros).  The last two
+# are measurement builds, not on any path: the forward kernel with the
+# backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh), and
+# the backward with the instances of K4's split (K4_VARIANTS).
 KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad": ("megagrad", ()),
            "megamesh": ("megamesh", ()),
            "intersect_mm": ("intersect_mm", ()),
-           "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",))}
+           "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",)),
+           "megagrad_k4_variants": ("megagrad", ("ORT_K4_VARIANTS",))}
+# The instances of the measurement build of csrc/megagrad.cu, in the order
+# of its kVariants: K4's earlier design (a pixel per thread; PR 2 to PR 6)
+# and its timing cuts, then the flat loop without K4's options (flat: no
+# warp-aggregated atomics, records in depth-major rows; flat_aos: records
+# as float4 by thread, no aggregation), with one more (k4_majority: each
+# iteration steps the phase most lanes are in), at other register budgets
+# (4, 7 or 8 blocks an SM instead of 6), with timing cuts, with the next
+# record of the walk back prefetched into L1 (k4_prefetch), and with the
+# walk back's adjoints in shared memory between steps (k4_smem_adjoints).  The cuts'
+# results are wrong on purpose (K4_CUTS); the rest must agree with K4
+# within K4_AGREE.  The SIMT instances are launched once, for their
+# counts, and not timed.
+K4_VARIANTS = ("earlier", "earlier_replay_only", "earlier_replay_records",
+               "earlier_no_atomics", "earlier_simt", "flat", "flat_aos",
+               "k4_majority", "k4_4_blocks", "k4_8_blocks", "k4_no_atomics",
+               "k4_replay_only", "k4_simt", "k4_prefetch", "k4_7_blocks",
+               "k4_smem_adjoints", "k4_smem_adjoints_7_blocks",
+               "k4_smem_adjoints_8_blocks")
+K4_CUTS = ("earlier_replay_only", "earlier_replay_records",
+           "earlier_no_atomics", "k4_no_atomics", "k4_replay_only")
+# max|a - b| / max|b| of the sphere-table and camera cotangents against
+# K4's: the instances that add each lane's values straight into a block's
+# shared cell (the earlier design, flat, flat_aos) sum 10^5 to 10^6 terms
+# a cell in float32, and part from K4 by up to 6.6e-4 on the book cover;
+# the instances with K4's aggregation agree with it within 3e-6.
+K4_AGREE = 2e-3
 GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
                "spheres.fuzz", "spheres.ior", "camera.look_from",
                "camera.look_at", "camera.vfov_deg", "camera.aperture_deg",
@@ -272,7 +309,8 @@ def kernel_ms(fn, reps: int = 3) -> float:
 
 def build_all():
     """Build every kernel library at once, one nvcc each: name -> (path,
-    seconds, the compiler's register and spill lines)."""
+    seconds, the compiler's register and spill lines, each after its entry
+    function's mangled name)."""
     from opencl_ray_tracer_tpu_torch.kernels import _build
 
     def one(label):
@@ -280,9 +318,12 @@ def build_all():
         lib = _build.build(*KERNELS[label])
         secs = time.perf_counter() - t0
         log = lib.with_suffix(".log")
-        ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln]
-                 if log.exists() else [])
+        ptxas, entry = [], ""
+        for ln in log.read_text().splitlines() if log.exists() else []:
+            if "entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
         return label, (lib, secs, ptxas)
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -405,6 +446,185 @@ def bound_of(flops: float, io_bytes: float) -> dict:
     return dict(flops=flops, bytes=io_bytes, bound_ms=ms,
                 bound_by=("operations" if flops / PEAK_FP32_FLOPS
                           >= io_bytes / PEAK_HBM_BYTES else "bytes"))
+
+
+def median_ms(fns: dict, reps: int = 5) -> dict:
+    """Each function's median device milliseconds (CUDA events) over reps
+    calls, the functions called in turns (warm them up first)."""
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def k4_variant(lib, v: int, cam, sph, n: int, cfg, sky_kind: int, flags,
+               g, seed: int):
+    """A launcher of instance v of the measurement build (K4_VARIANTS) on
+    the image cotangent g (3, n_pix): counts (5 int64) or None ->
+    (gcam (22,), gsph).  Built as kernels/megagrad.py's wrapper builds
+    K4's launch."""
+    import ctypes
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    n_pix = g.shape[1]
+    for name, argtypes in (
+            ("sphere_megagrad_variant_threads", [ctypes.c_int] * 4),
+            ("sphere_megagrad_variant_launch",
+             [ctypes.c_int, *mg._SYMBOLS["sphere_megagrad_launch"][0]])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    threads = lib.sphere_megagrad_variant_threads(v, n_pix, cfg.spp, n)
+    if threads <= 0:
+        fail(f"K4 variant {K4_VARIANTS[v]}: occupancy query failed")
+    rec = torch.empty(threads * cfg.max_depth * 12, dtype=torch.float32,
+                      device=cam.device)
+    cam_part = torch.zeros((threads // 128, 22), dtype=torch.float32,
+                           device=cam.device)
+    gsph = torch.zeros_like(sph)
+    bits = mk._flag_bits(cfg, sky_kind, flags)
+
+    def launch(counts=None):
+        gsph.zero_()
+        rc = lib.sphere_megagrad_variant_launch(
+            v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
+            g[0].data_ptr(), g[1].data_ptr(), g[2].data_ptr(),
+            cam_part.data_ptr(), gsph.data_ptr(), rec.data_ptr(), threads,
+            counts.data_ptr() if counts is not None else None, n_pix, 0,
+            seed, 0, cfg.spp, cfg.width, cfg.height, cfg.max_depth,
+            cfg.t_min, bits, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"K4 variant {K4_VARIANTS[v]}: CUDA error {rc}")
+        return cam_part.sum(0), gsph
+
+    return launch, threads
+
+
+def k4_split(dev, old_only: bool = False) -> dict:
+    """K4's split at the main path's size, README and book cover: K1, K4
+    and every instance of the measurement build, the median of 5 CUDA-event
+    times after a warm-up (the launch that reads the counts), in turns in
+    one process; the counts of each (K4's must equal the earlier design's:
+    the same paths replayed and walked back), the SIMT efficiency of
+    replay and walk back (lane steps over warp iterations x 32), and each
+    result against K4's.  old_only: K1 and the earlier design's instances
+    alone."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    lib = _build.load(*KERNELS["megagrad_k4_variants"][:1], {},
+                      KERNELS["megagrad_k4_variants"][1])
+    bench = ot.README_BENCH
+    n_pix = bench.width * bench.height
+    names = [k for k in K4_VARIANTS
+             if not old_only or k.startswith("earlier")]
+    out = {}
+    for case, scene in (("readme", ot.readme_scene(16 / 9)),
+                        ("book_cover", ot.book_cover_scene(
+                            aspect_ratio=16 / 9))):
+        scene = scene.to(dev)
+        cam, sph = mk.camera_table(scene), mk.sphere_table(scene)
+        n, sky_kind = scene.spheres.count, scene.sky.kind
+        flags = mk.specialize_flags(scene)
+        img = torch.stack(mk.render_spheres(cam, sph, n, bench, sky_kind,
+                                            flags, 0, n_pix), -1)
+        g = ((2.0 / img.numel() / bench.spp) * img).T.contiguous()
+        fns = {"K1": lambda: mk.render_spheres(cam, sph, n, bench, sky_kind,
+                                               flags, 0, n_pix)}
+        if not old_only:
+            fns["K4"] = lambda c=None: mg.render_grad_tables(
+                cam, sph, n, bench, sky_kind, flags, g[0], g[1], g[2], 0,
+                n_pix, counts=c)
+        threads = {}
+        for name in names:
+            fns[name], threads[name] = k4_variant(
+                lib, K4_VARIANTS.index(name), cam, sph, n, bench, sky_kind,
+                flags, g, 0)
+        # counts and results, one launch each, the warm-up
+        fns["K1"]()
+        ref_name = "earlier" if old_only else "K4"
+        counts, results = {}, {}
+        for name in (ref_name, *names):
+            c = torch.zeros(5, dtype=torch.int64, device=dev)
+            res = fns[name](c[:2] if name == "K4" else c)
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            results[name] = (res[0][:22].clone() if name != "K4"
+                             else res[0][0, :22].clone(), res[1].clone())
+        rows = list(mg.DIFF_FIELDS)
+        agree = {}
+        for name in names:
+            if name in K4_CUTS:
+                continue
+            a, b = results[name], results[ref_name]
+            agree[name] = {
+                "gsph_rel": float((a[1][rows, :n] - b[1][rows, :n]).abs()
+                                  .max() / b[1][rows, :n].abs().max()),
+                "gcam_rel": float((a[0] - b[0]).abs().max()
+                                  / b[0].abs().max())}
+            same = counts[name][:2] == counts[ref_name][:2]
+            if not same or max(agree[name].values()) >= K4_AGREE:
+                fail(f"K4 split {case}: {name} disagrees with {ref_name}: "
+                     f"{agree[name]}, counts {counts[name][:2]} against "
+                     f"{counts[ref_name][:2]}")
+        ms = median_ms({k: f for k, f in fns.items()
+                        if not k.endswith("simt")})
+        replay, reverse = counts[ref_name][:2]
+        flops = (replay * n * FLOPS_PER_SPHERE_TEST
+                 + reverse * FLOPS_PER_REVERSE_BOUNCE)
+        bound = bound_of(flops, (2 * (cam.numel() + sph.numel())
+                                 + 3 * n_pix) * 4)
+        simt = {}
+        for name in ("earlier_simt", "k4_simt"):
+            if name in counts:
+                c = counts[name]
+                simt[name] = {"replay": c[0] / (32 * c[2]),
+                              "walk_back": c[3] / (32 * c[4]),
+                              "replay_warp_iterations": c[2],
+                              "walk_back_lane_steps": c[3],
+                              "walk_back_warp_iterations": c[4]}
+        e = ms["earlier"]
+        split = {"records_ms": ms["earlier_replay_records"]
+                 - ms["earlier_replay_only"],
+                 "walk_back_ms": e - ms["earlier_replay_records"],
+                 "atomics_ms": e - ms["earlier_no_atomics"]}
+        if not old_only:
+            split.update(k4_replay_share=ms["k4_replay_only"] / ms["K4"],
+                         k4_atomics_ms=ms["K4"] - ms["k4_no_atomics"],
+                         k4_speedup=e / ms["K4"],
+                         k4_share_of_bound=bound["bound_ms"] / ms["K4"])
+        out[case] = dict(ms=ms, split=split, simt=simt, bound=bound,
+                         counts={k: counts[k] for k in (ref_name, *names)},
+                         threads=threads, agree=agree)
+        emit({"phase": "k4_split", "case": case, "size": "1280x720x250/d50",
+              **out[case]})
+    return out
+
+
+def split_only(old_only: bool = False) -> None:
+    """The device line, the build and K4's split alone:
+    python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    built = build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"library": lib.name, "seconds": secs,
+                             "ptxas": ptxas}
+                      for name, (lib, secs, ptxas) in built.items()}})
+    k4_split(torch.device("cuda"), old_only)
 
 
 def mesh_phases(dev) -> tuple:
@@ -1989,6 +2209,8 @@ def main() -> None:
         fail(f"the gradient main path skipped a kernel: {grad_launches}")
 
     # ---- 6b. the backward kernel alone at the main path's size ----
+    # K4's lines of the compiler's report
+    k4_ptxas = [ln for ln in built["megagrad"][2] if "sphere_megagrad" in ln]
     grad_full = {}
     for name, scene in (("readme", readme),
                         ("book_cover", ot.book_cover_scene(
@@ -2010,7 +2232,8 @@ def main() -> None:
         bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS,
                              io_bytes / PEAK_HBM_BYTES)
         grad_full[name] = dict(
-            kernel_ms=ms, replay_bounces=replay, reverse_bounces=reverse,
+            kernel_ms=ms, ptxas=k4_ptxas, replay_bounces=replay,
+            reverse_bounces=reverse,
             replay_bounces_per_sample=replay / (n_pix * bench.spp),
             reverse_bounces_per_sample=reverse / (n_pix * bench.spp),
             n_spheres=n, flops=flops, bytes=io_bytes, bound_ms=bound_ms,
@@ -2019,11 +2242,11 @@ def main() -> None:
               "size": "1280x720x250/d50", **grad_full[name]})
 
     # ---- 6c. plain gradient against the kernel, README, at depth 50 ----
-    # 320x180 at 16 spp: fewer pixels than the kernel's resident threads,
-    # one pixel per thread; 1280x720, the main path's grid, at 2 spp (the
-    # plain version at 250 spp would take hours): more pixels than resident
-    # threads, so each thread strides over several pixels, reusing its
-    # record column and carrying its camera cotangents from one to the next
+    # 320x180 at 16 spp, and 1280x720, the main path's grid, at 2 spp (the
+    # plain version at 250 spp would take hours).  Both hold more work items
+    # (pixel samples) than the kernel's resident threads, so each thread
+    # takes several items, of several pixels at 1280x720, reusing its
+    # records and carrying its camera cotangents from one to the next
     lib = mg._library()
     grad_check = {}
     for size, cfg in (("320x180x16/d50", ot.RenderConfig(
@@ -2031,7 +2254,8 @@ def main() -> None:
                       ("1280x720x2/d50", bench.replace(spp=2,
                                                        nan_policy="zero"))):
         n_px = cfg.width * cfg.height
-        threads = lib.sphere_megagrad_threads(n_px)
+        threads = lib.sphere_megagrad_threads(n_px * cfg.spp,
+                                              readme.spheres.count)
         k, p, kc, pc, t_plain, scene, launch = grad_pair(readme, cfg, seed=0)
         rel, absd, cos = leaf_errors(mg.table_grads_to_scene(scene, *k),
                                      mg.table_grads_to_scene(scene, *p))
@@ -2040,11 +2264,13 @@ def main() -> None:
         if not torch.equal(launch()[0], k[0]):
             fail(f"grad readme at {size}: the camera cotangents differ "
                  "between two launches")
+        items_per_thread = n_px * cfg.spp / threads
         grad_check[size] = dict(rel=rel, absd=absd, plain_ms=1e3 * t_plain,
                                 kernel_ms=k_ms,
-                                pixels_per_thread=n_px / threads)
+                                items_per_thread=items_per_thread)
         emit({"phase": "grad_plain_vs_kernel", "case": "readme",
               "size": size, "n_pix": n_px, "kernel_threads": threads,
+              "work_items_per_thread": items_per_thread,
               "pixels_per_thread": n_px / threads, "rel_err": rel,
               "max_rel_err": max(rel.values()), "max_abs_err": absd,
               "cosine": cos, "plain_ms": 1e3 * t_plain, "kernel_ms": k_ms,
@@ -2054,9 +2280,13 @@ def main() -> None:
                  f"{rel}, cosine {cos}")
         del k, p
     full_check = grad_check["1280x720x2/d50"]
-    if not full_check["pixels_per_thread"] > 1:
-        fail("the full-size gradient check left the kernel's pixel stride "
-             "untested")
+    if not full_check["items_per_thread"] > 1:
+        fail("the full-size gradient check left the kernel's stride over "
+             "work items untested")
+
+    # ---- 6d. K4's split: the earlier design's time by part, K4 and its
+    # options against it, the SIMT efficiencies ----
+    split = k4_split(dev)
 
     # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
     true = ot.readme_scene(16 / 9)
@@ -2141,6 +2371,10 @@ def main() -> None:
         "library_ms": None,
         "readme_fwd_bwd_ms": 1e3 * grad_runs["readme"][0],
         "book_cover_fwd_bwd_ms": 1e3 * grad_runs["book_cover"][0],
+        "book_cover_ms": grad_full["book_cover"]["kernel_ms"],
+        "earlier_design_median_ms": {
+            case: split[case]["ms"]["earlier"] for case in split},
+        "median_ms": {case: split[case]["ms"]["K4"] for case in split},
     }, *mesh_entries, mesh_grad_entry, *hdr_entries]
     for entry in kernels:
         entry.update(windows.get(entry["name"], {}))

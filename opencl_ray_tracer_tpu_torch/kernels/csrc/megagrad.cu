@@ -1,9 +1,11 @@
 // Backward megakernels: the cotangents of the scene tables for an image
-// cotangent, one thread per pixel.  Four instances of one body, each
-// replacing an instance of opencl_ray_tracer_tpu/kernels/megagrad.py::
-// _make_grad_kernel:
+// cotangent.  Each replaces an instance of opencl_ray_tracer_tpu/kernels/
+// megagrad.py::_make_grad_kernel:
 //
-// - sphere_megagrad (K4): sphere scenes (mesh=None, hdr_mode=None).
+// - sphere_megagrad (K4): sphere scenes (mesh=None, hdr_mode=None), a
+//   kernel of its own with a flat loop per lane over work items (see the
+//   note above it).  The next three are instances of one body, the
+//   megagrad template, one thread per pixel:
 // - mesh_megagrad (K5): spheres and one uniform-material triangle mesh in
 //   gating boxes (mesh=(n_chunks, chunk, chunk_box_ids, n_boxes, m_type),
 //   through _grad_tables_mesh_inner and its ladder).
@@ -48,7 +50,7 @@
 // are the triangles' own.  The chain to the scene's radius, camera and
 // vertices happens outside, in kernels/megagrad.py.
 //
-// Design, per pixel and sample:
+// Design, per pixel and sample (K4 takes the same steps in its flat loop):
 // 1. Forward replay with the forward kernels' own device code (common.cuh,
 //    and mesh.cuh's culled triangle hit for the mesh), so every discrete
 //    decision is the forward's, but for the fuzz radius, which follows the
@@ -56,7 +58,8 @@
 //    state (origin, direction, throughput, winner code: a sphere index, or
 //    n_spheres for a triangle; the mesh variant adds the hit t and the
 //    triangle's plan-order id) in a global scratch buffer, one column per
-//    thread of the grid, so neighbouring threads write neighbouring words.
+//    thread of the grid, so neighbouring threads write neighbouring words
+//    (K4: three float4 per bounce, a thread's record in two sectors).
 // 2. A sample that ends black (absorbed, or out of depth) contributes
 //    nothing and is skipped.  A miss or an emissive hit seeds the adjoint of
 //    the throughput (and of the direction, through the gradient sky).
@@ -69,11 +72,14 @@
 //    Moller-Trumbore for a fixed triangle; its shading normal is
 //    n / max(|n|, 1e-20).
 // 4. Sphere cotangents are summed in shared memory per block (shared-memory
-//    atomics) and flushed with one global atomicAdd per entry and block;
+//    atomics; K4 first sums a bounce's over the lanes of the warp that hit
+//    the same sphere) and flushed with one global atomicAdd per entry and
+//    block;
 //    triangle cotangents go to gtri with one global atomicAdd per entry and
 //    bounce.  The order of those float sums varies from run to run.  Camera
-//    cotangents are summed in registers per thread, then over the warp and
-//    the block in a fixed order, and each block writes its row of sums
+//    cotangents are summed per thread (K4: in shared memory, a column per
+//    thread), then over the block in a fixed order, and each block writes
+//    its row of sums
 //    (cam_part), which the wrapper adds up: they come out the same in every
 //    run.  That matters where they cancel: a pinhole camera's focus-distance
 //    gradient is exactly zero, and what is left of it is rounding.
@@ -84,13 +90,17 @@
 // 132 FLOPs for a Lambertian sphere bounce, 89 for a Lambertian triangle
 // bounce and 72 more for a fuzzy-metal one (counted operation by
 // operation in chip_smoke.py).  Device memory carries the tables, the
-// cotangent planes and the records (40 bytes a bounce, 48 in the mesh
-// variant, written once and read once, mostly from L2).  Left for later
-// work: warp divergence from uneven path lengths (one thread walks a long
-// path while its warp waits), shared-memory atomics that serialize when
-// the lanes of a warp hit the same sphere, and the global atomics of the
-// triangle cotangents (a block could stage them in shared memory where the
-// mesh is small enough).
+// cotangent planes and the records (40 bytes a bounce, 48 in K4 and the
+// mesh variant, written once and read once, mostly from L2).  What held
+// the sphere backward back, measured by chip_smoke.py's split of the
+// earlier one-thread-per-pixel K4 (the megagrad template's sphere
+// instance, kept for that measurement): the shared-memory atomics (half
+// its time: a warp's lanes hit the same sphere), and the replay and walk
+// back each waiting for the warp's deepest lane (23% of lanes busy in the
+// replay); the records cost little.  K4's flat loop and its aggregated
+// atomics answer both.  Left for later work in K5 to K7: the same waits
+// and atomics, and the global atomics of the triangle cotangents (a block
+// could stage them in shared memory where the mesh is small enough).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -187,14 +197,30 @@ struct AdjMat {
   float inv_ior;
 };
 
-// Material cotangents of a sphere: the shared accumulator acc (rows of
-// kMaxSpheres), column bi.
+// Cotangents of sphere bi: the shared accumulator acc (rows of `stride`),
+// column bi.
 struct SphereSink {
   float* acc;
+  int stride;
   int bi;
   __device__ __forceinline__ void add(int row, float v) {
-    atomicAdd(&acc[row * kMaxSpheres + bi], v);
+    atomicAdd(&acc[row * stride + bi], v);
   }
+};
+
+// One bounce's sphere cotangents, row by row, in registers (every row
+// index is a constant once inlined); K4 sums them over the warp before its
+// atomics (add_rows_aggregated).
+struct RowSink {
+  float v[kGradRows];
+  __device__ __forceinline__ void add(int row, float x) { v[row] += x; }
+};
+
+// Timing only: plain adds into one lane-private sum instead of the shared
+// atomics (its results are wrong on purpose).
+struct LaneSink {
+  float sum;
+  __device__ __forceinline__ void add(int, float x) { sum += x; }
 };
 
 // Material cotangents of a triangle, in registers until the bounce ends.
@@ -321,17 +347,18 @@ __device__ __forceinline__ void scatter_adjoint(
 }
 
 // Adjoint of one bounce that went on from state (o, d, T) by a hit of
-// sphere bi at bounce `depth`.  On entry go, gd and gT hold the adjoints of
-// the bounce's outputs (new origin = hit point, new direction, new
-// throughput); on return, those of its inputs.  Sphere cotangents are added
-// to the shared accumulator acc (rows of kMaxSpheres).
+// sphere bi at bounce `depth`, with the sphere table sph (rows of
+// `stride`).  On entry go, gd and gT hold the adjoints of the bounce's
+// outputs (new origin = hit point, new direction, new throughput); on
+// return, those of its inputs.  Sphere bi's cotangents go to sink.
+template <class Sink>
 __device__ __forceinline__ void bounce_adjoint(
-    const float* sph, int flags, float t_min, uint32_t seed, uint32_t pix,
-    uint32_t sid, int depth, const float o[3], const float d[3],
-    const float T[3], int bi, float go[3], float gd[3], float gT[3],
-    float* acc) {
-#define SPH(field) sph[(field) * kMaxSpheres + bi]
-#define ACC(row, v) atomicAdd(&acc[(row) * kMaxSpheres + bi], (v))
+    const float* sph, int stride, int flags, float t_min, uint32_t seed,
+    uint32_t pix, uint32_t sid, int depth, const float o[3],
+    const float d[3], const float T[3], int bi, float go[3], float gd[3],
+    float gT[3], Sink& sink) {
+#define SPH(field) sph[(field) * stride + bi]
+#define ACC(row, v) sink.add((row), (v))
   // ---- forward recompute (the expressions of closest_sphere) ----
   const float a = dot3(d, d);
   const float c[3] = {SPH(F_CX), SPH(F_CY), SPH(F_CZ)};
@@ -364,7 +391,6 @@ __device__ __forceinline__ void bounce_adjoint(
                  SPH(F_INVIOR)};
 
   // ---- throughput and direction ----
-  SphereSink sink{acc, bi};
   float gn[3], gdd[3];
   scatter_adjoint(m, sink, flags, seed, pix, sid, depth, d, a, nrm, front, T,
                   gd, gT, gn, gdd);
@@ -474,7 +500,17 @@ __device__ __forceinline__ void tri_adjoint(
     if (sink.g[r] != 0.f) atomicAdd(&gtri[(GT_MAT + r) * tp + j], sink.g[r]);
 }
 
-template <bool kMesh, int kSky>
+// Timing-only cuts of the earlier design's sphere instance, which
+// chip_smoke.py's split of K4's time launches (the measurement build,
+// ORT_K4_VARIANTS; no entry point launches them): the replay alone (no
+// record written, no walk back), the replay with its record writes, the
+// whole kernel with plain adds into a lane-private sum instead of the
+// shared atomics (its results are wrong on purpose), and the whole kernel
+// counting its SIMT efficiency (counts[2..4]: the warp iterations of the
+// replay, the lane steps of the walk back and its warp iterations).
+enum Cut { kCutNone, kCutReplay, kCutRecords, kCutAtomics, kCutSimt };
+
+template <bool kMesh, int kSky, int kCut = kCutNone>
 __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
   constexpr bool kEmit = kSky == kSkyEmit;
   constexpr int kR = kMesh ? kRecMesh : kRec;
@@ -501,6 +537,8 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
   float gcam[kCamSlots];               // this thread's camera cotangents
   for (int k = 0; k < kCamSlots; ++k) gcam[k] = 0.f;
   unsigned int n_replay = 0, n_reverse = 0, n_tests = 0, n_reverse_tri = 0;
+  unsigned int w_replay = 0, n_back = 0, w_back = 0;  // kCutSimt
+  LaneSink lane_sink{0.f};                           // the cuts' sink
 
   for (int local = tid; local < p.n_pix; local += p.n_threads) {
     float g[3] = {0.f, 0.f, 0.f};
@@ -529,6 +567,8 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
       bool win_tri = false;
       for (;;) {
         ++n_replay;
+        if constexpr (kCut == kCutSimt)
+          if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) ++w_replay;
         const float a = dot3(d, d);
         float best_t;
         int bi;
@@ -576,7 +616,7 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
           break;
         }
         if (sc.absorbed || depth + 1 >= p.max_depth) break;  // black
-        if constexpr (!kEmit) {
+        if constexpr (!kEmit && kCut != kCutReplay) {
           float* r = rec + (size_t)depth * kR * rs;
           r[R_OX * rs] = o[0];
           r[R_OY * rs] = o[1];
@@ -623,6 +663,10 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         }
         continue;
       }
+      if constexpr (kCut == kCutReplay || kCut == kCutRecords) {
+        lane_sink.add(0, T[0] + d[0]);
+        continue;
+      }
       if (ending == END_BLACK) continue;
 
       // ---- 2. seed: c = T * src, clamped, NaN -> 0 ----
@@ -661,9 +705,13 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
             atomicAdd(&p.gtri[(GT_MAT + k) * p.mt.t_pad + win],
                       gcv[k] * T[k]);
         } else {
-          for (int k = 0; k < 3; ++k)
-            atomicAdd(&s_acc[(G_ALR + k) * kMaxSpheres + win],
-                      gcv[k] * T[k]);
+          for (int k = 0; k < 3; ++k) {
+            if constexpr (kCut == kCutAtomics)
+              lane_sink.add(0, gcv[k] * T[k]);
+            else
+              atomicAdd(&s_acc[(G_ALR + k) * kMaxSpheres + win],
+                        gcv[k] * T[k]);
+          }
         }
       } else if constexpr (kSky == kSkyConsume) {
         // a constant sky value: no adjoint of the direction (the texel's
@@ -683,6 +731,10 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
 
       // ---- 3. reverse walk over the bounces that went on ----
       for (int k = depth - 1; k >= 0; --k) {
+        if constexpr (kCut == kCutSimt) {
+          ++n_back;
+          if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) ++w_back;
+        }
         const float* r = rec + (size_t)k * kR * rs;
         const float ok[3] = {r[R_OX * rs], r[R_OY * rs], r[R_OZ * rs]};
         const float dk[3] = {r[R_DX * rs], r[R_DY * rs], r[R_DZ * rs]};
@@ -697,8 +749,14 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
             continue;
           }
         }
-        bounce_adjoint(s_sph, flags, p.t_min, p.seed, pix, sid, k, ok, dk, tk,
-                       code, go, gd, gT, s_acc);
+        if constexpr (kCut == kCutAtomics) {
+          bounce_adjoint(s_sph, kMaxSpheres, flags, p.t_min, p.seed, pix, sid,
+                         k, ok, dk, tk, code, go, gd, gT, lane_sink);
+        } else {
+          SphereSink sink{s_acc, kMaxSpheres, code};
+          bounce_adjoint(s_sph, kMaxSpheres, flags, p.t_min, p.seed, pix, sid,
+                         k, ok, dk, tk, code, go, gd, gT, sink);
+        }
       }
 
       // ---- camera: d0 = L + H uu + V vv - o0, o0 = O (+ DU lx + DV ly) ----
@@ -730,6 +788,7 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
       }
     }
   } else {
+    if constexpr (kCut != kCutNone) gcam[0] += lane_sink.sum;
     // ---- 4. flush: warp sums of the camera cotangents, then the block ----
     for (int k = 0; k < kCamSlots; ++k) {
       float v = gcam[k];
@@ -743,6 +802,16 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
       if ((threadIdx.x & 31) == 0) {
         atomicAdd(&p.counts[0], (unsigned long long)w0);
         atomicAdd(&p.counts[1], (unsigned long long)w1);
+      }
+      if constexpr (kCut == kCutSimt) {
+        const unsigned int w2 = __reduce_add_sync(0xffffffffu, w_replay);
+        const unsigned int w3 = __reduce_add_sync(0xffffffffu, n_back);
+        const unsigned int w4 = __reduce_add_sync(0xffffffffu, w_back);
+        if ((threadIdx.x & 31) == 0) {
+          atomicAdd(&p.counts[2], (unsigned long long)w2);
+          atomicAdd(&p.counts[3], (unsigned long long)w3);
+          atomicAdd(&p.counts[4], (unsigned long long)w4);
+        }
       }
       if constexpr (kMesh) {
         const unsigned int w2 = __reduce_add_sync(0xffffffffu, n_tests);
@@ -768,6 +837,444 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
   }
 }
 
+// ---- K4: the sphere backward, one flat loop per lane ----
+//
+// The earlier design (the megagrad template's sphere instance, kept for
+// chip_smoke.py's measurements only) ran, per pixel and sample, the replay
+// to the path's end and then the walk back over the same depth, so a warp
+// waited for its deepest lane twice per sample.  Here each lane takes work
+// items (pixel, sample) from a static map (item i = sample * n_pix +
+// pixel, thread t takes t, t + n_threads, ...) and runs one flat loop over
+// (item, phase, bounce), in the manner of the forward kernel's loop: a
+// lane whose sample ends black, whose cotangent is zero, or whose walk
+// back reaches the camera takes its next item at once.  Each iteration
+// steps every live lane by one replay bounce or one bounce walked back.
+// The camera cotangents of a thread are summed in the order of its items,
+// in shared memory (a column per thread), so two launches give equal
+// camera cotangents.  Options (kOpt bits; kK4Opt is what the entry points
+// launch, the others are measured against it by chip_smoke.py, which
+// found the majority phase slower than stepping both phases):
+enum K4Opt {
+  // a bounce's sphere cotangents summed over the warp's lanes that hit the
+  // same sphere before the shared atomic (add_rows_aggregated)
+  kOptAgg = 1,
+  // records of 12 floats (3 float4) at (depth * n_threads + thread), so a
+  // lane's record is two sectors whatever depth its neighbours are at;
+  // else the earlier design's depth-major rows of one float per thread
+  kOptAoS = 2,
+  // each iteration steps the phase (replay or walk back) that most live
+  // lanes are in, the others wait; else every lane steps its own phase
+  kOptMajority = 4,
+  // timing only: plain adds into a lane-private sum instead of the shared
+  // atomics (wrong on purpose), the replay alone (no record, no walk back),
+  // and the SIMT counts (counts[2..4]: the warp iterations of the replay,
+  // the lane steps of the walk back and its warp iterations)
+  kTimeNoAtomics = 8,
+  kTimeReplay = 16,
+  kTimeSimt = 32,
+  // with kOptAoS: the record the walk back reads next prefetched into L1
+  // one step ahead
+  kOptPrefetch = 64,
+  // the walk back's adjoints (go, gd, gT) kept in shared memory between
+  // steps, a column per thread, instead of in registers
+  kOptSmemAdj = 128
+};
+constexpr int kK4Opt = kOptAgg | kOptAoS;
+// blocks per SM the register budget is set for (__launch_bounds__)
+constexpr int kK4MinBlocks = 6;
+constexpr int kRecAoS = 12;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Asks for the L1 line of global address a (no register is written).
+__device__ __forceinline__ void prefetch_l1(const void* a) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
+#endif
+}
+
+// Dynamic shared memory of K4 for n spheres: the sphere table and the
+// accumulator (kFields and kGradRows rows of n), the camera slots, each
+// thread's camera cotangents (kCamSlots rows of kThreads) and, with
+// kOptSmemAdj, its adjoints (9 rows of kThreads).
+static size_t k4_smem_bytes(int n, int opt) {
+  const size_t adj = (opt & kOptSmemAdj) ? 9 * kThreads : 0;
+  return sizeof(float) * ((size_t)(kFields + kGradRows) * n + kCamSlots +
+                          (size_t)kCamSlots * kThreads + adj);
+}
+
+// Adds each lane's rows v to column bi of the accumulator acc (rows of
+// `stride`), first summed over the lanes of `lanes` (the lanes that make
+// this call together) that share bi: a tree over each group's lanes by
+// their rank in it (E. Westphal's shuffle reduction over peers), then one
+// atomic per group and nonzero row.  Rows that the scene's materials
+// cannot reach (fuzz without metal, ior without glass) are skipped.
+__device__ __forceinline__ void add_rows_aggregated(unsigned lanes, int bi,
+                                                    float (&v)[kGradRows],
+                                                    float* acc, int stride,
+                                                    int flags) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers = __match_any_sync(lanes, bi);
+  const bool leader = __ffs(peers) - 1 == lane;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= ~((2u << lane) - 1u);  // the peers above this lane
+  while (__any_sync(lanes, peers != 0u)) {
+    const int next = __ffs(peers) - 1;
+    const int src = next < 0 ? lane : next;
+    for (int r = 0; r < kGradRows; ++r) {
+      if (r == G_FUZZ && !(flags & HAS_METAL)) continue;
+      if ((r == G_IOR || r == G_INVIOR) && !(flags & HAS_DIEL)) continue;
+      const float t = __shfl_sync(lanes, v[r], src);
+      if (next >= 0) v[r] += t;
+    }
+    peers &= ~__ballot_sync(lanes, rank & 1);
+    rank >>= 1;
+  }
+  if (leader)
+    for (int r = 0; r < kGradRows; ++r)
+      if (v[r] != 0.f) atomicAdd(&acc[r * stride + bi], v[r]);
+}
+
+template <int kOpt, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sphere_megagrad(const Params p) {
+  constexpr bool kAgg = (kOpt & kOptAgg) != 0;
+  constexpr bool kAoS = (kOpt & kOptAoS) != 0;
+  constexpr bool kMajority = (kOpt & kOptMajority) != 0;
+  constexpr bool kNoAtomics = (kOpt & kTimeNoAtomics) != 0;
+  constexpr bool kReplayOnly = (kOpt & kTimeReplay) != 0;
+  constexpr bool kSimt = (kOpt & kTimeSimt) != 0;
+  constexpr bool kPrefetch = (kOpt & kOptPrefetch) != 0 && kAoS;
+  constexpr bool kSmemAdj = (kOpt & kOptSmemAdj) != 0;
+  extern __shared__ float smem[];
+  const int n = p.n_spheres;
+  float* const s_sph = smem;                   // kFields rows of n
+  float* const s_acc = s_sph + kFields * n;    // kGradRows rows of n
+  float* const s_cam = s_acc + kGradRows * n;  // kCamSlots
+  float* const s_gcam = s_cam + kCamSlots;     // kCamSlots rows of kThreads
+  for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
+    s_sph[k] = p.sph[(k / n) * p.tab_w + k % n];
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
+    s_acc[k] = 0.f;
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x)
+    s_cam[k] = p.cam[k];
+  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
+    s_gcam[k] = 0.f;
+  __syncthreads();
+  // this thread's camera cotangents: slot k at gcam[k * kThreads]; with
+  // kSmemAdj its adjoints go, gd, gT at s_adj[k * kThreads], k < 9
+  float* const gcam = s_gcam + threadIdx.x;
+  float* const s_adj = s_gcam + kCamSlots * kThreads + threadIdx.x;
+
+  const int flags = p.flags;
+  const bool lens = (flags & HAS_APERTURE) && s_cam[C_APERTURE] > 0.f;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int nt = p.n_threads;
+  unsigned int n_replay = 0, n_reverse = 0;
+  unsigned int w_replay = 0, n_back = 0, w_back = 0;  // kTimeSimt
+  LaneSink lane_sink{0.f};                           // the timing cuts' sink
+
+  // the lane's item (sample s_item, pixel local; the thread's first is
+  // item tid, and each next n_threads = q samples and r pixels further)
+  // and state: the sample's counters, the ray (o, d) and throughput T of
+  // the replay, or the record being walked back and the adjoints (go, gd,
+  // gT); depth counts the records
+  const int q = nt / p.n_pix, r = nt % p.n_pix;
+  int s_item = tid / p.n_pix, local = tid % p.n_pix, depth = 0;
+  bool back = false;
+  uint32_t pix = 0, sid = 0;
+  float o[3], d[3], T[3], go[3], gd[3], gT[3];
+  for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
+
+  auto advance = [&]() {
+    s_item += q;
+    local += r;
+    if (local >= p.n_pix) {
+      local -= p.n_pix;
+      ++s_item;
+    }
+  };
+  // Takes the item at (s_item, local), or the first after it whose pixel
+  // has a nonzero cotangent, and casts its camera ray; false when none is
+  // left.
+  auto next_item = [&]() -> bool {
+    for (; s_item < p.n_samples; advance()) {
+      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
+        continue;
+      const int lin = p.pix_offset + local;
+      pix = (uint32_t)lin;
+      sid = p.sample_base + (uint32_t)s_item;
+      camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
+                 (float)(lin % p.width), (float)(lin / p.width), o, d);
+      for (int k = 0; k < 3; ++k) T[k] = 1.f;
+      depth = 0;
+      back = false;
+      return true;
+    }
+    return false;
+  };
+  // The adjoint of the camera ray, d0 = L + H uu + V vv - o0,
+  // o0 = O (+ DU lx + DV ly), into the thread's camera cotangents.
+  auto camera_adjoint = [&]() {
+    const int lin = p.pix_offset + local;
+    float o0[3], d0[3];
+    const CamDraw cd =
+        camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
+                   (float)(lin % p.width), (float)(lin / p.width), o0, d0);
+    for (int k = 0; k < 3; ++k) {
+      const float gok = go[k] - gd[k];
+      gcam[(C_L + k) * kThreads] += gd[k];
+      gcam[(C_H + k) * kThreads] += cd.uu * gd[k];
+      gcam[(C_V + k) * kThreads] += cd.vv * gd[k];
+      gcam[(C_O + k) * kThreads] += gok;
+      if (lens) {
+        gcam[(C_DU + k) * kThreads] += cd.lx * gok;
+        gcam[(C_DV + k) * kThreads] += cd.ly * gok;
+      }
+    }
+  };
+  auto rec_at = [&](int k) -> float* {
+    return kAoS ? p.rec + ((size_t)k * nt + tid) * kRecAoS
+                : p.rec + (size_t)k * kRec * nt + tid;
+  };
+  auto store_adj = [&]() {
+    if constexpr (kSmemAdj) {
+      for (int k = 0; k < 3; ++k) {
+        s_adj[k * kThreads] = go[k];
+        s_adj[(3 + k) * kThreads] = gd[k];
+        s_adj[(6 + k) * kThreads] = gT[k];
+      }
+    }
+  };
+  auto load_adj = [&]() {
+    if constexpr (kSmemAdj) {
+      for (int k = 0; k < 3; ++k) {
+        go[k] = s_adj[k * kThreads];
+        gd[k] = s_adj[(3 + k) * kThreads];
+        gT[k] = s_adj[(6 + k) * kThreads];
+      }
+    }
+  };
+  // the first and last word of record k (its two lines at most)
+  auto prefetch_rec = [&](int k) {
+    if constexpr (kPrefetch) {
+      prefetch_l1(rec_at(k));
+      prefetch_l1(rec_at(k) + kRec - 1);
+    }
+  };
+
+  bool live = next_item();
+  while (__any_sync(kFullMask, live)) {
+    bool replay = live && !back;
+    bool reverse = live && back;
+    if constexpr (kMajority) {
+      const int n_rep = __popc(__ballot_sync(kFullMask, replay));
+      const int n_rev = __popc(__ballot_sync(kFullMask, reverse));
+      if (n_rev > n_rep)
+        replay = false;
+      else
+        reverse = false;
+    }
+    const unsigned rev_lanes = __ballot_sync(kFullMask, reverse);
+    if constexpr (kSimt) {
+      const unsigned rep_lanes = __ballot_sync(kFullMask, replay);
+      if (lane == 0) {
+        w_replay += rep_lanes != 0u;
+        w_back += rev_lanes != 0u;
+      }
+    }
+    bool done = false;       // the item ends in this iteration
+    bool at_camera = false;  // its walk back reaches the camera
+
+    if (replay) {
+      // ---- one bounce of the replay (the forward's device code) ----
+      ++n_replay;
+      const float a = dot3(d, d);
+      float best_t;
+      int bi;
+      closest_sphere(s_sph, n, n, o, d, a, p.t_min, best_t, bi);
+      int ending = END_BLACK;
+      if (!(best_t < kBig)) {
+        ending = END_MISS;
+      } else {
+        float h[3], nrm[3];
+        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
+        for (int k = 0; k < 3; ++k)
+          nrm[k] = (h[k] - s_sph[(F_CX + k) * n + bi]) / s_sph[F_R * n + bi];
+        const bool front = dot3(d, nrm) < 0.f;
+        if (!front)
+          for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
+        const Scatter sc = scatter_hit(s_sph, n, bi, flags, p.seed, pix, sid,
+                                       depth, d, a, nrm, front);
+        if (sc.emitted) {
+          ending = END_EMIT;
+        } else if (sc.absorbed || depth + 1 >= p.max_depth) {
+          done = true;  // black
+        } else {
+          if constexpr (!kReplayOnly) {
+            float* r = rec_at(depth);
+            if constexpr (kAoS) {
+              float4* r4 = reinterpret_cast<float4*>(r);
+              r4[0] = make_float4(o[0], o[1], o[2], d[0]);
+              r4[1] = make_float4(d[1], d[2], T[0], T[1]);
+              r4[2] = make_float4(T[2], (float)bi, 0.f, 0.f);
+            } else {
+              r[R_OX * nt] = o[0];
+              r[R_OY * nt] = o[1];
+              r[R_OZ * nt] = o[2];
+              r[R_DX * nt] = d[0];
+              r[R_DY * nt] = d[1];
+              r[R_DZ * nt] = d[2];
+              r[R_TR * nt] = T[0];
+              r[R_TG * nt] = T[1];
+              r[R_TB * nt] = T[2];
+              r[R_WIN * nt] = (float)bi;
+            }
+          }
+          for (int k = 0; k < 3; ++k) {
+            o[k] = h[k];
+            d[k] = sc.dir[k];
+            T[k] = T[k] * sc.att[k];
+          }
+          ++depth;
+        }
+      }
+      if (ending != END_BLACK && kReplayOnly) {
+        lane_sink.add(0, T[0] + d[0]);
+        done = true;
+      } else if (ending != END_BLACK) {
+        // ---- the seed: c = T * src, clamped, NaN -> 0 ----
+        const float g[3] = {p.g_r[local], p.g_g[local], p.g_b[local]};
+        float src[3];
+        if (ending == END_MISS)
+          sky_colour(s_cam, flags, d, dot3(d, d), src);
+        else
+          for (int k = 0; k < 3; ++k) src[k] = s_sph[(F_ALR + k) * n + bi];
+        float gcv[3];
+        bool any = false;
+        for (int k = 0; k < 3; ++k) {
+          const float cv = T[k] * src[k];
+          const float cg = (flags & CLAMP) ? clamp01_grad(cv) : 1.f;
+          gcv[k] = isnan(cv) ? 0.f : g[k] * cg;
+          any = any || gcv[k] != 0.f;
+        }
+        if (!any) {
+          done = true;
+        } else {
+          // the bounces walked back, the seed counted
+          n_reverse += (unsigned int)depth + 1u;
+          for (int k = 0; k < 3; ++k) {
+            go[k] = 0.f;
+            gd[k] = 0.f;
+            gT[k] = gcv[k] * src[k];
+          }
+          if (ending == END_EMIT) {
+            for (int k = 0; k < 3; ++k) {
+              if constexpr (kNoAtomics)
+                lane_sink.add(0, gcv[k] * T[k]);
+              else
+                atomicAdd(&s_acc[(G_ALR + k) * n + bi], gcv[k] * T[k]);
+            }
+          } else if (flags & SKY_CONST) {
+            for (int k = 0; k < 3; ++k)
+              gcam[(C_SKY + k) * kThreads] += gcv[k] * T[k];
+          } else {
+            // sky = (1 - t) + t blue, t = (d_y / |d| + 1) / 2
+            const float a2 = dot3(d, d);
+            const float len = sqrtf(a2);
+            const float gtk = gcv[0] * T[0] * (0.5f - 1.f) +
+                              gcv[1] * T[1] * (0.7f - 1.f);
+            const float gy = 0.5f * gtk;
+            for (int k = 0; k < 3; ++k)
+              gd[k] = gy * ((k == 1 ? 1.f : 0.f) - d[1] * d[k] / a2) / len;
+          }
+          store_adj();
+          back = true;
+          at_camera = depth == 0;
+          if (depth > 0) prefetch_rec(depth - 1);
+        }
+      }
+    }
+
+    if (reverse) {
+      // ---- one bounce walked back, from its record ----
+      --depth;
+      if constexpr (kSimt) ++n_back;
+      const float* r = rec_at(depth);
+      int bi;
+      if constexpr (kAoS) {
+        const float4* r4 = reinterpret_cast<const float4*>(r);
+        const float4 a = r4[0], b = r4[1], c = r4[2];
+        o[0] = a.x; o[1] = a.y; o[2] = a.z;
+        d[0] = a.w; d[1] = b.x; d[2] = b.y;
+        T[0] = b.z; T[1] = b.w; T[2] = c.x;
+        bi = (int)c.y;
+      } else {
+        o[0] = r[R_OX * nt]; o[1] = r[R_OY * nt]; o[2] = r[R_OZ * nt];
+        d[0] = r[R_DX * nt]; d[1] = r[R_DY * nt]; d[2] = r[R_DZ * nt];
+        T[0] = r[R_TR * nt]; T[1] = r[R_TG * nt]; T[2] = r[R_TB * nt];
+        bi = (int)r[R_WIN * nt];
+      }
+      if (depth > 0) prefetch_rec(depth - 1);
+      load_adj();
+      if constexpr (kNoAtomics) {
+        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                       d, T, bi, go, gd, gT, lane_sink);
+      } else if constexpr (kAgg) {
+        RowSink rows{};
+        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                       d, T, bi, go, gd, gT, rows);
+        add_rows_aggregated(rev_lanes, bi, rows.v, s_acc, n, flags);
+      } else {
+        SphereSink sink{s_acc, n, bi};
+        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                       d, T, bi, go, gd, gT, sink);
+      }
+      store_adj();
+      at_camera = depth == 0;
+    }
+    if (at_camera) {
+      camera_adjoint();
+      done = true;
+    }
+    if (done) {
+      advance();
+      live = next_item();
+    }
+  }
+
+  // ---- flush: the counts, the block's sphere cotangents (one global
+  // atomic per entry) and its camera cotangents, summed over the threads
+  // in a fixed order into the block's row of cam_part ----
+  if constexpr (kNoAtomics || kReplayOnly) gcam[0] += lane_sink.sum;
+  if (p.counts != nullptr) {
+    const unsigned int w0 = __reduce_add_sync(kFullMask, n_replay);
+    const unsigned int w1 = __reduce_add_sync(kFullMask, n_reverse);
+    if (lane == 0) {
+      atomicAdd(&p.counts[0], (unsigned long long)w0);
+      atomicAdd(&p.counts[1], (unsigned long long)w1);
+    }
+    if constexpr (kSimt) {
+      const unsigned int w3 = __reduce_add_sync(kFullMask, n_back);
+      if (lane == 0) {
+        atomicAdd(&p.counts[2], (unsigned long long)w_replay);
+        atomicAdd(&p.counts[3], (unsigned long long)w3);
+        atomicAdd(&p.counts[4], (unsigned long long)w_back);
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
+    const float v = s_acc[k];
+    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
+  }
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+    float v = 0.f;
+    for (int t = 0; t < kThreads; ++t) v += s_gcam[k * kThreads + t];
+    p.cam_part[blockIdx.x * kCamSlots + k] = v;
+  }
+}
+
 // Threads a variant launches for n_pix pixels on the current device: at
 // most as many as can be resident at once, so that the record buffer
 // (n_threads * max_depth * record floats) stays small.
@@ -785,39 +1292,39 @@ int threads_for(int n_pix) {
   return (blocks < cap ? blocks : cap) * kThreads;
 }
 
-}  // namespace
-
-extern "C" int sphere_megagrad_threads(int n_pix) {
-  return threads_for<false, kSkyComputed>(n_pix);
+// Threads to launch for n_work items (pixels, or K4's pixel samples) of
+// `kernel` with `smem` bytes of dynamic shared memory on the current
+// device: at most as many as can be resident at once, so that the record
+// buffer (n_threads * max_depth * record floats) stays small; -1 when the
+// query fails.
+static int resident_threads(const void* kernel, size_t smem,
+                            long long n_work) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  const long long blocks = (n_work + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return (int)(blocks < cap ? blocks : cap) * kThreads;
 }
 
-extern "C" int mesh_megagrad_threads(int n_pix) {
-  return threads_for<true, kSkyComputed>(n_pix);
-}
-
-extern "C" int hdr_consume_threads(int n_pix) {
-  return threads_for<true, kSkyConsume>(n_pix);
-}
-
-// Launches the sphere variant on `stream` and returns cudaGetLastError():
-// nonzero when the launch was refused.  g_*: (n_pix,) cotangent planes;
-// cam_part (n_threads / 128 x 22) receives each block's camera cotangents
-// (left as it is when n_pix or n_samples is 0); gsph (16 x tab_w) is added
-// to; rec: n_threads * max_depth * 10 floats of scratch; counts, when not
-// null, receives the bounces replayed and the bounces walked back.
-extern "C" int sphere_megagrad_launch(
-    const float* cam, const float* sph, int tab_w, int n_spheres,
-    const float* g_r, const float* g_g, const float* g_b, float* cam_part,
-    float* gsph, float* rec, int n_threads, unsigned long long* counts,
-    int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
-    int n_samples, int width, int height, int max_depth, float t_min,
-    int flags, void* stream) {
+// K4's arguments (see sphere_megagrad_launch), checked, into p.
+static bool sphere_params(Params& p, const float* cam, const float* sph,
+                          int tab_w, int n_spheres, const float* g_r,
+                          const float* g_g, const float* g_b, float* cam_part,
+                          float* gsph, float* rec, int n_threads,
+                          unsigned long long* counts, int n_pix,
+                          int pix_offset, unsigned int seed,
+                          unsigned int sample_base, int n_samples, int width,
+                          int height, int max_depth, float t_min, int flags) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || tab_w < n_spheres ||
       n_pix < 0 || width < 1 || height < 1 || n_samples < 0 ||
       max_depth < 1 || n_threads < kThreads || n_threads % kThreads != 0)
-    return (int)cudaErrorInvalidValue;
-  if (n_pix == 0 || n_samples == 0) return 0;
-  Params p{};
+    return false;
+  p = Params{};
   p.cam = cam;
   p.sph = sph;
   p.g_r = g_r;
@@ -840,10 +1347,131 @@ extern "C" int sphere_megagrad_launch(
   p.max_depth = max_depth;
   p.t_min = t_min;
   p.flags = flags;
-  megagrad<false, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
-                                  (cudaStream_t)stream>>>(p);
+  return true;
+}
+
+}  // namespace
+
+// Threads K4 launches for n_items = pixels x samples with n_spheres
+// spheres (its shared memory grows with them).
+extern "C" int sphere_megagrad_threads(long long n_items, int n_spheres) {
+  return resident_threads(
+      (const void*)sphere_megagrad<kK4Opt, kK4MinBlocks>,
+      k4_smem_bytes(n_spheres, kK4Opt), n_items);
+}
+
+extern "C" int mesh_megagrad_threads(int n_pix) {
+  return threads_for<true, kSkyComputed>(n_pix);
+}
+
+extern "C" int hdr_consume_threads(int n_pix) {
+  return threads_for<true, kSkyConsume>(n_pix);
+}
+
+// Launches K4 on `stream` and returns cudaGetLastError(): nonzero when the
+// launch was refused.  g_*: (n_pix,) cotangent planes; cam_part
+// (n_threads / 128 x 22) receives each block's camera cotangents (left as
+// it is when n_pix or n_samples is 0); gsph (16 x tab_w) is added to; rec:
+// n_threads * max_depth * 12 floats of scratch, 16-byte aligned; counts,
+// when not null, receives the bounces replayed and the bounces walked back
+// (the seed counted).
+extern "C" int sphere_megagrad_launch(
+    const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* g_r, const float* g_g, const float* g_b, float* cam_part,
+    float* gsph, float* rec, int n_threads, unsigned long long* counts,
+    int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  Params p;
+  if (!sphere_params(p, cam, sph, tab_w, n_spheres, g_r, g_g, g_b, cam_part,
+                     gsph, rec, n_threads, counts, n_pix, pix_offset, seed,
+                     sample_base, n_samples, width, height, max_depth, t_min,
+                     flags))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  sphere_megagrad<kK4Opt, kK4MinBlocks>
+      <<<n_threads / kThreads, kThreads, k4_smem_bytes(n_spheres, kK4Opt),
+         (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+#ifdef ORT_K4_VARIANTS
+// The measurement build: the instances chip_smoke.py's split of K4 times,
+// by index (its K4_VARIANTS names them in this order).  The first five are
+// the earlier design (a pixel per thread, the megagrad template's sphere
+// instance) and its timing cuts; the rest are the flat loop with fewer
+// options, other register budgets, or a timing cut.
+namespace {
+using KernelFn = void (*)(const Params);
+struct Variant {
+  KernelFn kernel;
+  int opt;
+};
+const Variant kVariants[] = {
+#define ORT_K4(opt, blocks) {sphere_megagrad<(opt), (blocks)>, (opt)}
+    {megagrad<false, kSkyComputed, kCutNone>, 0},
+    {megagrad<false, kSkyComputed, kCutReplay>, 0},
+    {megagrad<false, kSkyComputed, kCutRecords>, 0},
+    {megagrad<false, kSkyComputed, kCutAtomics>, 0},
+    {megagrad<false, kSkyComputed, kCutSimt>, 0},
+    ORT_K4(0, kK4MinBlocks),
+    ORT_K4(kOptAoS, kK4MinBlocks),
+    ORT_K4(kK4Opt | kOptMajority, kK4MinBlocks),
+    ORT_K4(kK4Opt, 4),
+    ORT_K4(kK4Opt, 8),
+    ORT_K4(kK4Opt | kTimeNoAtomics, kK4MinBlocks),
+    ORT_K4(kK4Opt | kTimeReplay, kK4MinBlocks),
+    ORT_K4(kK4Opt | kTimeSimt, kK4MinBlocks),
+    ORT_K4(kK4Opt | kOptPrefetch, kK4MinBlocks),
+    ORT_K4(kK4Opt, 7),
+    ORT_K4(kK4Opt | kOptSmemAdj, kK4MinBlocks),
+    ORT_K4(kK4Opt | kOptSmemAdj, 7),
+    ORT_K4(kK4Opt | kOptSmemAdj, 8),
+#undef ORT_K4
+};
+constexpr int kOldVariants = 5;
+constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
+}  // namespace
+
+// Threads variant v launches: per pixel for the earlier design, per pixel
+// sample for the flat loop; -1 for an unknown variant.
+extern "C" int sphere_megagrad_variant_threads(int v, int n_pix,
+                                               int n_samples, int n_spheres) {
+  if (v < 0 || v >= kNumVariants) return -1;
+  const Variant& var = kVariants[v];
+  if (v < kOldVariants)
+    return resident_threads((const void*)var.kernel, 0, n_pix);
+  return resident_threads((const void*)var.kernel,
+                          k4_smem_bytes(n_spheres, var.opt),
+                          (long long)n_pix * n_samples);
+}
+
+// Launches variant v as sphere_megagrad_launch (rec of 12 floats a bounce
+// serves all; counts, when not null, holds 5 counts: the SIMT variants
+// write counts[2..4]).
+extern "C" int sphere_megagrad_variant_launch(
+    int v, const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* g_r, const float* g_g, const float* g_b, float* cam_part,
+    float* gsph, float* rec, int n_threads, unsigned long long* counts,
+    int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  Params p;
+  if (v < 0 || v >= kNumVariants ||
+      !sphere_params(p, cam, sph, tab_w, n_spheres, g_r, g_g, g_b, cam_part,
+                     gsph, rec, n_threads, counts, n_pix, pix_offset, seed,
+                     sample_base, n_samples, width, height, max_depth, t_min,
+                     flags))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  const Variant& var = kVariants[v];
+  const size_t smem =
+      v < kOldVariants ? 0 : k4_smem_bytes(n_spheres, var.opt);
+  var.kernel<<<n_threads / kThreads, kThreads, smem,
+               (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // Launches the mesh variant on `stream`, as sphere_megagrad_launch, with
 // the mesh tables of the mesh megakernel (tri, cluster, sub, chunk_box,

@@ -1,9 +1,10 @@
 """The backward megakernels: scene gradients on the card.
 
-``render_grad_tables`` is the wrapper of the sphere variant of the CUDA
-kernel in ``csrc/megagrad.cu`` (K4: forward replay with the forward
-kernel's device code, then a reverse walk with adjoints derived by hand;
-see the note at the top of that file).  It replaces the sphere variant of
+``render_grad_tables`` is the wrapper of the sphere backward in
+``csrc/megagrad.cu`` (K4, ``sphere_megagrad``: forward replay with the
+forward kernel's device code, then a reverse walk with adjoints derived by
+hand, one flat loop per lane over (pixel sample, phase, bounce); see the
+notes in that file).  It replaces the sphere variant of
 the JAX package's Pallas ``kernels/megagrad.py::_make_grad_kernel``.
 Given the cotangent of each pixel's mean radiance, already divided by the
 number of samples, it returns the cotangents of the camera table (the
@@ -96,11 +97,11 @@ CAM_SLOTS = (C_OX, C_OY, C_OZ, C_HX, C_HY, C_HZ, C_VX, C_VY, C_VZ,
 # Rows of gtri, the mesh variant's per-triangle cotangents: n (3), c, then
 # albedo (3), fuzz, ior, 1/ior.
 GTRI_ROWS = 10
-# Floats the kernel records per bounce that goes on (sphere and mesh
-# variants); threads per block; camera-table slots the kernel writes
+# Floats the kernel records per bounce that goes on (K4: 3 float4; the
+# mesh variant); threads per block; camera-table slots the kernel writes
 # (C_OX .. C_SKY2); rows of K6's per-sample output (the miss direction and
 # throughput).
-_REC = 10
+_REC = 12
 _REC_MESH = 12
 EMIT_ROWS = 6
 _THREADS = 128
@@ -122,7 +123,7 @@ _SYMBOLS = {
         [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
          ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float,
          _I, _P], _I),
-    "sphere_megagrad_threads": ([_I], _I),
+    "sphere_megagrad_threads": ([ctypes.c_longlong, _I], _I),
     "mesh_megagrad_launch": (
         [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
          _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I,
@@ -282,7 +283,8 @@ def render_grad_tables(cam, sph, n_spheres: int, cfg: RenderConfig,
     lib = _library()
     gsph = torch.zeros_like(sph)
     with torch.cuda.device(cam.device):
-        n_threads = lib.sphere_megagrad_threads(max(n_pix, 1))
+        n_threads = lib.sphere_megagrad_threads(max(n_pix * n_samples, 1),
+                                                n_spheres)
         if n_threads <= 0:
             raise RuntimeError("sphere megagrad: occupancy query failed")
         rec = torch.empty(n_threads * cfg.max_depth * _REC,

@@ -17,7 +17,8 @@ max|a - b| / max|b| under 5e-3 (reference spheres), 1e-3 (constant sky),
 ill-conditioned in f32), 5e-3 (emissive clamp), 2e-2 (40 random spheres).
 The kernel's per-block sums of the sphere cotangents go through atomics
 in an order that changes from run to run; its camera cotangents are
-summed in a fixed order.  The mesh backward (tests/test_megagrad.py's
+summed in a fixed order (each thread's in the order of its work items,
+then the threads of a block in turn), so two launches give them equal.  The mesh backward (tests/test_megagrad.py's
 mesh tests): 5e-4 per leaf, focus_dist at the reference scene's 5e-3,
 1e-4 on the camera without spheres; its triangle cotangents also go
 through atomics.
@@ -175,15 +176,18 @@ def test_grad_kernel_matches_plain_on_card(cuda, case):
 
 @pytest.mark.gpu
 def test_grad_kernel_strides_over_pixels(cuda):
-    """More pixels than the kernel's resident threads: each thread walks
-    several pixels, reusing its record column and carrying its camera
-    cotangents from one to the next; the result still matches the plain
-    version (README tolerance)."""
+    """More work items (pixel samples) than the kernel's resident threads:
+    each thread takes several items of several pixels, reusing its records
+    and carrying its camera cotangents from one to the next; the result
+    still matches the plain version (README tolerance)."""
     scene = ot.readme_scene().to(cuda)
-    cfg = ot.RenderConfig(width=400, height=200, spp=1, max_depth=6,
+    cfg = ot.RenderConfig(width=400, height=200, spp=4, max_depth=6,
                           nan_policy="zero")
     n_pix = cfg.width * cfg.height
-    assert mg._library().sphere_megagrad_threads(n_pix) < n_pix
+    n_items = n_pix * cfg.spp
+    threads = mg._library().sphere_megagrad_threads(n_items,
+                                                    scene.spheres.count)
+    assert 0 < threads < n_items
     img = ot.render(scene, cfg, seed=3)
     g_img = (2.0 / img.numel()) * img
     got = mg.render_grad_scene(scene, cfg, g_img, seed=3)
@@ -194,6 +198,57 @@ def test_grad_kernel_strides_over_pixels(cuda):
         n_pix)
     errs = leaf_errors(got, mg.table_grads_to_scene(scene, gcam, gsph))
     assert max(errs.values()) < 8e-2, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["readme", "reference_spheres"])
+def test_grad_kernel_depth_50_matches_plain_on_card(cuda, case):
+    """At the main path's depth, where lanes' paths end far apart (the
+    README's fuzzy metal, the reference scene's glass): the kernel against
+    its plain version, under the scene's tolerance (README: 8e-2 and a
+    cosine above 0.9999)."""
+    scene, rtol = _grad_scenes()[case]
+    scene = scene.to(cuda)
+    cfg = ot.RenderConfig(width=64, height=36, spp=4, max_depth=50,
+                          nan_policy="zero")
+    img = ot.render(scene, cfg, seed=5)
+    g_img = (2.0 / img.numel()) * img
+    got = mg.render_grad_scene(scene, cfg, g_img, seed=5)
+    g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
+    gcam, gsph = mg.render_grad_tables_plain(
+        mk.camera_table(scene), mk.sphere_table(scene), scene.spheres.count,
+        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2], 5,
+        cfg.width * cfg.height)
+    want = mg.table_grads_to_scene(scene, gcam, gsph)
+    errs = leaf_errors(got, want)
+    assert max(errs.values()) < rtol, errs
+    if case == "readme":
+        keys = ("spheres.center", "spheres.albedo", "spheres.radius")
+        a, b = scene_to_numpy(got), scene_to_numpy(want)
+        va = np.concatenate([a[k].ravel() for k in keys])
+        vb = np.concatenate([b[k].ravel() for k in keys])
+        assert va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)) > 0.9999
+
+
+@pytest.mark.gpu
+def test_grad_kernel_camera_cotangents_repeat(cuda):
+    """Two launches on the same inputs give equal camera cotangents (a
+    pinhole's focus-distance gradient is zero up to rounding, so its
+    rounding must not change from run to run), with several items per
+    thread."""
+    scene = ot.readme_scene().to(cuda)
+    cfg = ot.RenderConfig(width=400, height=200, spp=4, max_depth=50,
+                          nan_policy="zero")
+    n_pix = cfg.width * cfg.height
+    cam, sph = mk.camera_table(scene), mk.sphere_table(scene)
+    img = ot.render(scene, cfg, seed=3)
+    g = ((2.0 / img.numel() / cfg.spp) * img).reshape(-1, 3).T.contiguous()
+    args = (cam, sph, scene.spheres.count, cfg, scene.sky.kind,
+            mk.specialize_flags(scene), g[0], g[1], g[2], 3, n_pix)
+    first, _ = mg.render_grad_tables(*args)
+    second, _ = mg.render_grad_tables(*args)
+    assert torch.equal(first, second)
+    assert first.abs().max() > 0
 
 
 @pytest.mark.gpu
@@ -212,7 +267,7 @@ def test_grad_sampled_runs_both_kernels(cuda):
 @pytest.mark.gpu
 def test_failing_grad_launch_raises(cuda, monkeypatch):
     class Failing:
-        def sphere_megagrad_threads(self, n_pix):
+        def sphere_megagrad_threads(self, n_items, n_spheres):
             return 128
 
         def sphere_megagrad_launch(self, *args):

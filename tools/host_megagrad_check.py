@@ -1,8 +1,10 @@
 """The backward kernels' arithmetic against their plain versions, on the CPU.
 
 Compiles ``kernels/csrc/megagrad.cu`` as host C++ with g++: ``__device__``
-and the like defined away, ``__shared__`` as ``static``, atomics as plain
-adds, a warp's sums as the one lane's value, and the launchers cut off.
+and the like defined away, ``__shared__`` (and K4's dynamic shared array)
+as ``static``, atomics as plain adds, the warp intrinsics as a group of
+one lane (sums and shuffles the lane's own value, votes and matches its
+own bit), and the launchers cut off.
 It then runs the kernel as one thread per block over the pixels of a small
 image, and holds the cotangents it returns against the plain version's
 (``render_grad_mesh_tables_plain`` for the mesh variant, K5;
@@ -63,10 +65,13 @@ using std::isnan;
 #define __device__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __constant__
 struct Dim3 { unsigned x; };
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w}; }
 static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1};
 inline void __syncthreads() {}
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -76,9 +81,18 @@ inline unsigned long long atomicAdd(unsigned long long* p,
   unsigned long long o = *p; *p += v; return o; }
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+inline unsigned __activemask() { return 1u; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline bool __any_sync(unsigned, bool p) { return p; }
+inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
+inline float __shfl_sync(unsigned, float v, int) { return v; }
 '''
 # Reads the tables from the working directory, runs every pixel as its own
-# block of one thread, and writes gcam (22), gsph (16 x tab_w), gtri
+# block of one thread (K4: a third as many threads as pixels, so that each
+# takes several work items of several pixels), and writes gcam (22), gsph
+# (16 x tab_w), gtri
 # (10 x t_pad) and the four counts; in the emit mode (K6) the emit rows
 # (6 x spp x n_pix), the non-sky sums (3 x n_pix) and the four counts.
 DRIVER = r'''
@@ -91,7 +105,7 @@ static std::vector<char> rd(const char* f) {
 int main(int argc, char** argv) {
   if (argc != 16) return 2;
   int a = 1;
-  // mesh: 0 sphere variant, 1 mesh variant, 2 K6, 3 K7
+  // mesh: 0 sphere variant (K4), 1 mesh variant, 2 K6, 3 K7
   const int mesh = atoi(argv[a++]), ns = atoi(argv[a++]);
   const int tab_w = atoi(argv[a++]), t_pad = atoi(argv[a++]);
   const int n_chunks = atoi(argv[a++]), n_boxes = atoi(argv[a++]);
@@ -120,7 +134,8 @@ int main(int argc, char** argv) {
   p.g_r = gp; p.g_g = gp + n_pix; p.g_b = gp + 2 * n_pix;
   p.cam_part = cam_part.data(); p.gsph = gsph.data(); p.rec = rec.data();
   p.counts = counts; p.tab_w = tab_w; p.n_spheres = ns; p.n_pix = n_pix;
-  p.pix_offset = 0; p.n_threads = n_pix; p.seed = seed; p.sample_base = 0;
+  const int threads = mesh == 0 ? (n_pix + 2) / 3 : n_pix;
+  p.pix_offset = 0; p.n_threads = threads; p.seed = seed; p.sample_base = 0;
   p.n_samples = n_samples; p.width = width; p.height = height;
   p.max_depth = max_depth; p.t_min = t_min; p.flags = flags;
   if (mesh) {
@@ -132,9 +147,9 @@ int main(int argc, char** argv) {
   }
   p.emit = emit.data(); p.emis = emis.data();
   p.sky_rows = mesh == 3 ? (const float*)sky_rows.data() : nullptr;
-  for (int b = 0; b < n_pix; ++b) {
+  for (int b = 0; b < threads; ++b) {
     blockIdx.x = b;
-    if (mesh == 0) megagrad<false, kSkyComputed>(p);
+    if (mesh == 0) sphere_megagrad<kK4Opt, kK4MinBlocks>(p);
     else if (mesh == 1) megagrad<true, kSkyComputed>(p);
     else if (mesh == 2) megagrad<true, kSkyEmit>(p);
     else megagrad<true, kSkyConsume>(p);
@@ -164,7 +179,8 @@ def build(work: pathlib.Path) -> pathlib.Path:
         (work / header.name).write_text(header.read_text())
     (work / "shim.h").write_text(SHIM)
     src = (CSRC / "megagrad.cu").read_text().replace(
-        "#include <cuda_runtime.h>", '#include "shim.h"')
+        "#include <cuda_runtime.h>", '#include "shim.h"').replace(
+        "extern __shared__ float smem[];", "static float smem[1 << 16];")
     src = src[:src.index("// Threads a variant launches")] + "}  // namespace\n"
     (work / "megagrad_host.cpp").write_text(src + DRIVER)
     exe = work / "megagrad_host"
