@@ -224,23 +224,18 @@ KERNELS = {"megakernel": ("megakernel", ()),
            "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",)),
            "megagrad_k4_variants": ("megagrad", ("ORT_K4_VARIANTS",))}
 # The instances of the measurement build of csrc/megagrad.cu, in the order
-# of its kVariants: K4's earlier design (a pixel per thread; PR 2 to PR 6)
-# and its timing cuts, then the flat loop without K4's options (flat: no
-# warp-aggregated atomics, records in depth-major rows; flat_aos: records
-# as float4 by thread, no aggregation), with one more (k4_majority: each
-# iteration steps the phase most lanes are in), at other register budgets
-# (4, 7 or 8 blocks an SM instead of 6), with timing cuts, with the next
-# record of the walk back prefetched into L1 (k4_prefetch), and with the
-# walk back's adjoints in shared memory between steps (k4_smem_adjoints).  The cuts'
-# results are wrong on purpose (K4_CUTS); the rest must agree with K4
-# within K4_AGREE.  The SIMT instances are launched once, for their
-# counts, and not timed.
+# of its kVariants: K4's earlier design (a pixel per thread, the megagrad
+# template's sphere instance) and its timing cuts, then the flat loop
+# without K4's options (flat: no warp-aggregated atomics, records in
+# depth-major rows; flat_aos: records as float4 by thread, no
+# aggregation), at other register budgets (4 or 8 blocks an SM instead of
+# 6), and with timing cuts.  The cuts' results are wrong on purpose
+# (K4_CUTS); the rest must agree with K4 within K4_AGREE.  The SIMT
+# instances are launched once, for their counts, and not timed.
 K4_VARIANTS = ("earlier", "earlier_replay_only", "earlier_replay_records",
                "earlier_no_atomics", "earlier_simt", "flat", "flat_aos",
-               "k4_majority", "k4_4_blocks", "k4_8_blocks", "k4_no_atomics",
-               "k4_replay_only", "k4_simt", "k4_prefetch", "k4_7_blocks",
-               "k4_smem_adjoints", "k4_smem_adjoints_7_blocks",
-               "k4_smem_adjoints_8_blocks")
+               "k4_4_blocks", "k4_8_blocks", "k4_no_atomics",
+               "k4_replay_only", "k4_simt")
 K4_CUTS = ("earlier_replay_only", "earlier_replay_records",
            "earlier_no_atomics", "k4_no_atomics", "k4_replay_only")
 # max|a - b| / max|b| of the sphere-table and camera cotangents against
@@ -506,15 +501,14 @@ def k4_variant(lib, v: int, cam, sph, n: int, cfg, sky_kind: int, flags,
     return launch, threads
 
 
-def k4_split(dev, old_only: bool = False) -> dict:
+def k4_split(dev) -> dict:
     """K4's split at the main path's size, README and book cover: K1, K4
     and every instance of the measurement build, the median of 5 CUDA-event
     times after a warm-up (the launch that reads the counts), in turns in
     one process; the counts of each (K4's must equal the earlier design's:
     the same paths replayed and walked back), the SIMT efficiency of
     replay and walk back (lane steps over warp iterations x 32), and each
-    result against K4's.  old_only: K1 and the earlier design's instances
-    alone."""
+    result against K4's."""
     import opencl_ray_tracer_tpu_torch as ot
     from opencl_ray_tracer_tpu_torch.kernels import _build
     from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
@@ -523,8 +517,6 @@ def k4_split(dev, old_only: bool = False) -> dict:
                       KERNELS["megagrad_k4_variants"][1])
     bench = ot.README_BENCH
     n_pix = bench.width * bench.height
-    names = [k for k in K4_VARIANTS
-             if not old_only or k.startswith("earlier")]
     out = {}
     for case, scene in (("readme", ot.readme_scene(16 / 9)),
                         ("book_cover", ot.book_cover_scene(
@@ -537,21 +529,19 @@ def k4_split(dev, old_only: bool = False) -> dict:
                                             flags, 0, n_pix), -1)
         g = ((2.0 / img.numel() / bench.spp) * img).T.contiguous()
         fns = {"K1": lambda: mk.render_spheres(cam, sph, n, bench, sky_kind,
-                                               flags, 0, n_pix)}
-        if not old_only:
-            fns["K4"] = lambda c=None: mg.render_grad_tables(
-                cam, sph, n, bench, sky_kind, flags, g[0], g[1], g[2], 0,
-                n_pix, counts=c)
+                                               flags, 0, n_pix),
+               "K4": lambda c=None: mg.render_grad_tables(
+                   cam, sph, n, bench, sky_kind, flags, g[0], g[1], g[2], 0,
+                   n_pix, counts=c)}
         threads = {}
-        for name in names:
+        for name in K4_VARIANTS:
             fns[name], threads[name] = k4_variant(
                 lib, K4_VARIANTS.index(name), cam, sph, n, bench, sky_kind,
                 flags, g, 0)
         # counts and results, one launch each, the warm-up
         fns["K1"]()
-        ref_name = "earlier" if old_only else "K4"
         counts, results = {}, {}
-        for name in (ref_name, *names):
+        for name in ("K4", *K4_VARIANTS):
             c = torch.zeros(5, dtype=torch.int64, device=dev)
             res = fns[name](c[:2] if name == "K4" else c)
             torch.cuda.synchronize()
@@ -560,55 +550,52 @@ def k4_split(dev, old_only: bool = False) -> dict:
                              else res[0][0, :22].clone(), res[1].clone())
         rows = list(mg.DIFF_FIELDS)
         agree = {}
-        for name in names:
+        for name in K4_VARIANTS:
             if name in K4_CUTS:
                 continue
-            a, b = results[name], results[ref_name]
+            a, b = results[name], results["K4"]
             agree[name] = {
                 "gsph_rel": float((a[1][rows, :n] - b[1][rows, :n]).abs()
                                   .max() / b[1][rows, :n].abs().max()),
                 "gcam_rel": float((a[0] - b[0]).abs().max()
                                   / b[0].abs().max())}
-            same = counts[name][:2] == counts[ref_name][:2]
+            same = counts[name][:2] == counts["K4"][:2]
             if not same or max(agree[name].values()) >= K4_AGREE:
-                fail(f"K4 split {case}: {name} disagrees with {ref_name}: "
+                fail(f"K4 split {case}: {name} disagrees with K4: "
                      f"{agree[name]}, counts {counts[name][:2]} against "
-                     f"{counts[ref_name][:2]}")
+                     f"{counts['K4'][:2]}")
         ms = median_ms({k: f for k, f in fns.items()
                         if not k.endswith("simt")})
-        replay, reverse = counts[ref_name][:2]
+        replay, reverse = counts["K4"][:2]
         flops = (replay * n * FLOPS_PER_SPHERE_TEST
                  + reverse * FLOPS_PER_REVERSE_BOUNCE)
         bound = bound_of(flops, (2 * (cam.numel() + sph.numel())
                                  + 3 * n_pix) * 4)
         simt = {}
         for name in ("earlier_simt", "k4_simt"):
-            if name in counts:
-                c = counts[name]
-                simt[name] = {"replay": c[0] / (32 * c[2]),
-                              "walk_back": c[3] / (32 * c[4]),
-                              "replay_warp_iterations": c[2],
-                              "walk_back_lane_steps": c[3],
-                              "walk_back_warp_iterations": c[4]}
+            c = counts[name]
+            simt[name] = {"replay": c[0] / (32 * c[2]),
+                          "walk_back": c[3] / (32 * c[4]),
+                          "replay_warp_iterations": c[2],
+                          "walk_back_lane_steps": c[3],
+                          "walk_back_warp_iterations": c[4]}
         e = ms["earlier"]
         split = {"records_ms": ms["earlier_replay_records"]
                  - ms["earlier_replay_only"],
                  "walk_back_ms": e - ms["earlier_replay_records"],
-                 "atomics_ms": e - ms["earlier_no_atomics"]}
-        if not old_only:
-            split.update(k4_replay_share=ms["k4_replay_only"] / ms["K4"],
-                         k4_atomics_ms=ms["K4"] - ms["k4_no_atomics"],
-                         k4_speedup=e / ms["K4"],
-                         k4_share_of_bound=bound["bound_ms"] / ms["K4"])
+                 "atomics_ms": e - ms["earlier_no_atomics"],
+                 "k4_replay_share": ms["k4_replay_only"] / ms["K4"],
+                 "k4_atomics_ms": ms["K4"] - ms["k4_no_atomics"],
+                 "k4_speedup": e / ms["K4"],
+                 "k4_share_of_bound": bound["bound_ms"] / ms["K4"]}
         out[case] = dict(ms=ms, split=split, simt=simt, bound=bound,
-                         counts={k: counts[k] for k in (ref_name, *names)},
-                         threads=threads, agree=agree)
+                         counts=counts, threads=threads, agree=agree)
         emit({"phase": "k4_split", "case": case, "size": "1280x720x250/d50",
               **out[case]})
     return out
 
 
-def split_only(old_only: bool = False) -> None:
+def split_only() -> None:
     """The device line, the build and K4's split alone:
     python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
     if not torch.cuda.is_available():
@@ -624,7 +611,7 @@ def split_only(old_only: bool = False) -> None:
           "kernels": {name: {"library": lib.name, "seconds": secs,
                              "ptxas": ptxas}
                       for name, (lib, secs, ptxas) in built.items()}})
-    k4_split(torch.device("cuda"), old_only)
+    k4_split(torch.device("cuda"))
 
 
 def mesh_phases(dev) -> tuple:

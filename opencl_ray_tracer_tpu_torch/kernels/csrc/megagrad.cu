@@ -852,8 +852,7 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
 // The camera cotangents of a thread are summed in the order of its items,
 // in shared memory (a column per thread), so two launches give equal
 // camera cotangents.  Options (kOpt bits; kK4Opt is what the entry points
-// launch, the others are measured against it by chip_smoke.py, which
-// found the majority phase slower than stepping both phases):
+// launch, the others are measured against it by chip_smoke.py):
 enum K4Opt {
   // a bounce's sphere cotangents summed over the warp's lanes that hit the
   // same sphere before the shared atomic (add_rows_aggregated)
@@ -862,22 +861,13 @@ enum K4Opt {
   // lane's record is two sectors whatever depth its neighbours are at;
   // else the earlier design's depth-major rows of one float per thread
   kOptAoS = 2,
-  // each iteration steps the phase (replay or walk back) that most live
-  // lanes are in, the others wait; else every lane steps its own phase
-  kOptMajority = 4,
   // timing only: plain adds into a lane-private sum instead of the shared
   // atomics (wrong on purpose), the replay alone (no record, no walk back),
   // and the SIMT counts (counts[2..4]: the warp iterations of the replay,
   // the lane steps of the walk back and its warp iterations)
-  kTimeNoAtomics = 8,
-  kTimeReplay = 16,
-  kTimeSimt = 32,
-  // with kOptAoS: the record the walk back reads next prefetched into L1
-  // one step ahead
-  kOptPrefetch = 64,
-  // the walk back's adjoints (go, gd, gT) kept in shared memory between
-  // steps, a column per thread, instead of in registers
-  kOptSmemAdj = 128
+  kTimeNoAtomics = 4,
+  kTimeReplay = 8,
+  kTimeSimt = 16
 };
 constexpr int kK4Opt = kOptAgg | kOptAoS;
 // blocks per SM the register budget is set for (__launch_bounds__)
@@ -885,21 +875,12 @@ constexpr int kK4MinBlocks = 6;
 constexpr int kRecAoS = 12;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Asks for the L1 line of global address a (no register is written).
-__device__ __forceinline__ void prefetch_l1(const void* a) {
-#ifdef __CUDA_ARCH__
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
-#endif
-}
-
 // Dynamic shared memory of K4 for n spheres: the sphere table and the
-// accumulator (kFields and kGradRows rows of n), the camera slots, each
-// thread's camera cotangents (kCamSlots rows of kThreads) and, with
-// kOptSmemAdj, its adjoints (9 rows of kThreads).
-static size_t k4_smem_bytes(int n, int opt) {
-  const size_t adj = (opt & kOptSmemAdj) ? 9 * kThreads : 0;
+// accumulator (kFields and kGradRows rows of n), the camera slots, and
+// each thread's camera cotangents (kCamSlots rows of kThreads).
+static size_t k4_smem_bytes(int n) {
   return sizeof(float) * ((size_t)(kFields + kGradRows) * n + kCamSlots +
-                          (size_t)kCamSlots * kThreads + adj);
+                          (size_t)kCamSlots * kThreads);
 }
 
 // Adds each lane's rows v to column bi of the accumulator acc (rows of
@@ -939,12 +920,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sphere_megagrad(const Params p) {
   constexpr bool kAgg = (kOpt & kOptAgg) != 0;
   constexpr bool kAoS = (kOpt & kOptAoS) != 0;
-  constexpr bool kMajority = (kOpt & kOptMajority) != 0;
   constexpr bool kNoAtomics = (kOpt & kTimeNoAtomics) != 0;
   constexpr bool kReplayOnly = (kOpt & kTimeReplay) != 0;
   constexpr bool kSimt = (kOpt & kTimeSimt) != 0;
-  constexpr bool kPrefetch = (kOpt & kOptPrefetch) != 0 && kAoS;
-  constexpr bool kSmemAdj = (kOpt & kOptSmemAdj) != 0;
   extern __shared__ float smem[];
   const int n = p.n_spheres;
   float* const s_sph = smem;                   // kFields rows of n
@@ -960,10 +938,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
     s_gcam[k] = 0.f;
   __syncthreads();
-  // this thread's camera cotangents: slot k at gcam[k * kThreads]; with
-  // kSmemAdj its adjoints go, gd, gT at s_adj[k * kThreads], k < 9
+  // this thread's camera cotangents: slot k at gcam[k * kThreads]
   float* const gcam = s_gcam + threadIdx.x;
-  float* const s_adj = s_gcam + kCamSlots * kThreads + threadIdx.x;
 
   const int flags = p.flags;
   const bool lens = (flags & HAS_APERTURE) && s_cam[C_APERTURE] > 0.f;
@@ -975,20 +951,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   LaneSink lane_sink{0.f};                           // the timing cuts' sink
 
   // the lane's item (sample s_item, pixel local; the thread's first is
-  // item tid, and each next n_threads = q samples and r pixels further)
-  // and state: the sample's counters, the ray (o, d) and throughput T of
-  // the replay, or the record being walked back and the adjoints (go, gd,
-  // gT); depth counts the records
-  const int q = nt / p.n_pix, r = nt % p.n_pix;
+  // item tid, and each next n_threads = step_s samples and step_pix pixels
+  // further)
+  // and state: the ray (o, d) and throughput T of the replay, or the
+  // record being walked back and the adjoints (go, gd, gT); depth counts
+  // the records.  The sample's counters (pix, sid) are worked out from
+  // the item where they are used: kept in registers, they spill.
+  const int step_s = nt / p.n_pix, step_pix = nt % p.n_pix;
   int s_item = tid / p.n_pix, local = tid % p.n_pix, depth = 0;
   bool back = false;
-  uint32_t pix = 0, sid = 0;
   float o[3], d[3], T[3], go[3], gd[3], gT[3];
   for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
 
   auto advance = [&]() {
-    s_item += q;
-    local += r;
+    s_item += step_s;
+    local += step_pix;
     if (local >= p.n_pix) {
       local -= p.n_pix;
       ++s_item;
@@ -1002,8 +979,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
         continue;
       const int lin = p.pix_offset + local;
-      pix = (uint32_t)lin;
-      sid = p.sample_base + (uint32_t)s_item;
+      const uint32_t pix = (uint32_t)lin,
+                     sid = p.sample_base + (uint32_t)s_item;
       camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
                  (float)(lin % p.width), (float)(lin / p.width), o, d);
       for (int k = 0; k < 3; ++k) T[k] = 1.f;
@@ -1017,6 +994,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // o0 = O (+ DU lx + DV ly), into the thread's camera cotangents.
   auto camera_adjoint = [&]() {
     const int lin = p.pix_offset + local;
+    const uint32_t pix = (uint32_t)lin,
+                   sid = p.sample_base + (uint32_t)s_item;
     float o0[3], d0[3];
     const CamDraw cd =
         camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
@@ -1037,44 +1016,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     return kAoS ? p.rec + ((size_t)k * nt + tid) * kRecAoS
                 : p.rec + (size_t)k * kRec * nt + tid;
   };
-  auto store_adj = [&]() {
-    if constexpr (kSmemAdj) {
-      for (int k = 0; k < 3; ++k) {
-        s_adj[k * kThreads] = go[k];
-        s_adj[(3 + k) * kThreads] = gd[k];
-        s_adj[(6 + k) * kThreads] = gT[k];
-      }
-    }
-  };
-  auto load_adj = [&]() {
-    if constexpr (kSmemAdj) {
-      for (int k = 0; k < 3; ++k) {
-        go[k] = s_adj[k * kThreads];
-        gd[k] = s_adj[(3 + k) * kThreads];
-        gT[k] = s_adj[(6 + k) * kThreads];
-      }
-    }
-  };
-  // the first and last word of record k (its two lines at most)
-  auto prefetch_rec = [&](int k) {
-    if constexpr (kPrefetch) {
-      prefetch_l1(rec_at(k));
-      prefetch_l1(rec_at(k) + kRec - 1);
-    }
-  };
 
   bool live = next_item();
   while (__any_sync(kFullMask, live)) {
-    bool replay = live && !back;
-    bool reverse = live && back;
-    if constexpr (kMajority) {
-      const int n_rep = __popc(__ballot_sync(kFullMask, replay));
-      const int n_rev = __popc(__ballot_sync(kFullMask, reverse));
-      if (n_rev > n_rep)
-        replay = false;
-      else
-        reverse = false;
-    }
+    const bool replay = live && !back;
+    const bool reverse = live && back;
     const unsigned rev_lanes = __ballot_sync(kFullMask, reverse);
     if constexpr (kSimt) {
       const unsigned rep_lanes = __ballot_sync(kFullMask, replay);
@@ -1085,6 +1031,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     bool done = false;       // the item ends in this iteration
     bool at_camera = false;  // its walk back reaches the camera
+    const uint32_t pix = (uint32_t)(p.pix_offset + local),
+                   sid = p.sample_base + (uint32_t)s_item;
 
     if (replay) {
       // ---- one bounce of the replay (the forward's device code) ----
@@ -1188,10 +1136,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             for (int k = 0; k < 3; ++k)
               gd[k] = gy * ((k == 1 ? 1.f : 0.f) - d[1] * d[k] / a2) / len;
           }
-          store_adj();
           back = true;
           at_camera = depth == 0;
-          if (depth > 0) prefetch_rec(depth - 1);
         }
       }
     }
@@ -1215,8 +1161,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         T[0] = r[R_TR * nt]; T[1] = r[R_TG * nt]; T[2] = r[R_TB * nt];
         bi = (int)r[R_WIN * nt];
       }
-      if (depth > 0) prefetch_rec(depth - 1);
-      load_adj();
       if constexpr (kNoAtomics) {
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, bi, go, gd, gT, lane_sink);
@@ -1230,7 +1174,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, bi, go, gd, gT, sink);
       }
-      store_adj();
       at_camera = depth == 0;
     }
     if (at_camera) {
@@ -1273,23 +1216,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int t = 0; t < kThreads; ++t) v += s_gcam[k * kThreads + t];
     p.cam_part[blockIdx.x * kCamSlots + k] = v;
   }
-}
-
-// Threads a variant launches for n_pix pixels on the current device: at
-// most as many as can be resident at once, so that the record buffer
-// (n_threads * max_depth * record floats) stays small.
-template <bool kMesh, int kSky>
-int threads_for(int n_pix) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, megagrad<kMesh, kSky>, kThreads, 0) != cudaSuccess)
-    return -1;
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  const int cap = sms * (per_sm > 0 ? per_sm : 1);
-  return (blocks < cap ? blocks : cap) * kThreads;
 }
 
 // Threads to launch for n_work items (pixels, or K4's pixel samples) of
@@ -1357,15 +1283,15 @@ static bool sphere_params(Params& p, const float* cam, const float* sph,
 extern "C" int sphere_megagrad_threads(long long n_items, int n_spheres) {
   return resident_threads(
       (const void*)sphere_megagrad<kK4Opt, kK4MinBlocks>,
-      k4_smem_bytes(n_spheres, kK4Opt), n_items);
+      k4_smem_bytes(n_spheres), n_items);
 }
 
 extern "C" int mesh_megagrad_threads(int n_pix) {
-  return threads_for<true, kSkyComputed>(n_pix);
+  return resident_threads((const void*)megagrad<true, kSkyComputed>, 0, n_pix);
 }
 
 extern "C" int hdr_consume_threads(int n_pix) {
-  return threads_for<true, kSkyConsume>(n_pix);
+  return resident_threads((const void*)megagrad<true, kSkyConsume>, 0, n_pix);
 }
 
 // Launches K4 on `stream` and returns cudaGetLastError(): nonzero when the
@@ -1390,7 +1316,7 @@ extern "C" int sphere_megagrad_launch(
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
   sphere_megagrad<kK4Opt, kK4MinBlocks>
-      <<<n_threads / kThreads, kThreads, k4_smem_bytes(n_spheres, kK4Opt),
+      <<<n_threads / kThreads, kThreads, k4_smem_bytes(n_spheres),
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1403,31 +1329,19 @@ extern "C" int sphere_megagrad_launch(
 // options, other register budgets, or a timing cut.
 namespace {
 using KernelFn = void (*)(const Params);
-struct Variant {
-  KernelFn kernel;
-  int opt;
-};
-const Variant kVariants[] = {
-#define ORT_K4(opt, blocks) {sphere_megagrad<(opt), (blocks)>, (opt)}
-    {megagrad<false, kSkyComputed, kCutNone>, 0},
-    {megagrad<false, kSkyComputed, kCutReplay>, 0},
-    {megagrad<false, kSkyComputed, kCutRecords>, 0},
-    {megagrad<false, kSkyComputed, kCutAtomics>, 0},
-    {megagrad<false, kSkyComputed, kCutSimt>, 0},
-    ORT_K4(0, kK4MinBlocks),
-    ORT_K4(kOptAoS, kK4MinBlocks),
-    ORT_K4(kK4Opt | kOptMajority, kK4MinBlocks),
-    ORT_K4(kK4Opt, 4),
-    ORT_K4(kK4Opt, 8),
-    ORT_K4(kK4Opt | kTimeNoAtomics, kK4MinBlocks),
-    ORT_K4(kK4Opt | kTimeReplay, kK4MinBlocks),
-    ORT_K4(kK4Opt | kTimeSimt, kK4MinBlocks),
-    ORT_K4(kK4Opt | kOptPrefetch, kK4MinBlocks),
-    ORT_K4(kK4Opt, 7),
-    ORT_K4(kK4Opt | kOptSmemAdj, kK4MinBlocks),
-    ORT_K4(kK4Opt | kOptSmemAdj, 7),
-    ORT_K4(kK4Opt | kOptSmemAdj, 8),
-#undef ORT_K4
+const KernelFn kVariants[] = {
+    megagrad<false, kSkyComputed, kCutNone>,
+    megagrad<false, kSkyComputed, kCutReplay>,
+    megagrad<false, kSkyComputed, kCutRecords>,
+    megagrad<false, kSkyComputed, kCutAtomics>,
+    megagrad<false, kSkyComputed, kCutSimt>,
+    sphere_megagrad<0, kK4MinBlocks>,
+    sphere_megagrad<kOptAoS, kK4MinBlocks>,
+    sphere_megagrad<kK4Opt, 4>,
+    sphere_megagrad<kK4Opt, 8>,
+    sphere_megagrad<kK4Opt | kTimeNoAtomics, kK4MinBlocks>,
+    sphere_megagrad<kK4Opt | kTimeReplay, kK4MinBlocks>,
+    sphere_megagrad<kK4Opt | kTimeSimt, kK4MinBlocks>,
 };
 constexpr int kOldVariants = 5;
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
@@ -1438,11 +1352,10 @@ constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 extern "C" int sphere_megagrad_variant_threads(int v, int n_pix,
                                                int n_samples, int n_spheres) {
   if (v < 0 || v >= kNumVariants) return -1;
-  const Variant& var = kVariants[v];
   if (v < kOldVariants)
-    return resident_threads((const void*)var.kernel, 0, n_pix);
-  return resident_threads((const void*)var.kernel,
-                          k4_smem_bytes(n_spheres, var.opt),
+    return resident_threads((const void*)kVariants[v], 0, n_pix);
+  return resident_threads((const void*)kVariants[v],
+                          k4_smem_bytes(n_spheres),
                           (long long)n_pix * n_samples);
 }
 
@@ -1464,11 +1377,9 @@ extern "C" int sphere_megagrad_variant_launch(
                      flags))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
-  const Variant& var = kVariants[v];
-  const size_t smem =
-      v < kOldVariants ? 0 : k4_smem_bytes(n_spheres, var.opt);
-  var.kernel<<<n_threads / kThreads, kThreads, smem,
-               (cudaStream_t)stream>>>(p);
+  const size_t smem = v < kOldVariants ? 0 : k4_smem_bytes(n_spheres);
+  kVariants[v]<<<n_threads / kThreads, kThreads, smem,
+                 (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 #endif

@@ -18,8 +18,9 @@ ill-conditioned in f32), 5e-3 (emissive clamp), 2e-2 (40 random spheres).
 The kernel's per-block sums of the sphere cotangents go through atomics
 in an order that changes from run to run; its camera cotangents are
 summed in a fixed order (each thread's in the order of its work items,
-then the threads of a block in turn), so two launches give them equal.  The mesh backward (tests/test_megagrad.py's
-mesh tests): 5e-4 per leaf, focus_dist at the reference scene's 5e-3,
+then the threads of a block in turn), so two launches give them equal.
+The mesh backward (tests/test_megagrad.py's mesh tests): 5e-4 per leaf,
+focus_dist at the reference scene's 5e-3,
 1e-4 on the camera without spheres; its triangle cotangents also go
 through atomics.
 """
@@ -145,24 +146,23 @@ def leaf_errors(got, want) -> dict:
             / max(float(np.abs(b[k]).max()), 1e-6) for k in GRAD_LEAVES}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(_grad_scenes()))
-def test_grad_kernel_matches_plain_on_card(cuda, case):
+def check_grad_case(cuda, case, cfg, seed):
+    """The kernel's scene gradient (one launch) against its plain
+    version's for _grad_scenes()[case] at cfg, under the case's tolerance
+    (README: also a cosine above 0.9999)."""
     scene, rtol = _grad_scenes()[case]
     scene = scene.to(cuda)
-    cfg = ot.RenderConfig(width=50, height=30, spp=4, max_depth=6,
-                          nan_policy="zero")
-    img = ot.render(scene, cfg, seed=3)
+    img = ot.render(scene, cfg, seed=seed)
     g_img = (2.0 / img.numel()) * img
     before = mg.LAUNCHES
-    got = mg.render_grad_scene(scene, cfg, g_img, seed=3)
+    got = mg.render_grad_scene(scene, cfg, g_img, seed=seed)
     torch.cuda.synchronize()
     assert mg.LAUNCHES == before + 1
     g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
     gcam, gsph = mg.render_grad_tables_plain(
         mk.camera_table(scene), mk.sphere_table(scene), scene.spheres.count,
-        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2], 3,
-        cfg.width * cfg.height)
+        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2],
+        seed, cfg.width * cfg.height)
     want = mg.table_grads_to_scene(scene, gcam, gsph)
     errs = leaf_errors(got, want)
     assert max(errs.values()) < rtol, errs
@@ -172,6 +172,13 @@ def test_grad_kernel_matches_plain_on_card(cuda, case):
         va = np.concatenate([a[k].ravel() for k in keys])
         vb = np.concatenate([b[k].ravel() for k in keys])
         assert va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)) > 0.9999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_grad_scenes()))
+def test_grad_kernel_matches_plain_on_card(cuda, case):
+    check_grad_case(cuda, case, ot.RenderConfig(
+        width=50, height=30, spp=4, max_depth=6, nan_policy="zero"), seed=3)
 
 
 @pytest.mark.gpu
@@ -204,30 +211,9 @@ def test_grad_kernel_strides_over_pixels(cuda):
 @pytest.mark.parametrize("case", ["readme", "reference_spheres"])
 def test_grad_kernel_depth_50_matches_plain_on_card(cuda, case):
     """At the main path's depth, where lanes' paths end far apart (the
-    README's fuzzy metal, the reference scene's glass): the kernel against
-    its plain version, under the scene's tolerance (README: 8e-2 and a
-    cosine above 0.9999)."""
-    scene, rtol = _grad_scenes()[case]
-    scene = scene.to(cuda)
-    cfg = ot.RenderConfig(width=64, height=36, spp=4, max_depth=50,
-                          nan_policy="zero")
-    img = ot.render(scene, cfg, seed=5)
-    g_img = (2.0 / img.numel()) * img
-    got = mg.render_grad_scene(scene, cfg, g_img, seed=5)
-    g = (g_img.reshape(-1, 3) / cfg.spp).T.contiguous()
-    gcam, gsph = mg.render_grad_tables_plain(
-        mk.camera_table(scene), mk.sphere_table(scene), scene.spheres.count,
-        cfg, scene.sky.kind, mk.specialize_flags(scene), g[0], g[1], g[2], 5,
-        cfg.width * cfg.height)
-    want = mg.table_grads_to_scene(scene, gcam, gsph)
-    errs = leaf_errors(got, want)
-    assert max(errs.values()) < rtol, errs
-    if case == "readme":
-        keys = ("spheres.center", "spheres.albedo", "spheres.radius")
-        a, b = scene_to_numpy(got), scene_to_numpy(want)
-        va = np.concatenate([a[k].ravel() for k in keys])
-        vb = np.concatenate([b[k].ravel() for k in keys])
-        assert va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)) > 0.9999
+    README's fuzzy metal, the reference scene's glass)."""
+    check_grad_case(cuda, case, ot.RenderConfig(
+        width=64, height=36, spp=4, max_depth=50, nan_policy="zero"), seed=5)
 
 
 @pytest.mark.gpu

@@ -181,7 +181,7 @@ def build(work: pathlib.Path) -> pathlib.Path:
     src = (CSRC / "megagrad.cu").read_text().replace(
         "#include <cuda_runtime.h>", '#include "shim.h"').replace(
         "extern __shared__ float smem[];", "static float smem[1 << 16];")
-    src = src[:src.index("// Threads a variant launches")] + "}  // namespace\n"
+    src = src[:src.index("// Threads to launch for")] + "}  // namespace\n"
     (work / "megagrad_host.cpp").write_text(src + DRIVER)
     exe = work / "megagrad_host"
     subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-o",
