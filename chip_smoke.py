@@ -43,10 +43,11 @@ Phases, each printing JSON lines on standard output:
    path's size on both scenes, the median of 5 CUDA-event times after a
    warm-up, in turns: K1, K4, K4's earlier design (a pixel per thread) and
    its timing cuts (the replay alone, the replay with its record writes,
-   plain adds instead of the shared atomics), the flat loop without each
-   of its options and at other register budgets, and the SIMT efficiency
-   of replay and walk back; every instance that is not a cut agrees with
-   K4 within 2e-3 (K4_AGREE) and counts the same bounces.
+   plain adds instead of the shared atomics), K4's own cuts (the replay
+   alone, plain adds), each cut at the thread count of the kernel it is
+   cut from, and the SIMT efficiency of replay and walk back; every
+   instance that is not a cut agrees with K4 within 2e-3 (K4_AGREE) and
+   counts the same bounces.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -225,24 +226,22 @@ KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad_k4_variants": ("megagrad", ("ORT_K4_VARIANTS",))}
 # The instances of the measurement build of csrc/megagrad.cu, in the order
 # of its kVariants: K4's earlier design (a pixel per thread, the megagrad
-# template's sphere instance) and its timing cuts, then the flat loop
-# without K4's options (flat: no warp-aggregated atomics, records in
-# depth-major rows; flat_aos: records as float4 by thread, no
-# aggregation), at other register budgets (4 or 8 blocks an SM instead of
-# 6), and with timing cuts.  The cuts' results are wrong on purpose
-# (K4_CUTS); the rest must agree with K4 within K4_AGREE.  The SIMT
-# instances are launched once, for their counts, and not timed.
+# template's sphere instance) and its timing cuts, then K4's timing cuts.
+# Each cut is launched with the threads of the kernel it is cut from, so
+# that it differs from it in work and not in occupancy.  The cuts' results
+# are wrong on purpose (K4_CUTS); the rest must agree with K4 within
+# K4_AGREE.  The SIMT instances are launched once, for their counts, and
+# not timed.
 K4_VARIANTS = ("earlier", "earlier_replay_only", "earlier_replay_records",
-               "earlier_no_atomics", "earlier_simt", "flat", "flat_aos",
-               "k4_4_blocks", "k4_8_blocks", "k4_no_atomics",
+               "earlier_no_atomics", "earlier_simt", "k4_no_atomics",
                "k4_replay_only", "k4_simt")
 K4_CUTS = ("earlier_replay_only", "earlier_replay_records",
            "earlier_no_atomics", "k4_no_atomics", "k4_replay_only")
 # max|a - b| / max|b| of the sphere-table and camera cotangents against
-# K4's: the instances that add each lane's values straight into a block's
-# shared cell (the earlier design, flat, flat_aos) sum 10^5 to 10^6 terms
-# a cell in float32, and part from K4 by up to 6.6e-4 on the book cover;
-# the instances with K4's aggregation agree with it within 3e-6.
+# K4's: the earlier design adds each lane's values straight into a block's
+# shared cell, 10^5 to 10^6 terms a cell in float32, and parts from K4 by
+# up to 6.6e-4 on the book cover; the SIMT instance of K4 agrees with it
+# within 3e-6.
 K4_AGREE = 2e-3
 GRAD_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
                "spheres.fuzz", "spheres.ior", "camera.look_from",

@@ -851,27 +851,20 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
 // steps every live lane by one replay bounce or one bounce walked back.
 // The camera cotangents of a thread are summed in the order of its items,
 // in shared memory (a column per thread), so two launches give equal
-// camera cotangents.  Options (kOpt bits; kK4Opt is what the entry points
-// launch, the others are measured against it by chip_smoke.py):
-enum K4Opt {
-  // a bounce's sphere cotangents summed over the warp's lanes that hit the
-  // same sphere before the shared atomic (add_rows_aggregated)
-  kOptAgg = 1,
-  // records of 12 floats (3 float4) at (depth * n_threads + thread), so a
-  // lane's record is two sectors whatever depth its neighbours are at;
-  // else the earlier design's depth-major rows of one float per thread
-  kOptAoS = 2,
-  // timing only: plain adds into a lane-private sum instead of the shared
-  // atomics (wrong on purpose), the replay alone (no record, no walk back),
-  // and the SIMT counts (counts[2..4]: the warp iterations of the replay,
-  // the lane steps of the walk back and its warp iterations)
-  kTimeNoAtomics = 4,
-  kTimeReplay = 8,
-  kTimeSimt = 16
-};
-constexpr int kK4Opt = kOptAgg | kOptAoS;
-// blocks per SM the register budget is set for (__launch_bounds__)
-constexpr int kK4MinBlocks = 6;
+// camera cotangents.  A bounce's sphere cotangents are summed over the
+// warp's lanes that hit the same sphere before the shared atomic
+// (add_rows_aggregated).  Records are 12 floats (3 float4) at (depth *
+// n_threads + thread), so a lane's record is two sectors whatever depth
+// its neighbours are at.  The register budget is set for 6 blocks an SM
+// (80 registers, no spill).
+//
+// Timing-only cuts (kTime bits), which only chip_smoke.py's split of K4's
+// time launches (the measurement build, ORT_K4_VARIANTS): plain adds into
+// a lane-private sum instead of the shared atomics (wrong on purpose), the
+// replay alone (no record, no walk back), and the SIMT counts (counts[2..4]:
+// the warp iterations of the replay, the lane steps of the walk back and
+// its warp iterations).
+enum K4Time { kTimeNoAtomics = 1, kTimeReplay = 2, kTimeSimt = 4 };
 constexpr int kRecAoS = 12;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -915,14 +908,12 @@ __device__ __forceinline__ void add_rows_aggregated(unsigned lanes, int bi,
       if (v[r] != 0.f) atomicAdd(&acc[r * stride + bi], v[r]);
 }
 
-template <int kOpt, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int kTime = 0>
+__global__ void __launch_bounds__(kThreads, 6)
     sphere_megagrad(const Params p) {
-  constexpr bool kAgg = (kOpt & kOptAgg) != 0;
-  constexpr bool kAoS = (kOpt & kOptAoS) != 0;
-  constexpr bool kNoAtomics = (kOpt & kTimeNoAtomics) != 0;
-  constexpr bool kReplayOnly = (kOpt & kTimeReplay) != 0;
-  constexpr bool kSimt = (kOpt & kTimeSimt) != 0;
+  constexpr bool kNoAtomics = (kTime & kTimeNoAtomics) != 0;
+  constexpr bool kReplayOnly = (kTime & kTimeReplay) != 0;
+  constexpr bool kSimt = (kTime & kTimeSimt) != 0;
   extern __shared__ float smem[];
   const int n = p.n_spheres;
   float* const s_sph = smem;                   // kFields rows of n
@@ -1012,9 +1003,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
     }
   };
-  auto rec_at = [&](int k) -> float* {
-    return kAoS ? p.rec + ((size_t)k * nt + tid) * kRecAoS
-                : p.rec + (size_t)k * kRec * nt + tid;
+  auto rec_at = [&](int k) -> float4* {
+    return reinterpret_cast<float4*>(p.rec +
+                                      ((size_t)k * nt + tid) * kRecAoS);
   };
 
   bool live = next_item();
@@ -1060,24 +1051,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           done = true;  // black
         } else {
           if constexpr (!kReplayOnly) {
-            float* r = rec_at(depth);
-            if constexpr (kAoS) {
-              float4* r4 = reinterpret_cast<float4*>(r);
-              r4[0] = make_float4(o[0], o[1], o[2], d[0]);
-              r4[1] = make_float4(d[1], d[2], T[0], T[1]);
-              r4[2] = make_float4(T[2], (float)bi, 0.f, 0.f);
-            } else {
-              r[R_OX * nt] = o[0];
-              r[R_OY * nt] = o[1];
-              r[R_OZ * nt] = o[2];
-              r[R_DX * nt] = d[0];
-              r[R_DY * nt] = d[1];
-              r[R_DZ * nt] = d[2];
-              r[R_TR * nt] = T[0];
-              r[R_TG * nt] = T[1];
-              r[R_TB * nt] = T[2];
-              r[R_WIN * nt] = (float)bi;
-            }
+            float4* r4 = rec_at(depth);
+            r4[0] = make_float4(o[0], o[1], o[2], d[0]);
+            r4[1] = make_float4(d[1], d[2], T[0], T[1]);
+            r4[2] = make_float4(T[2], (float)bi, 0.f, 0.f);
           }
           for (int k = 0; k < 3; ++k) {
             o[k] = h[k];
@@ -1146,33 +1123,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       // ---- one bounce walked back, from its record ----
       --depth;
       if constexpr (kSimt) ++n_back;
-      const float* r = rec_at(depth);
-      int bi;
-      if constexpr (kAoS) {
-        const float4* r4 = reinterpret_cast<const float4*>(r);
-        const float4 a = r4[0], b = r4[1], c = r4[2];
-        o[0] = a.x; o[1] = a.y; o[2] = a.z;
-        d[0] = a.w; d[1] = b.x; d[2] = b.y;
-        T[0] = b.z; T[1] = b.w; T[2] = c.x;
-        bi = (int)c.y;
-      } else {
-        o[0] = r[R_OX * nt]; o[1] = r[R_OY * nt]; o[2] = r[R_OZ * nt];
-        d[0] = r[R_DX * nt]; d[1] = r[R_DY * nt]; d[2] = r[R_DZ * nt];
-        T[0] = r[R_TR * nt]; T[1] = r[R_TG * nt]; T[2] = r[R_TB * nt];
-        bi = (int)r[R_WIN * nt];
-      }
+      const float4* r4 = rec_at(depth);
+      const float4 a = r4[0], b = r4[1], c = r4[2];
+      o[0] = a.x; o[1] = a.y; o[2] = a.z;
+      d[0] = a.w; d[1] = b.x; d[2] = b.y;
+      T[0] = b.z; T[1] = b.w; T[2] = c.x;
+      const int bi = (int)c.y;
       if constexpr (kNoAtomics) {
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, bi, go, gd, gT, lane_sink);
-      } else if constexpr (kAgg) {
+      } else {
         RowSink rows{};
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, bi, go, gd, gT, rows);
         add_rows_aggregated(rev_lanes, bi, rows.v, s_acc, n, flags);
-      } else {
-        SphereSink sink{s_acc, n, bi};
-        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
-                       d, T, bi, go, gd, gT, sink);
       }
       at_camera = depth == 0;
     }
@@ -1282,7 +1246,7 @@ static bool sphere_params(Params& p, const float* cam, const float* sph,
 // spheres (its shared memory grows with them).
 extern "C" int sphere_megagrad_threads(long long n_items, int n_spheres) {
   return resident_threads(
-      (const void*)sphere_megagrad<kK4Opt, kK4MinBlocks>,
+      (const void*)sphere_megagrad<>,
       k4_smem_bytes(n_spheres), n_items);
 }
 
@@ -1315,7 +1279,7 @@ extern "C" int sphere_megagrad_launch(
                      flags))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
-  sphere_megagrad<kK4Opt, kK4MinBlocks>
+  sphere_megagrad<>
       <<<n_threads / kThreads, kThreads, k4_smem_bytes(n_spheres),
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
@@ -1325,8 +1289,7 @@ extern "C" int sphere_megagrad_launch(
 // The measurement build: the instances chip_smoke.py's split of K4 times,
 // by index (its K4_VARIANTS names them in this order).  The first five are
 // the earlier design (a pixel per thread, the megagrad template's sphere
-// instance) and its timing cuts; the rest are the flat loop with fewer
-// options, other register budgets, or a timing cut.
+// instance) and its timing cuts; the rest are K4's timing cuts.
 namespace {
 using KernelFn = void (*)(const Params);
 const KernelFn kVariants[] = {
@@ -1335,26 +1298,24 @@ const KernelFn kVariants[] = {
     megagrad<false, kSkyComputed, kCutRecords>,
     megagrad<false, kSkyComputed, kCutAtomics>,
     megagrad<false, kSkyComputed, kCutSimt>,
-    sphere_megagrad<0, kK4MinBlocks>,
-    sphere_megagrad<kOptAoS, kK4MinBlocks>,
-    sphere_megagrad<kK4Opt, 4>,
-    sphere_megagrad<kK4Opt, 8>,
-    sphere_megagrad<kK4Opt | kTimeNoAtomics, kK4MinBlocks>,
-    sphere_megagrad<kK4Opt | kTimeReplay, kK4MinBlocks>,
-    sphere_megagrad<kK4Opt | kTimeSimt, kK4MinBlocks>,
+    sphere_megagrad<kTimeNoAtomics>,
+    sphere_megagrad<kTimeReplay>,
+    sphere_megagrad<kTimeSimt>,
 };
 constexpr int kOldVariants = 5;
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 }  // namespace
 
-// Threads variant v launches: per pixel for the earlier design, per pixel
-// sample for the flat loop; -1 for an unknown variant.
+// Threads variant v launches: those of the whole kernel it is cut from
+// (per pixel for the earlier design, per pixel sample for K4), so that a
+// cut, which needs fewer registers, runs at its whole kernel's occupancy
+// and differs from it in work only; -1 for an unknown variant.
 extern "C" int sphere_megagrad_variant_threads(int v, int n_pix,
                                                int n_samples, int n_spheres) {
   if (v < 0 || v >= kNumVariants) return -1;
   if (v < kOldVariants)
-    return resident_threads((const void*)kVariants[v], 0, n_pix);
-  return resident_threads((const void*)kVariants[v],
+    return resident_threads((const void*)kVariants[0], 0, n_pix);
+  return resident_threads((const void*)sphere_megagrad<>,
                           k4_smem_bytes(n_spheres),
                           (long long)n_pix * n_samples);
 }

@@ -149,7 +149,7 @@ int main(int argc, char** argv) {
   p.sky_rows = mesh == 3 ? (const float*)sky_rows.data() : nullptr;
   for (int b = 0; b < threads; ++b) {
     blockIdx.x = b;
-    if (mesh == 0) sphere_megagrad<kK4Opt, kK4MinBlocks>(p);
+    if (mesh == 0) sphere_megagrad<>(p);
     else if (mesh == 1) megagrad<true, kSkyComputed>(p);
     else if (mesh == 2) megagrad<true, kSkyEmit>(p);
     else megagrad<true, kSkyConsume>(p);
