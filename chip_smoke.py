@@ -47,7 +47,26 @@ Phases, each printing JSON lines on standard output:
    alone, plain adds), each cut at the thread count of the kernel it is
    cut from, and the SIMT efficiency of replay and walk back; every
    instance that is not a cut agrees with K4 within 2e-3 (K4_AGREE) and
-   counts the same bounces.
+   counts the same bounces.  6e: K1's split at the main path's size on
+   both scenes, from the measurement build ORT_K1_VARIANTS (K1_VARIANTS):
+   the median of 5 CUDA-event times after a warm-up, in turns, of K1, the
+   earlier design (a pixel per thread, each branch drawing on its own),
+   the earlier design with one section run twice (the sphere tests, the
+   sky, the Lambertian draw, the whole scatter, the camera ray), the
+   merged draw alone and K1's options (the fuzz direction in the metal
+   branch, 256-thread blocks, 6 and 7 blocks an SM), each cut at the
+   earlier design's threads and blocks an SM; every instance gives K1's
+   image bit for bit and its bounces; the SIMT efficiency of each section
+   of both designs and their idle share; the registers and spills of each
+   instance.  6f: K2's walk split at REFERENCE_DEFAULTS with 576 and
+   15,360 triangles under the gradient and the HDR sky, from the
+   measurement builds ORT_K2_VARIANTS and ORT_FLAT_WALK: per bounce the
+   gating-box, group, chunk and sub-box slabs, the runs entered and the
+   triangle tests of the earlier walk (every chunk) and the grouped walk,
+   the SIMT efficiency at each, the walk's time (each walk run twice,
+   less its kernel), and K2 (both bodies), K5, K6 and K7 with each walk,
+   medians of 5 in turns; both walks give equal images, bounces, triangle
+   tests and K6 records, and K5's and K7's cotangents within 1e-4.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -193,6 +212,19 @@ PEAK_HBM_BYTES = 3.35e12
 # c 6, the discriminant 3 = 17 for every test; a test that hits adds 4 to 6
 # (the root), which is not counted.
 FLOPS_PER_SPHERE_TEST = 17
+# What every sphere hit takes besides the tests (csrc/megakernel.cu, the
+# Lambertian scatter that every hit draws or, in the earlier design, runs
+# first): the hit point 6 (3 fma), the normal 6 (3 subtractions, 3
+# divisions), the front face 5 (a dot product), the draw's floats 4 (a
+# multiply each; the pcg4d hash is integer work), zu 2, phi 1, the radius
+# 4 (an fma, a max, a square root), cosf and sinf 2 (one each), the
+# direction 5 (2 multiplies, 3 adds), the throughput 3 = 38.  K1 counts at
+# least bounces - samples hits (a sample's last bounce may miss).
+FLOPS_PER_SPHERE_HIT = 38
+# One camera ray (common.cuh::camera_ray, no aperture): the two floats of
+# the draw it reads 2, u and v 4 (an add and a division each), the
+# direction 15 (2 fma and a subtraction a component) = 21, once a sample.
+FLOPS_PER_CAMERA_RAY = 21
 # One bounce walked back (csrc/megagrad.cu::bounce_adjoint), the cheapest
 # kind, a Lambertian one: the recompute of the winner's hit 43, the
 # throughput 9, the normal 18, the hit point 11, the root 13 + 33, the
@@ -214,16 +246,52 @@ TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
 # (tools/mesh_fit_sweep.py measured the rates).
 FIT_SHIFT = 0.01
 FIT_LR = 1e-3
-# Libraries built at the start: label -> (source, macros).  The last two
-# are measurement builds, not on any path: the forward kernel with the
-# backward's fuzz cube root (powf instead of cbrtf; csrc/common.cuh), and
-# the backward with the instances of K4's split (K4_VARIANTS).
+# Libraries built at the start: label -> (source, macros).  All but the
+# first four are measurement builds, not on any path: the forward kernel
+# with the backward's fuzz cube root (powf instead of cbrtf;
+# csrc/common.cuh), the backward with the instances of K4's split
+# (K4_VARIANTS), the sphere forward with the earlier K1 design, its cuts
+# and options (K1_VARIANTS), the mesh forward with the walk's counting and
+# timing instances (K2_VARIANTS), and the mesh forward and the backward
+# with the earlier walk over every chunk (ORT_FLAT_WALK: K2, K5, K6 and K7
+# as they were before the grouped walk).
 KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad": ("megagrad", ()),
            "megamesh": ("megamesh", ()),
            "intersect_mm": ("intersect_mm", ()),
            "megakernel_powf": ("megakernel", ("ORT_FUZZ_POWF",)),
-           "megagrad_k4_variants": ("megagrad", ("ORT_K4_VARIANTS",))}
+           "megagrad_k4_variants": ("megagrad", ("ORT_K4_VARIANTS",)),
+           "megakernel_k1_variants": ("megakernel", ("ORT_K1_VARIANTS",)),
+           "megamesh_k2_variants": ("megamesh", ("ORT_K2_VARIANTS",)),
+           "megamesh_flat_walk": ("megamesh", ("ORT_FLAT_WALK",)),
+           "megagrad_flat_walk": ("megagrad", ("ORT_FLAT_WALK",))}
+# The instances of K1's measurement build (csrc/megakernel.cu kVariants),
+# in order: the earlier design (a pixel per thread, each branch drawing on
+# its own), its SIMT-counting instance and its timing cuts (each runs one
+# section twice, from the same inputs, so no path changes: the sphere
+# tests, the sky, the bounce's Lambertian draw, the whole scatter, the
+# camera ray), the merged draw alone (a pixel per thread), the kernel's
+# options (the fuzz direction in the metal branch instead of the merged
+# slot; 256-thread blocks; register budgets for 6 and 7 blocks an SM), and
+# the kernel's SIMT-counting instance.  Each cut runs at the earlier
+# design's threads and blocks an SM (dynamic shared memory holds a cut
+# that needs fewer registers to them).  Every instance gives K1's image
+# bit for bit and its bounces (K1_SECTIONS names the counted sections).
+K1_VARIANTS = ("earlier", "earlier_simt", "earlier_twice_sphere",
+               "earlier_twice_sky", "earlier_twice_lambert",
+               "earlier_twice_scatter", "earlier_twice_camera",
+               "merged_draw_per_pixel", "fuzz_in_metal_branch", "block_256",
+               "regs_6_blocks", "regs_7_blocks", "k1_simt")
+K1_SECTIONS = ("sphere_tests", "sky", "lambert", "metal", "dielectric",
+               "camera", "merged_draw")
+# The instances of K2's measurement build (csrc/megamesh.cu Variant, from
+# 1): the earlier walk and the grouped walk counting their slabs, runs and
+# triangle tests and the warp passes at each (K2_WALK_KINDS), and each
+# running its walk twice (the second time from the same rays, its result
+# kept alive), so that the difference from the kernel is the walk's time.
+K2_VARIANTS = ("count_flat", "count_grouped", "twice_flat", "twice_grouped")
+K2_WALK_KINDS = ("box_slabs", "group_slabs", "chunk_slabs", "sub_slabs",
+                 "runs")
 # The instances of the measurement build of csrc/megagrad.cu, in the order
 # of its kVariants: K4's earlier design (a pixel per thread, the megagrad
 # template's sphere instance) and its timing cuts, then K4's timing cuts.
@@ -594,8 +662,315 @@ def k4_split(dev) -> dict:
     return out
 
 
-def split_only() -> None:
-    """The device line, the build and K4's split alone:
+def k1_flops(bounces: int, samples: int, n_spheres: int) -> float:
+    """K1's FP32 work for a run's bounces and samples: every sphere tested
+    on every bounce, at least bounces - samples hits, a camera ray a
+    sample (the constants above)."""
+    return (bounces * n_spheres * FLOPS_PER_SPHERE_TEST
+            + max(bounces - samples, 0) * FLOPS_PER_SPHERE_HIT
+            + samples * FLOPS_PER_CAMERA_RAY)
+
+
+def ptxas_of(built, label: str) -> list:
+    """The compiler's register and spill lines of one library."""
+    return list(built[label][2]) if built and label in built else []
+
+
+def simt_of(c: list, names) -> dict:
+    """Per counted section: SIMT efficiency (lane steps over warp passes x
+    32) and the lane steps, from counts c[1 + 2s] and c[2 + 2s]."""
+    return {name: {"simt": (c[1 + 2 * i] / (32 * c[2 + 2 * i])
+                            if c[2 + 2 * i] else None),
+                   "lane_steps": c[1 + 2 * i]}
+            for i, name in enumerate(names)}
+
+
+def k1_variant(lib, v: int, cam, sph, n: int, cfg, sky_kind: int, flags,
+               seed: int = 0):
+    """A launcher of instance v of K1's measurement build (K1_VARIANTS):
+    counts (the library's count of int64) or None -> (3, n_pix) planes.
+    Its work counter is zeroed by each launch, as the wrapper's."""
+    import ctypes
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    fn = lib.sphere_megakernel_variant_launch
+    fn.argtypes = [i_, p_, p_, i_, i_, p_, p_, p_, p_, p_, i_,
+                   ctypes.c_uint32, i_, i_, i_, i_, ctypes.c_float, i_, p_]
+    fn.restype = i_
+    n_pix = cfg.width * cfg.height
+    out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
+    bits = mk._flag_bits(cfg, sky_kind, flags)
+
+    def launch(counts=None):
+        work = torch.zeros(1, dtype=torch.int32, device=cam.device)
+        rc = fn(v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                counts.data_ptr() if counts is not None else None,
+                work.data_ptr(), n_pix, seed, cfg.width, cfg.height, cfg.spp,
+                cfg.max_depth, cfg.t_min, bits,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"K1 variant {K1_VARIANTS[v]}: CUDA error {rc}")
+        return out
+
+    return launch
+
+
+def k1_split(dev, built=None, time_new: bool = True) -> dict:
+    """K1's split at the main path's size, README and book cover: K1 and
+    every instance of its measurement build, the median of 5 CUDA-event
+    times after a warm-up (the launch that reads the counts), in turns in
+    one process.  Every instance must give K1's image bit for bit and its
+    bounces.  A section's time is its doubled cut less the earlier design;
+    the metal and dielectric branches are the whole scatter's less the
+    Lambertian draw's; SIMT efficiency per section, and the idle share (1 -
+    the sphere tests' efficiency: lanes whose pixel has ended).  With
+    time_new False only the earlier design's instances are timed."""
+    import ctypes
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    lib = _build.load(*KERNELS["megakernel_k1_variants"][:1], {},
+                      KERNELS["megakernel_k1_variants"][1])
+    lib.sphere_megakernel_variant_counts.restype = ctypes.c_int
+    n_counts = lib.sphere_megakernel_variant_counts()
+    bench = ot.README_BENCH
+    n_pix = bench.width * bench.height
+    samples = n_pix * bench.spp
+    out = {}
+    for case, scene in (("readme", ot.readme_scene(16 / 9)),
+                        ("book_cover", ot.book_cover_scene(
+                            aspect_ratio=16 / 9))):
+        scene = scene.to(dev)
+        cam, sph = mk.camera_table(scene), mk.sphere_table(scene)
+        n, sky_kind = scene.spheres.count, scene.sky.kind
+        flags = mk.specialize_flags(scene)
+        fns = {"K1": lambda: mk.render_spheres(cam, sph, n, bench, sky_kind,
+                                               flags, 0, n_pix)}
+        for i, name in enumerate(K1_VARIANTS):
+            fns[name] = k1_variant(lib, i, cam, sph, n, bench, sky_kind,
+                                   flags)
+        b = torch.zeros(1, dtype=torch.int64, device=dev)
+        k1 = torch.stack(mk.render_spheres(cam, sph, n, bench, sky_kind,
+                                           flags, 0, n_pix, bounces=b))
+        torch.cuda.synchronize()
+        counts = {"K1": b.tolist()}
+        for name in K1_VARIANTS:
+            c = torch.zeros(n_counts, dtype=torch.int64, device=dev)
+            same = torch.equal(fns[name](c), k1)
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            if not same or counts[name][0] != counts["K1"][0]:
+                fail(f"K1 split {case}: {name} differs from K1 (image equal "
+                     f"{same}, bounces {counts[name][0]} against "
+                     f"{counts['K1'][0]})")
+        ms = median_ms({k: f for k, f in fns.items()
+                        if not k.endswith("simt")
+                        and (time_new or k.startswith("earlier"))})
+        e = ms["earlier"]
+        split = {f"{sec}_ms": ms[f"earlier_twice_{sec}"] - e
+                 for sec in ("sphere", "sky", "lambert", "scatter", "camera")}
+        split["metal_dielectric_ms"] = split["scatter_ms"] - split["lambert_ms"]
+        split["rest_ms"] = e - sum(split[f"{sec}_ms"] for sec in
+                                   ("sphere", "sky", "scatter", "camera"))
+        simt = {name: simt_of(counts[name], K1_SECTIONS)
+                for name in ("earlier_simt", "k1_simt")}
+        idle = {name: 1.0 - simt[name]["sphere_tests"]["simt"]
+                for name in simt}
+        bounces = counts["K1"][0]
+        bound = bound_of(k1_flops(bounces, samples, n),
+                         (cam.numel() + sph.numel() + 3 * n_pix) * 4)
+        bound_tests_only = bound_of(bounces * n * FLOPS_PER_SPHERE_TEST,
+                                    (cam.numel() + sph.numel()
+                                     + 3 * n_pix) * 4)
+        k1_ms = ms.get("K1", float("nan"))
+        out[case] = dict(ms=ms, split=split, simt=simt, idle_share=idle,
+                         bounces=bounces, speedup=e / k1_ms,
+                         bound=bound, bound_tests_only=bound_tests_only,
+                         share_of_bound=bound["bound_ms"] / k1_ms)
+        emit({"phase": "k1_split", "case": case, "size": "1280x720x250/d50",
+              **out[case], "counts": counts,
+              "ptxas": ptxas_of(built, "megakernel_k1_variants")})
+    return out
+
+
+def k2_split(dev, built=None, time_new: bool = True) -> dict:
+    """K2's walk split at REFERENCE_DEFAULTS (1280x720x5/d32) with 576 and
+    15,360 triangles, under the gradient sky and the HDR sky: K2 with the
+    grouped walk and as it was (the earlier walk over every chunk, the
+    ORT_FLAT_WALK build), the walk's counts per bounce for both walks
+    (gating-box, group, chunk and sub-box slabs, runs entered, triangle
+    tests, and the SIMT efficiency at each), the walk's time (each walk
+    run a second time, less its kernel), and the backward kernels that
+    replay the walk (K5 under the gradient sky, K6 and K7 under the HDR
+    sky) with both walks; medians of 5 CUDA-event times in turns after a
+    warm-up.  Both walks must find the same winners: equal images, bounce
+    and triangle-test counts, equal K6 records, equal K5 and K7 counts
+    and their cotangents within 1e-4 of each other's scale (atomics add
+    in another order).  With time_new False only the earlier walk's
+    instances are timed."""
+    import ctypes
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.kernels.intersect_mm import table_args
+    var = _build.load(*KERNELS["megamesh_k2_variants"][:1], {},
+                      KERNELS["megamesh_k2_variants"][1])
+    var.mesh_megakernel_variant_launch.argtypes = [
+        ctypes.c_int, *mm._SYMBOLS["mesh_megakernel_launch"][0]]
+    var.mesh_megakernel_variant_launch.restype = ctypes.c_int
+    flat = {mm: _build.load("megamesh", mm._SYMBOLS,
+                            KERNELS["megamesh_flat_walk"][1]),
+            mg: _build.load("megagrad", mg._SYMBOLS,
+                            KERNELS["megagrad_flat_walk"][1])}
+    built_libs = {mm: mm._library, mg: mg._library}
+
+    def flat_walk(fn):
+        """fn run with the ORT_FLAT_WALK libraries in place."""
+        def run(*a, **k):
+            for mod, lib in flat.items():
+                mod._library = lambda lib=lib: lib
+            try:
+                return fn(*a, **k)
+            finally:
+                for mod, lib in built_libs.items():
+                    mod._library = lib
+        return run
+
+    cfg = ot.REFERENCE_DEFAULTS
+    n_pix = cfg.width * cfg.height
+    n_walk = len(K2_WALK_KINDS)
+    flagship = flagship_scenes()
+    scenes = {"mesh_576": torus_scene(), "mesh_15360": torus_scene(128, 60),
+              "hdr_576": flagship["torus_576"],
+              "hdr_15360": flagship["torus_15360"]}
+    out = {}
+    for case, scene in scenes.items():
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+        hdr = image is not None
+        kind = scene.sky.kind
+        bits = mk._flag_bits(cfg, kind, flags[:5])
+        sky = mm.sky_args(image)
+
+        def k2(counts=None):
+            return torch.stack(mm.render_mesh(cam, sph, n, tab, cfg, kind,
+                                              flags, 0, n_pix, counts=counts,
+                                              sky_image=image))
+
+        def variant(v):
+            res = torch.empty((3, n_pix), dtype=torch.float32, device=dev)
+
+            def launch(counts=None):
+                rc = var.mesh_megakernel_variant_launch(
+                    v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
+                    *table_args(tab), int(flags[5]), res[0].data_ptr(),
+                    res[1].data_ptr(), res[2].data_ptr(), None,
+                    counts.data_ptr() if counts is not None else None,
+                    n_pix, 0, 0, 0, cfg.width, cfg.height, cfg.spp,
+                    cfg.max_depth, cfg.t_min, bits, *sky,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    fail(f"K2 variant {K2_VARIANTS[v - 1]}: CUDA error {rc}")
+                return res
+            return launch
+
+        fns = {"K2": k2, "K2_flat_walk": flat_walk(k2)}
+        for i, name in enumerate(K2_VARIANTS):
+            fns[name] = variant(i + 1)
+        counts = {}
+        img = None
+        for name in ("K2", "K2_flat_walk", *K2_VARIANTS):
+            c = torch.zeros(2 + 2 * n_walk + 1, dtype=torch.int64,
+                            device=dev)
+            got = fns[name](c if name in K2_VARIANTS else c[:2])
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            img = got.clone() if img is None else img
+            if (not torch.equal(got, img)
+                    or counts[name][:2] != counts["K2"][:2]):
+                fail(f"K2 split {case}: {name} differs from K2 (bounces, "
+                     f"tests {counts[name][:2]} against "
+                     f"{counts['K2'][:2]})")
+        # the backward kernels that replay the walk, with both walks
+        g = ((2.0 / (3 * n_pix) / cfg.spp) * img).contiguous()
+        if hdr:
+            emit_, _ = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 0, n_pix)
+            sky_rows, _ = mg.hdr_lookup(image, emit_)
+            grads = {
+                "K6": lambda c=None: mg.hdr_emit(cam, sph, n, tab, cfg,
+                                                 flags, 0, n_pix, counts=c),
+                "K7": lambda c=None: mg.hdr_consume(
+                    cam, sph, n, tab, cfg, flags, g[0], g[1], g[2],
+                    sky_rows, 0, n_pix, counts=c)}
+        else:
+            grads = {"K5": lambda c=None: mg.render_grad_mesh_tables(
+                cam, sph, n, tab, cfg, kind, flags, g[0], g[1], g[2], 0,
+                n_pix, counts=c)}
+        agree = {}
+        for name, fn in list(grads.items()):
+            grads[f"{name}_flat_walk"] = flat_walk(fn)
+            res = {}
+            for key in (name, f"{name}_flat_walk"):
+                c = torch.zeros(4 if name != "K6" else 2, dtype=torch.int64,
+                                device=dev)
+                res[key] = grads[key](c)
+                torch.cuda.synchronize()
+                counts[key] = c.tolist()
+            a, b = res[name], res[f"{name}_flat_walk"]
+            if name == "K6":
+                agree[name] = bool(torch.equal(a[0], b[0])
+                                   and torch.equal(a[1], b[1]))
+            else:
+                agree[name] = max(float((x - y).abs().max()
+                                        / max(float(y.abs().max()), 1e-30))
+                                  for x, y in zip(a, b))
+            if (counts[name] != counts[f"{name}_flat_walk"]
+                    or agree[name] is False
+                    or (agree[name] is not True and agree[name] > 1e-4)):
+                fail(f"K2 split {case}: {name} with the two walks disagrees: "
+                     f"{agree[name]}, counts {counts[name]} against "
+                     f"{counts[name + '_flat_walk']}")
+        fns.update(grads)
+        earlier = ("K2_flat_walk", "twice_flat", "K5_flat_walk",
+                   "K6_flat_walk", "K7_flat_walk")
+        ms = median_ms({k: f for k, f in fns.items()
+                        if not k.startswith("count")
+                        and (time_new or k in earlier)})
+        bounces = counts["K2"][0]
+        walk = {}
+        for w in ("flat", "grouped"):
+            c = counts[f"count_{w}"]
+            walk[w] = {
+                "per_bounce": {k: c[2 + i] / bounces
+                               for i, k in enumerate(K2_WALK_KINDS)},
+                "simt": {k: (c[2 + i] / (32 * c[2 + n_walk + i])
+                             if c[2 + n_walk + i] else None)
+                         for i, k in enumerate(K2_WALK_KINDS)},
+                "slab_simt": (sum(c[2:2 + 4]) / (32 * sum(
+                    c[2 + n_walk:2 + n_walk + 4])) if sum(
+                        c[2 + n_walk:2 + n_walk + 4]) else None),
+                "tests_per_bounce": c[1] / bounces}
+        walk["flat"]["walk_ms"] = ms["twice_flat"] - ms["K2_flat_walk"]
+        if time_new:
+            walk["grouped"]["walk_ms"] = ms["twice_grouped"] - ms["K2"]
+        out[case] = dict(ms=ms, walk=walk, bounces=bounces,
+                         tests=counts["K2"][1], agree=agree,
+                         n_chunks=tab.chunk_box.shape[0],
+                         n_groups=tab.group_end.shape[0])
+        emit({"phase": "k2_split", "case": case, "size": "1280x720x5/d32",
+              **out[case], "counts": counts,
+              "ptxas": ptxas_of(built, "megamesh_k2_variants")
+              + ptxas_of(built, "megamesh_flat_walk")
+              + ptxas_of(built, "megagrad_flat_walk")})
+    return out
+
+
+def split_only(*splits, time_new: bool = True) -> None:
+    """The device line, the build and the splits alone (K1's, K2's walk
+    and K4's, or those named: "k1", "k2", "k4"), with time_new False
+    timing only the earlier designs:
     python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -610,7 +985,11 @@ def split_only() -> None:
           "kernels": {name: {"library": lib.name, "seconds": secs,
                              "ptxas": ptxas}
                       for name, (lib, secs, ptxas) in built.items()}})
-    k4_split(torch.device("cuda"))
+    dev = torch.device("cuda")
+    for name in splits or ("k1", "k2", "k4"):
+        {"k1": lambda: k1_split(dev, built, time_new),
+         "k2": lambda: k2_split(dev, built, time_new),
+         "k4": lambda: k4_split(dev)}[name]()
 
 
 def mesh_phases(dev) -> tuple:
@@ -1815,6 +2194,8 @@ def window_phases(dev, readme_img, fit) -> dict:
         n_sph = scene.spheres.count
         flops = (c[0] * n_sph * FLOPS_PER_SPHERE_TEST
                  + (c[1] * FLOPS_PER_TRI_TEST if len(c) > 1 else 0))
+        if name == "readme":
+            flops = k1_flops(c[0], cfg.width * cfg.height * chunk, n_sph)
         table_bytes = sum(t.numel() * t.element_size() for t in head
                           if isinstance(t, torch.Tensor))
         if name != "readme":
@@ -2025,11 +2406,15 @@ def main() -> None:
         img = torch.stack(launch(), -1).reshape(bench.height, bench.width, 3)
         torch.cuda.synchronize()
         n_bounces = int(bounces.item())
-        flops = n_bounces * n * FLOPS_PER_SPHERE_TEST
+        flops = k1_flops(n_bounces, n_pix * bench.spp, n)
         io_bytes = (cam.numel() + sph.numel() + 3 * n_pix) * 4
         bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS,
                              io_bytes / PEAK_HBM_BYTES)
+        # the bound of the sphere tests alone (PR 1 to PR 7's bound)
+        tests_bound_ms = bound_of(n_bounces * n * FLOPS_PER_SPHERE_TEST,
+                                  io_bytes)["bound_ms"]
         entry = dict(kernel_ms=ms, bounces=n_bounces,
+                     tests_only_bound_ms=tests_bound_ms,
                      bounces_per_sample=n_bounces / (n_pix * bench.spp),
                      n_spheres=n, flops=flops, bytes=io_bytes,
                      bound_ms=bound_ms, image=img)
@@ -2274,6 +2659,14 @@ def main() -> None:
     # options against it, the SIMT efficiencies ----
     split = k4_split(dev)
 
+    # ---- 6e. K1's split: the earlier design's time by section, K1 and its
+    # options against it, the SIMT efficiencies and the idle share ----
+    k1s = k1_split(dev, built)
+
+    # ---- 6f. K2's walk split: both walks' counts per bounce, their time,
+    # and K2, K5, K6 and K7 with each walk ----
+    k2s = k2_split(dev, built)
+
     # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
     true = ot.readme_scene(16 / 9)
     target = ot.render(true, bench, seed=0)
@@ -2337,6 +2730,10 @@ def main() -> None:
         "readme_ms": 1e3 * main_runs["readme"][0],
         "book_cover_ms": 1e3 * main_runs["book_cover"][0],
         "launches_in_gradient_path": grad_launches["sphere_megakernel"],
+        "tests_only_bound_ms": r["tests_only_bound_ms"],
+        "earlier_design_median_ms": {
+            case: k1s[case]["ms"]["earlier"] for case in k1s},
+        "median_ms": {case: k1s[case]["ms"]["K1"] for case in k1s},
     }, {
         "name": "sphere_megagrad",
         "route": "cuda",
@@ -2364,6 +2761,19 @@ def main() -> None:
     }, *mesh_entries, mesh_grad_entry, *hdr_entries]
     for entry in kernels:
         entry.update(windows.get(entry["name"], {}))
+    # the walk's split: each kernel that walks the mesh, with the earlier
+    # walk in the same call
+    walk_of = {"mesh_megakernel": ("K2", ("mesh_576", "mesh_15360")),
+               "mesh_megakernel_hdr": ("K2", ("hdr_576", "hdr_15360")),
+               "mesh_megagrad": ("K5", ("mesh_576", "mesh_15360")),
+               "hdr_emit": ("K6", ("hdr_576", "hdr_15360")),
+               "hdr_consume": ("K7", ("hdr_576", "hdr_15360"))}
+    for entry in kernels:
+        if entry["name"] in walk_of:
+            k, cases = walk_of[entry["name"]]
+            entry["median_ms"] = {c: k2s[c]["ms"][k] for c in cases}
+            entry["earlier_walk_median_ms"] = {
+                c: k2s[c]["ms"][f"{k}_flat_walk"] for c in cases}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1347,7 +1347,7 @@ extern "C" int sphere_megagrad_variant_launch(
 
 // Launches the mesh variant on `stream`, as sphere_megagrad_launch, with
 // the mesh tables of the mesh megakernel (tri, cluster, sub, chunk_box,
-// boxes), the mesh's material type, and gtri (10 x t_pad, added to);
+// boxes, group, group_end), the mesh's material type, and gtri (10 x t_pad, added to);
 // n_spheres may be 0; rec holds n_threads * max_depth * 12 floats; counts,
 // when not null, receives the bounces replayed, the bounces walked back
 // (sphere and triangle bounces, without the sphere variant's one more per
@@ -1357,14 +1357,14 @@ extern "C" int mesh_megagrad_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* group, const int* group_end, int n_groups, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
     float* cam_part, float* gsph, float* gtri, float* rec, int n_threads,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int n_samples, int width, int height,
     int max_depth, float t_min, int flags, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxMeshSpheres || tab_w < n_spheres ||
-      n_chunks < 1 || t_pad < n_chunks * kChunk || t_pad >= (1 << 24) ||
-      n_boxes < 1 || n_pix < 0 || width < 1 || height < 1 ||
+      !mesh_args_ok(t_pad, n_chunks, n_boxes, n_groups) ||
+      t_pad >= (1 << 24) || n_pix < 0 || width < 1 || height < 1 ||
       n_samples < 0 || max_depth < 1 || n_threads < kThreads ||
       n_threads % kThreads != 0)
     return (int)cudaErrorInvalidValue;
@@ -1393,7 +1393,7 @@ extern "C" int mesh_megagrad_launch(
   p.t_min = t_min;
   p.flags = flags;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes};
+                    n_boxes, group, group_end, n_groups};
   p.mesh_type = mesh_type;
   p.gtri = gtri;
   megagrad<true, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
@@ -1404,13 +1404,12 @@ extern "C" int mesh_megagrad_launch(
 // The argument checks of the HDR passes: the mesh variant's, where the
 // scene may have no triangles (n_chunks and n_boxes 0).
 static bool hdr_args_ok(int tab_w, int n_spheres, int t_pad, int n_chunks,
-                        int n_boxes, int n_pix, int width, int height,
-                        int n_samples, int max_depth) {
-  const bool no_mesh = n_chunks == 0 && n_boxes == 0;
+                        int n_boxes, int n_groups, int n_pix, int width,
+                        int height, int n_samples, int max_depth) {
+  const bool no_mesh = n_chunks == 0 && n_boxes == 0 && n_groups == 0;
   return n_spheres >= 0 && n_spheres <= kMaxMeshSpheres &&
          tab_w >= n_spheres &&
-         (no_mesh || (n_chunks >= 1 && t_pad >= n_chunks * kChunk &&
-                      n_boxes >= 1)) &&
+         (no_mesh || mesh_args_ok(t_pad, n_chunks, n_boxes, n_groups)) &&
          t_pad < (1 << 24) && n_pix >= 0 && width >= 1 && height >= 1 &&
          n_samples >= 0 && max_depth >= 1;
 }
@@ -1420,7 +1419,8 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
                          int n_spheres, const float* tri, int t_pad,
                          const float* cluster, const float* sub,
                          const int* chunk_box, int n_chunks,
-                         const float* boxes, int n_boxes, int mesh_type,
+                         const float* boxes, int n_boxes, const float* group,
+                         const int* group_end, int n_groups, int mesh_type,
                          unsigned long long* counts, int n_pix,
                          int pix_offset, unsigned int seed,
                          unsigned int sample_base, int n_samples, int width,
@@ -1442,14 +1442,14 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
   p.t_min = t_min;
   p.flags = flags;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes};
+                    n_boxes, group, group_end, n_groups};
   p.mesh_type = mesh_type;
   return p;
 }
 
 // Launches K6 on `stream`, one thread per pixel, and returns
-// cudaGetLastError().  Tables as mesh_megagrad_launch's (n_chunks and
-// n_boxes may be 0: no triangles); emit (6 x n_samples x n_pix) receives
+// cudaGetLastError().  Tables as mesh_megagrad_launch's (n_chunks, n_boxes
+// and n_groups may be 0: no triangles); emit (6 x n_samples x n_pix) receives
 // each sample's miss direction and throughput, emis (3 x n_pix) each
 // pixel's non-sky sum; counts, when not null, receives the bounces replayed
 // and the triangle tests.
@@ -1457,16 +1457,17 @@ extern "C" int hdr_emit_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    int mesh_type, float* emit, float* emis, unsigned long long* counts,
+    const float* group, const int* group_end, int n_groups, int mesh_type, float* emit, float* emis, unsigned long long* counts,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
     int flags, void* stream) {
-  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_pix, width,
-                   height, n_samples, max_depth))
+  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_groups,
+                   n_pix, width, height, n_samples, max_depth))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
   Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
-                        chunk_box, n_chunks, boxes, n_boxes, mesh_type,
+                        chunk_box, n_chunks, boxes, n_boxes, group,
+                        group_end, n_groups, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
   const int blocks = (n_pix + kThreads - 1) / kThreads;
@@ -1477,26 +1478,27 @@ extern "C" int hdr_emit_launch(
   return (int)cudaGetLastError();
 }
 
-// Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks and n_boxes
-// may be 0: no triangles), with sky_rows (3 x n_samples x n_pix) the sky
+// Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks, n_boxes and
+// n_groups may be 0: no triangles), with sky_rows (3 x n_samples x n_pix) the sky
 // value of each sample that missed.
 extern "C" int hdr_consume_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* group, const int* group_end, int n_groups, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
     const float* sky_rows, float* cam_part, float* gsph, float* gtri,
     float* rec, int n_threads, unsigned long long* counts, int n_pix,
     int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
     int flags, void* stream) {
-  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_pix, width,
-                   height, n_samples, max_depth) ||
+  if (!hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_groups,
+                   n_pix, width, height, n_samples, max_depth) ||
       n_threads < kThreads || n_threads % kThreads != 0)
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
   Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
-                        chunk_box, n_chunks, boxes, n_boxes, mesh_type,
+                        chunk_box, n_chunks, boxes, n_boxes, group,
+                        group_end, n_groups, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
   p.g_r = g_r;

@@ -33,14 +33,18 @@
 // (one texel of 12 bytes per miss), and three floats written per pixel.
 //
 // What the design does about it: the culling of mesh.cuh, per ray and per
-// bounce: the gating boxes first, then each chunk's AABB and sub-boxes,
-// entered before the nearer of the sphere hit and the triangle hit so far
-// (the plan orders chunks front to back from the camera).  A ray that hits
-// the ground sphere before the mesh's box tests no triangle.  The triangle
+// bounce: the gating boxes first, then the boxes of groups of up to 8
+// chunks, then the AABB and sub-boxes of each chunk of a group the ray
+// enters, each entered before the nearer of the sphere hit and the triangle
+// hit so far (the plan orders chunks front to back from the camera).  A ray
+// that hits the ground sphere before the mesh's box tests no triangle.  At
+// 15,360 triangles (120 chunks) a ray in the mesh's box tests 15 group
+// slabs and the chunks of the groups it enters, where the earlier walk
+// tested all 120 chunk slabs (PERF.md, the walk's split).  The triangle
 // table (22 floats per triangle, 1.35 MB for 15,360 triangles) stays in L2;
 // the rays of a warp that test the same run read each column as one
 // broadcast.  Left for later work: divergence between the rays of a warp
-// that enter different runs, and the serial walk over all chunks.
+// that enter different runs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,10 +82,31 @@ struct Params {
   float t_min;
   int flags;
   HdrImage sky;
+  uint32_t zero;                // 0; the measurement instances' perturbation
+};
+
+// The instances of the kernel: the one the entry points launch, and the
+// measurement build's (ORT_K2_VARIANTS; chip_smoke.py's split of the walk):
+// the earlier walk and the grouped walk counting what they test (WalkCount;
+// counts[2..12]), and each running its walk a second time, from the origin
+// xor p.zero (the same rays: zero is 0) with the result kept alive, so that
+// the difference from the kernel is the walk's time.
+enum Variant { kPlain, kCountFlat, kCountGrouped, kTwiceFlat, kTwiceGrouped };
+
+// The slabs and runs a walk tested, per lane, and the warp passes at each
+// (the lane that is first in __activemask counts one): SIMT efficiency is
+// lane steps over (warp passes x 32).
+struct WalkCount {
+  unsigned int lane[kWalkKinds] = {};
+  unsigned int warp[kWalkKinds] = {};
+  __device__ __forceinline__ void at(int k) {
+    ++lane[k];
+    if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) ++warp[k];
+  }
 };
 
 // kWindow: a sample window (acc0 or RAW_SUM), as in megakernel.cu.
-template <bool kWindow>
+template <bool kWindow, int kVar = kPlain>
 __global__ void __launch_bounds__(kThreads)
 mesh_megakernel(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];
@@ -111,6 +136,8 @@ mesh_megakernel(const Params p) {
   int depth = 0;
   unsigned int n_bounce = 0;
   unsigned int n_tests = 0;
+  WalkCount wc;                  // kCountFlat, kCountGrouped
+  uint32_t sink = 0;             // kTwiceFlat, kTwiceGrouped
   if (valid)
     camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, p.sample_base,
                px, py, o, d);
@@ -125,7 +152,30 @@ mesh_megakernel(const Params p) {
     closest_sphere(s_sph, kMaxSpheres, n, o, d, a, p.t_min, best_t, best_i);
     float tri_t = kBig;
     int tri_i = 0;
-    closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests);
+    if constexpr (kVar == kCountFlat)
+      closest_triangle_flat(p.mt, o, d, p.t_min, best_t, tri_t, tri_i,
+                            n_tests, wc);
+    else if constexpr (kVar == kCountGrouped)
+      closest_triangle_grouped(p.mt, o, d, p.t_min, best_t, tri_t, tri_i,
+                               n_tests, wc);
+    else
+      closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests);
+    if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped) {
+      float o2[3];
+      for (int k = 0; k < 3; ++k)
+        o2[k] = __uint_as_float(__float_as_uint(o[k]) ^ p.zero);
+      float t2 = kBig;
+      int i2 = 0;
+      unsigned int tests2 = 0;
+      NoWalkProbe np;
+      if constexpr (kVar == kTwiceFlat)
+        closest_triangle_flat(p.mt, o2, d, p.t_min, best_t, t2, i2, tests2,
+                              np);
+      else
+        closest_triangle_grouped(p.mt, o2, d, p.t_min, best_t, t2, i2,
+                                 tests2, np);
+      sink ^= __float_as_uint(t2) ^ (uint32_t)i2 ^ tests2;
+    }
     const bool tri_win = tri_t < best_t;
     const float t = tri_win ? tri_t : best_t;
 
@@ -203,45 +253,50 @@ mesh_megakernel(const Params p) {
       atomicAdd(p.counts, (unsigned long long)bounce_sum);
       atomicAdd(p.counts + 1, (unsigned long long)test_sum);
     }
+    if constexpr (kVar == kCountFlat || kVar == kCountGrouped)
+      for (int k = 0; k < kWalkKinds; ++k) {
+        const unsigned int lanes = __reduce_add_sync(0xffffffffu, wc.lane[k]);
+        const unsigned int warps = __reduce_add_sync(0xffffffffu, wc.warp[k]);
+        if ((threadIdx.x & 31) == 0) {
+          atomicAdd(p.counts + 2 + k, (unsigned long long)lanes);
+          atomicAdd(p.counts + 2 + kWalkKinds + k,
+                    (unsigned long long)warps);
+        }
+      }
   }
+  if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped)
+    if (sink == 0x9e3779b9u && p.counts != nullptr)
+      atomicAdd(p.counts + 2 + 2 * kWalkKinds, 1ull);
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
-// when the launch was refused.  Outputs are (n_pix,) float planes, the mean
-// or with RAW_SUM the sum, from the sums of acc0 when it is not null, as
-// sphere_megakernel_launch's (megakernel.cu); counts,
-// when not null, receives the bounces traced and the triangle tests run.
-// With SKY_HDR in flags, sky is the (sky_h, sky_w, 3) image of an HDR sky
-// and the scene may have no triangles (n_chunks and n_boxes 0).
-extern "C" int mesh_megakernel_launch(
-    const float* cam, const float* sph, int tab_w, int n_spheres,
+// The launch's parameters from the entry point's arguments; false when an
+// argument is out of range.
+static bool mesh_params(
+    Params& p, const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    int mesh_type, float* out_r, float* out_g, float* out_b,
-    const float* acc0,
+    const float* group, const int* group_end, int n_groups, int mesh_type,
+    float* out_r, float* out_g, float* out_b, const float* acc0,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int width, int height, int spp, int max_depth,
-    float t_min, int flags, const float* sky, int sky_w, int sky_h,
-    void* stream) {
+    float t_min, int flags, const float* sky, int sky_w, int sky_h) {
   const bool hdr = (flags & SKY_HDR) != 0;
   const bool no_mesh = hdr && n_chunks == 0 && n_boxes == 0;
   if (n_spheres < 0 || n_spheres > kMaxSpheres || tab_w < n_spheres ||
-      (!no_mesh && (n_chunks < 1 || t_pad < n_chunks * kChunk ||
-                    n_boxes < 1)) ||
+      (!no_mesh && !mesh_args_ok(t_pad, n_chunks, n_boxes, n_groups)) ||
+      (no_mesh && n_groups != 0) ||
       (hdr && (sky == nullptr || sky_w < 1 || sky_h < 1)) ||
       n_pix < 0 || width < 1 || height < 1 ||
       spp < 1 || max_depth < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n_pix == 0) return 0;
-  Params p;
+    return false;
   p.cam = cam;
   p.sph = sph;
   p.tab_w = tab_w;
   p.n_spheres = n_spheres;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes};
+                    n_boxes, group, group_end, n_groups};
   p.mesh_type = mesh_type;
   p.out_r = out_r;
   p.out_g = out_g;
@@ -259,6 +314,38 @@ extern "C" int mesh_megakernel_launch(
   p.t_min = t_min;
   p.flags = flags;
   p.sky = HdrImage{sky, sky_w, sky_h};
+  p.zero = 0;
+  return true;
+}
+
+#define MESH_ARGS                                                           \
+  const float *cam, const float *sph, int tab_w, int n_spheres,             \
+      const float *tri, int t_pad, const float *cluster, const float *sub,  \
+      const int *chunk_box, int n_chunks, const float *boxes, int n_boxes,  \
+      const float *group, const int *group_end, int n_groups,               \
+      int mesh_type, float *out_r, float *out_g, float *out_b,              \
+      const float *acc0, unsigned long long *counts, int n_pix,             \
+      int pix_offset, unsigned int seed, unsigned int sample_base,          \
+      int width, int height, int spp, int max_depth, float t_min,           \
+      int flags, const float *sky, int sky_w, int sky_h, void *stream
+#define MESH_PARAMS                                                         \
+  p, cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub, chunk_box,       \
+      n_chunks, boxes, n_boxes, group, group_end, n_groups, mesh_type,      \
+      out_r, out_g, out_b, acc0, counts, n_pix, pix_offset, seed,           \
+      sample_base, width, height, spp, max_depth, t_min, flags, sky, sky_w, \
+      sky_h
+
+// Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
+// when the launch was refused.  Outputs are (n_pix,) float planes, the mean
+// or with RAW_SUM the sum, from the sums of acc0 when it is not null, as
+// sphere_megakernel_launch's (megakernel.cu); counts,
+// when not null, receives the bounces traced and the triangle tests run.
+// With SKY_HDR in flags, sky is the (sky_h, sky_w, 3) image of an HDR sky
+// and the scene may have no triangles (n_chunks, n_boxes and n_groups 0).
+extern "C" int mesh_megakernel_launch(MESH_ARGS) {
+  Params p;
+  if (!mesh_params(MESH_PARAMS)) return (int)cudaErrorInvalidValue;
+  if (n_pix == 0) return 0;
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   if (acc0 != nullptr || (flags & RAW_SUM))
     mesh_megakernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
@@ -266,6 +353,29 @@ extern "C" int mesh_megakernel_launch(
     mesh_megakernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+#ifdef ORT_K2_VARIANTS
+// The measurement build's instances by index (Variant; chip_smoke.py's
+// K2_VARIANTS names them in this order), launched as mesh_megakernel_launch
+// (no window) with counts of 2 + 2 * kWalkKinds + 1 entries.
+extern "C" int mesh_megakernel_variant_launch(int v, MESH_ARGS) {
+  using KernelFn = void (*)(const Params);
+  const KernelFn variants[] = {
+      mesh_megakernel<false, kCountFlat>, mesh_megakernel<false, kCountGrouped>,
+      mesh_megakernel<false, kTwiceFlat>, mesh_megakernel<false, kTwiceGrouped>};
+  Params p;
+  if (v < 0 || v >= 4 || acc0 != nullptr || (flags & RAW_SUM) ||
+      !mesh_params(MESH_PARAMS))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0) return 0;
+  variants[v]<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
+                (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif
+
+#undef MESH_ARGS
+#undef MESH_PARAMS
 
 namespace {
 

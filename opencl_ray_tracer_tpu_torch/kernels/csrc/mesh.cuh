@@ -14,11 +14,19 @@
 //
 // The culling structure is the mesh plan's (tracer/clusters.py): chunks of
 // kChunk triangles, each with one gating box, a padded AABB and kSub padded
-// sub-boxes over runs of kRun triangles.  A ray tests a run only when it hits
-// the run's gating box, the chunk's AABB and the run's sub-box, each entered
-// closer than the best hit so far.  The boxes contain their triangles, so the
+// sub-boxes over runs of kRun triangles, and over the chunks a second level:
+// groups of up to kGroup consecutive chunks in plan order, never two gating
+// boxes in one group, each with the union of its chunks' AABBs
+// (kernels/intersect_mm.py::group_tables).  A ray tests a run only when it
+// hits the run's gating box, the group's box, the chunk's AABB and the run's
+// sub-box, each entered closer than the best hit so far.  The boxes contain
+// their triangles and the walk keeps plan order with strict compares, so the
 // culling never changes which triangle wins: the first index, in plan order,
-// of the smallest t among the triangles whose gating box the ray hits.
+// of the smallest t among the triangles whose gating box the ray hits.  A
+// group's box contains its chunks' boxes, so the group test only culls
+// chunks the chunk test would cull: the triangle tests are those of the
+// walk over every chunk (closest_triangle_flat, the earlier design, which
+// measurement builds take with ORT_FLAT_WALK).
 
 #pragma once
 
@@ -31,6 +39,7 @@ namespace ort {
 constexpr int kChunk = 128;       // triangles per plan chunk (MESH_CHUNK)
 constexpr int kSub = 8;           // sub-boxes per chunk (MESH_SUB_BOXES)
 constexpr int kRun = kChunk / kSub;
+constexpr int kGroup = 8;         // chunks per group at most (MESH_GROUP)
 constexpr float kTriEps = 1e-5f;  // gpu_kernel.cl:496
 
 // Rows of the triangle table (tracer/mesh_accel.py T_*): a_col; u_d and e1;
@@ -39,7 +48,8 @@ enum TriRow { T_A = 0, T_U = 3, T_V = 9, T_T = 15, T_N = 19, kTriRows = 22 };
 
 // The triangles the mesh kernels read: the table (kTriRows, t_pad), the
 // chunks' AABBs (n_chunks, 6) and sub-boxes (n_chunks * kSub, 6) as
-// [min xyz, max xyz] rows, each chunk's gating box, and the gating boxes.
+// [min xyz, max xyz] rows, each chunk's gating box, the gating boxes, the
+// groups' boxes (n_groups, 6) and each group's end (its last chunk + 1).
 struct MeshTables {
   const float* tri;
   int t_pad;
@@ -49,6 +59,25 @@ struct MeshTables {
   int n_chunks;
   const float* boxes;
   int n_boxes;
+  const float* group;
+  const int* group_end;
+  int n_groups;
+};
+
+// The launchers' check of the tables' sizes: one or more chunks, gating
+// boxes and groups, and a triangle table that holds every chunk.
+inline bool mesh_args_ok(int t_pad, int n_chunks, int n_boxes,
+                         int n_groups) {
+  return n_chunks >= 1 && t_pad >= n_chunks * kChunk && n_boxes >= 1 &&
+         n_groups >= 1 && n_groups <= n_chunks;
+}
+
+// What a walk tested, for the measurement builds' counts (WalkCount in
+// megamesh.cu); the kernels take NoWalkProbe, which counts nothing.
+enum WalkSlab { kSlabBox, kSlabGroup, kSlabChunk, kSlabSub, kRunEntered,
+                kWalkKinds };
+struct NoWalkProbe {
+  __device__ __forceinline__ void at(int) {}
 };
 
 // Branchless slab test of box b ([min xyz, max xyz]) for a ray with origin o
@@ -134,44 +163,71 @@ struct BoxGate {
 
 // The first gating box the ray hits: hit is false when it hits none, and
 // then no triangle is tested (gpu_kernel.cl:374-391).
+template <class Probe = NoWalkProbe>
 __device__ __forceinline__ BoxGate first_box(const MeshTables& mt,
                                              const float o[3],
-                                             const float inv[3]) {
+                                             const float inv[3],
+                                             Probe&& pr = Probe()) {
   float lo;
-  for (int b = 0; b < mt.n_boxes; ++b)
+  for (int b = 0; b < mt.n_boxes; ++b) {
+    pr.at(kSlabBox);
     if (slab(mt.boxes + 6 * b, o, inv, lo)) return BoxGate{b, true};
+  }
   return BoxGate{-1, false};
+}
+
+// The gating box b's test, run only when the box changes along the walk.
+template <class Probe>
+__device__ __forceinline__ void gate_box(const MeshTables& mt, int b,
+                                         BoxGate& box, const float o[3],
+                                         const float inv[3], Probe& pr) {
+  if (b != box.id) {
+    float lo;
+    pr.at(kSlabBox);
+    box.id = b;
+    box.hit = slab(mt.boxes + 6 * b, o, inv, lo);
+  }
+}
+
+// Whether the ray enters box b ([min xyz, max xyz]) before lim.
+template <class Probe>
+__device__ __forceinline__ bool enters(const float* b, int kind,
+                                       const float o[3], const float inv[3],
+                                       float lim, Probe& pr) {
+  float lo;
+  pr.at(kind);
+  return slab(b, o, inv, lo) && lo < lim;
 }
 
 // Whether the ray may find a triangle in chunk ci nearer than lim: it hits
 // the chunk's gating box (tested again only when the box changes), and it
 // enters the chunk's AABB before lim.
+template <class Probe = NoWalkProbe>
 __device__ __forceinline__ bool chunk_gate(const MeshTables& mt, int ci,
                                            BoxGate& box, const float o[3],
-                                           const float inv[3], float lim) {
-  float lo;
-  const int b = __ldg(mt.chunk_box + ci);
-  if (b != box.id) {
-    box.id = b;
-    box.hit = slab(mt.boxes + 6 * b, o, inv, lo);
-  }
-  return box.hit && slab(mt.cluster + 6 * ci, o, inv, lo) && lo < lim;
+                                           const float inv[3], float lim,
+                                           Probe&& pr = Probe()) {
+  gate_box(mt, __ldg(mt.chunk_box + ci), box, o, inv, pr);
+  return box.hit &&
+         enters(mt.cluster + 6 * ci, kSlabChunk, o, inv, lim, pr);
 }
 
 // The runs of chunk ci whose sub-box the ray enters before the best t so
 // far, tested from the table tab (row stride `stride`, chunk ci starting at
 // column j0).
+template <class Probe = NoWalkProbe>
 __device__ __forceinline__ void chunk_runs(const MeshTables& mt, int ci,
                                            const float* tab, int stride,
                                            int j0, const float o[3],
                                            const float d[3], const float m[3],
                                            const float inv[3], float t_min,
                                            float lim, float& best_t,
-                                           int& best_i, unsigned int& tests) {
+                                           int& best_i, unsigned int& tests,
+                                           Probe&& pr = Probe()) {
   for (int s = 0; s < kSub; ++s) {
-    float lo;
-    if (slab(mt.sub + 6 * (ci * kSub + s), o, inv, lo) &&
-        lo < fminf(lim, best_t)) {
+    if (enters(mt.sub + 6 * (ci * kSub + s), kSlabSub, o, inv,
+               fminf(lim, best_t), pr)) {
+      pr.at(kRunEntered);
       tri_run(tab, stride, j0 + s * kRun, kRun, ci * kChunk - j0, d, m, o,
               t_min, best_t, best_i);
       tests += kRun;
@@ -211,21 +267,63 @@ __device__ __forceinline__ HitMaterial sphere_material(const float* sph,
 }
 
 // The closest triangle nearer than lim (the sphere hit): t and index in
-// plan order, best_t left as it is when no triangle is nearer.
+// plan order, best_t left as it is when no triangle is nearer.  The walk
+// over the groups: a group's chunks are tested only when the ray enters
+// the group's box before the best t so far.
+template <class Probe>
+__device__ __forceinline__ void closest_triangle_grouped(
+    const MeshTables& mt, const float o[3], const float d[3], float t_min,
+    float lim, float& best_t, int& best_i, unsigned int& tests, Probe& pr) {
+  float inv[3], m[3];
+  ray_features(o, d, inv, m);
+  BoxGate box = first_box(mt, o, inv, pr);
+  if (!box.hit) return;
+  int c0 = 0;
+  for (int g = 0; g < mt.n_groups; ++g) {
+    const int c1 = __ldg(mt.group_end + g);
+    gate_box(mt, __ldg(mt.chunk_box + c0), box, o, inv, pr);
+    if (box.hit &&
+        enters(mt.group + 6 * g, kSlabGroup, o, inv, fminf(lim, best_t), pr))
+      for (int ci = c0; ci < c1; ++ci)
+        if (enters(mt.cluster + 6 * ci, kSlabChunk, o, inv,
+                   fminf(lim, best_t), pr))
+          chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv,
+                     t_min, lim, best_t, best_i, tests, pr);
+    c0 = c1;
+  }
+}
+
+// The earlier walk, over every chunk in plan order (its gating box tested
+// again when the box changes, then its AABB): the same triangle tests as
+// closest_triangle_grouped, with a chunk slab for every chunk.
+template <class Probe>
+__device__ __forceinline__ void closest_triangle_flat(
+    const MeshTables& mt, const float o[3], const float d[3], float t_min,
+    float lim, float& best_t, int& best_i, unsigned int& tests, Probe& pr) {
+  float inv[3], m[3];
+  ray_features(o, d, inv, m);
+  BoxGate box = first_box(mt, o, inv, pr);
+  if (!box.hit) return;
+  for (int ci = 0; ci < mt.n_chunks; ++ci)
+    if (chunk_gate(mt, ci, box, o, inv, fminf(lim, best_t), pr))
+      chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv, t_min,
+                 lim, best_t, best_i, tests, pr);
+}
+
+// The walk the kernels take: over the groups, or with ORT_FLAT_WALK (a
+// measurement build) the earlier walk over every chunk.
 __device__ __forceinline__ void closest_triangle(const MeshTables& mt,
                                                  const float o[3],
                                                  const float d[3],
                                                  float t_min, float lim,
                                                  float& best_t, int& best_i,
                                                  unsigned int& tests) {
-  float inv[3], m[3];
-  ray_features(o, d, inv, m);
-  BoxGate box = first_box(mt, o, inv);
-  if (!box.hit) return;
-  for (int ci = 0; ci < mt.n_chunks; ++ci)
-    if (chunk_gate(mt, ci, box, o, inv, fminf(lim, best_t)))
-      chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv, t_min,
-                 lim, best_t, best_i, tests);
+  NoWalkProbe pr;
+#ifdef ORT_FLAT_WALK
+  closest_triangle_flat(mt, o, d, t_min, lim, best_t, best_i, tests, pr);
+#else
+  closest_triangle_grouped(mt, o, d, t_min, lim, best_t, best_i, tests, pr);
+#endif
 }
 
 }  // namespace ort

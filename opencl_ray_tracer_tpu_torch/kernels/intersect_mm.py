@@ -14,7 +14,11 @@ and nowhere else.
 ``mesh_tables`` builds the tables both this kernel and the mesh megakernel
 read: the triangle table in the plan's order (``MESH_CHUNK`` triangles per
 chunk, front to back from the camera), the chunks' padded AABBs and
-sub-boxes, each chunk's gating box and the gating boxes.  It keeps the
+sub-boxes, each chunk's gating box and the gating boxes, and over the
+chunks a second level (``group_tables``): groups of up to ``MESH_GROUP``
+consecutive chunks of one gating box, each with the union of its chunks'
+AABBs, which the mesh megakernel's walk and the mesh backward kernels'
+test first.  It keeps the
 tables of the last few scenes, keyed by a digest of the leaves they are
 built from (``leaves_key``).  Given a plan, it builds them from the
 scene's current vertices in that plan's order: a fit that moves the
@@ -44,6 +48,8 @@ from . import _build
 # eight sub-boxes.
 MESH_CHUNK = 128
 MESH_SUB_BOXES = 8
+# Chunks per group at most (the kernels' kGroup, csrc/mesh.cuh).
+MESH_GROUP = 8
 # Entries of each host-side cache of built tables.
 CACHE_ENTRIES = 8
 
@@ -69,6 +75,48 @@ class MeshTables(NamedTuple):
     boxes: torch.Tensor      # (n_boxes, 6) f32
     feats: TriFeatures       # per-triangle materials, plan order
     plan: MeshPlan           # the order: plan.perm maps columns to ids
+    group: torch.Tensor      # (n_groups, 6) f32 [min, max]
+    group_end: torch.Tensor  # (n_groups,) i32, each group's last chunk + 1
+
+
+def group_tables(cluster: torch.Tensor, chunk_box: torch.Tensor,
+                 size: int = MESH_GROUP):
+    """The second level over the chunks: (group (n_groups, 6) f32, group_end
+    (n_groups,) i32).  Groups hold up to ``size`` consecutive chunks in plan
+    order and never chunks of two gating boxes; a group's box is the exact
+    union (min of the mins, max of the maxes) of its chunks' AABBs, so it
+    contains each of them bit for bit."""
+    boxes = chunk_box.tolist()
+    ends = []
+    for ci in range(1, len(boxes) + 1):
+        start = ends[-1] if ends else 0
+        if (ci == len(boxes) or boxes[ci] != boxes[start]
+                or ci - start == size):
+            ends.append(ci)
+    rows = [torch.cat([cluster[a:b, :3].amin(0), cluster[a:b, 3:].amax(0)])
+            for a, b in zip([0] + ends[:-1], ends)]
+    group = (torch.stack(rows) if rows
+             else cluster.new_zeros((0, 6))).contiguous()
+    return group, torch.tensor(ends, dtype=torch.int32,
+                               device=cluster.device)
+
+
+def table_args(tab: MeshTables) -> tuple:
+    """The tables as the kernels' entry points take them: tri, t_pad,
+    cluster, sub, chunk_box, n_chunks, boxes, n_boxes, group, group_end,
+    n_groups (pointers and counts)."""
+    return (tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
+            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
+            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            tab.group.data_ptr(), tab.group_end.data_ptr(),
+            tab.group_end.shape[0])
+
+
+# ctypes argument types of table_args.
+TABLE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int]
 
 
 def leaves_key(leaves: dict, *extra) -> tuple:
@@ -135,49 +183,57 @@ def _build_tables(scene, plan: MeshPlan | None = None) -> MeshTables:
     sub = subcluster_bounds(permute(tris.p0, plan), permute(tris.p1, plan),
                             permute(tris.p2, plan), plan, MESH_SUB_BOXES)
     dev = tris.p0.device
+    cluster = torch.cat([feats.cluster_min, feats.cluster_max],
+                        dim=1).contiguous()
+    chunk_box = torch.tensor(plan.chunk_box_id, dtype=torch.int32,
+                             device=dev)
+    group, group_end = group_tables(cluster, chunk_box)
     return MeshTables(
-        tri=feats.table,
-        cluster=torch.cat([feats.cluster_min, feats.cluster_max],
-                          dim=1).contiguous(),
-        sub=sub.contiguous(),
-        chunk_box=torch.tensor(plan.chunk_box_id, dtype=torch.int32,
-                               device=dev),
+        tri=feats.table, cluster=cluster, sub=sub.contiguous(),
+        chunk_box=chunk_box,
         boxes=torch.cat([scene.boxes.box_min, scene.boxes.box_max],
                         dim=1).contiguous(),
-        feats=feats, plan=plan)
+        feats=feats, plan=plan, group=group, group_end=group_end)
 
 
 def empty_tables(device) -> MeshTables:
     """The tables of a scene without triangles, which the mesh megakernel
     and the HDR kernels take for a sphere scene under an HDR sky: no
-    chunk, no gating box, no plan."""
+    chunk, no gating box, no group, no plan."""
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return MeshTables(tri=zeros(TRI_ROWS, 0), cluster=zeros(0, 6),
                       sub=zeros(0, 6), chunk_box=zeros(0, dtype=torch.int32),
-                      boxes=zeros(0, 6), feats=None, plan=None)
+                      boxes=zeros(0, 6), feats=None, plan=None,
+                      group=zeros(0, 6),
+                      group_end=zeros(0, dtype=torch.int32))
 
 
 def check_tables(tab: MeshTables, allow_empty: bool = False) -> None:
-    """Raise unless the tables are what the kernels read (the chunks' box
-    ids are checked when ``mesh_tables`` builds them); ``allow_empty``
-    also takes ``empty_tables``."""
+    """Raise unless the tables are what the kernels read (shapes, types and
+    devices; the chunks' box ids and the groups' ends are checked when
+    ``mesh_tables`` builds them, so that a launch reads nothing back from
+    the card); ``allow_empty`` also takes ``empty_tables``."""
     n_chunks = tab.chunk_box.shape[0]
+    n_groups = tab.group_end.shape[0]
     shapes = ((tab.tri, (TRI_ROWS, n_chunks * MESH_CHUNK), torch.float32),
               (tab.cluster, (n_chunks, 6), torch.float32),
               (tab.sub, (n_chunks * MESH_SUB_BOXES, 6), torch.float32),
               (tab.chunk_box, (n_chunks,), torch.int32),
-              (tab.boxes, (tab.boxes.shape[0], 6), torch.float32))
+              (tab.boxes, (tab.boxes.shape[0], 6), torch.float32),
+              (tab.group, (n_groups, 6), torch.float32),
+              (tab.group_end, (n_groups,), torch.int32))
     for t, shape, dtype in shapes:
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != tab.tri.device):
             raise ValueError("mesh tables do not match mesh_tables()")
-    if allow_empty and n_chunks == 0 and tab.boxes.shape[0] == 0:
+    if allow_empty and n_chunks == 0 and tab.boxes.shape[0] == 0 \
+            and n_groups == 0:
         return
-    if n_chunks < 1 or tab.boxes.shape[0] < 1:
-        raise ValueError("the mesh kernels take one or more chunks and "
-                         "gating boxes")
+    if n_chunks < 1 or tab.boxes.shape[0] < 1 or not 1 <= n_groups <= n_chunks:
+        raise ValueError("the mesh kernels take one or more chunks, gating "
+                         "boxes and groups")
 
 
 def _check_rays(tab, o, d, tests):

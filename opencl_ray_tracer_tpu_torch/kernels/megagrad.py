@@ -69,8 +69,9 @@ from ..tracer.intersect import BIG, HitInfo, closest_fold
 from ..tracer.mesh_accel import T_T
 from ..tracer.wavefront import render_rows_wavefront
 from . import _build
-from .intersect_mm import (MeshTables, check_tables, closest_tri_plain,
-                           empty_tables, mesh_tables)
+from .intersect_mm import (TABLE_ARGTYPES, MeshTables, check_tables,
+                           closest_tri_plain, empty_tables, mesh_tables,
+                           table_args)
 from .megakernel import (F_ALB, F_ALG, F_ALR, F_CX, F_CY, F_CZ, F_FUZZ,
                          F_INVIOR, F_INVR, F_IOR, F_R2, C_DUX, C_DUY, C_DUZ,
                          C_DVX, C_DVY, C_DVZ, C_HX, C_HY, C_HZ, C_LX, C_LY,
@@ -125,16 +126,16 @@ _SYMBOLS = {
          _I, _P], _I),
     "sphere_megagrad_threads": ([ctypes.c_longlong, _I], _I),
     "mesh_megagrad_launch": (
-        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+        [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P,
          _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I,
          _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "mesh_megagrad_threads": ([_I], _I),
     "hdr_emit_launch": (
-        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I,
+        [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _I,
          _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
          ctypes.c_float, _I, _P], _I),
     "hdr_consume_launch": (
-        [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+        [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P,
          _P, _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32,
          _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "hdr_consume_threads": ([_I], _I),
@@ -407,9 +408,7 @@ def render_grad_mesh_tables(cam, sph, n_spheres: int, tab: MeshTables,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mesh_megagrad_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
-            tab.tri.data_ptr(), t_pad, tab.cluster.data_ptr(),
-            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
-            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            *table_args(tab),
             int(flags[5]), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
             cam_part.data_ptr(), gsph.data_ptr(), gtri.data_ptr(),
             rec.data_ptr(), n_threads,
@@ -827,9 +826,7 @@ def hdr_emit(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().hdr_emit_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
-            tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
-            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
-            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            *table_args(tab),
             int(flags[5]), emit.data_ptr(), emis.data_ptr(),
             counts.data_ptr() if counts is not None else None, n_pix,
             pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
@@ -932,9 +929,7 @@ def hdr_consume(cam, sph, n_spheres: int, tab: MeshTables,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hdr_consume_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
-            tab.tri.data_ptr(), t_pad, tab.cluster.data_ptr(),
-            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
-            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            *table_args(tab),
             int(flags[5]), g_r.data_ptr(), g_g.data_ptr(), g_b.data_ptr(),
             sky_rows.data_ptr(), cam_part.data_ptr(), gsph.data_ptr(),
             gtri.data_ptr(), rec.data_ptr(), n_threads,

@@ -1,7 +1,8 @@
 """The sphere megakernel: forward render of sphere scenes on the card.
 
 ``render_spheres`` is the wrapper of the CUDA kernel in
-``csrc/megakernel.cu`` (one thread per pixel, path regeneration; see the
+``csrc/megakernel.cu`` (persistent blocks whose lanes take pixels from a
+work counter, path regeneration, one draw per lane and iteration; see the
 note at the top of that file for what bounds it).  The kernel replaces the
 JAX package's Pallas ``kernels/megakernel.py::_make_kernel``.
 ``render_spheres_plain`` is its plain PyTorch version with the same
@@ -57,7 +58,7 @@ LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {"sphere_megakernel_launch": (
-    [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint32,
+    [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint32,
      ctypes.c_uint32, _I, _I, _I, _I, ctypes.c_float, _I, _P], _I)}
 
 
@@ -232,13 +233,15 @@ def render_spheres(cam, sph, n_spheres: int, cfg: RenderConfig,
     bits = _flag_bits(cfg, sky_kind, flags) | (0 if mean else FLAG_RAW_SUM)
     fn = _library().sphere_megakernel_launch
     out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
+    # the pixels the lanes take after their first, counted from 0
+    work = torch.zeros(1, dtype=torch.int32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 acc0.data_ptr() if acc0 is not None else None,
                 bounces.data_ptr() if bounces is not None else None,
-                n_pix, pix_offset, seed & 0xFFFFFFFF,
+                work.data_ptr(), n_pix, pix_offset, seed & 0xFFFFFFFF,
                 sample_base & 0xFFFFFFFF, cfg.width, cfg.height, cfg.spp,
                 cfg.max_depth, cfg.t_min, bits, stream)
     if rc != 0:

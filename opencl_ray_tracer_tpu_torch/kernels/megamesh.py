@@ -39,9 +39,9 @@ from ..scene import materials as mat
 from ..scene.sky import KIND_CONST, KIND_GRADIENT, KIND_HDR
 from ..tracer.wavefront import render_rows_wavefront
 from . import _build
-from .intersect_mm import (MeshTables, cached, check_tables,
+from .intersect_mm import (TABLE_ARGTYPES, MeshTables, cached, check_tables,
                            closest_tri_plain, empty_tables, leaves_key,
-                           mesh_tables, tri_hit_fn)
+                           mesh_tables, table_args, tri_hit_fn)
 from .megakernel import (FLAG_RAW_SUM, LANES, MAX_SPHERES, N_FIELDS,
                          _flag_bits, acc0_planes, camera_table, check_acc0,
                          scene_from_tables, specialize_flags, sphere_table)
@@ -54,7 +54,7 @@ LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {"mesh_megakernel_launch": (
-    [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+    [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P, _P,
      _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
      ctypes.c_float, _I, _P, _I, _I, _P], _I),
     "hdr_texel_launch": ([_P, _I, _I, _I, _P, _P], _I)}
@@ -228,9 +228,7 @@ def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().mesh_megakernel_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
-            tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
-            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
-            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
+            *table_args(tab),
             int(flags[5]), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), acc0.data_ptr() if acc0 is not None else None,
             counts.data_ptr() if counts is not None else None, n_pix,

@@ -809,3 +809,159 @@ def test_cli_on_card(cuda, tmp_path):
         width=64, height=36, spp=6, max_depth=6), seed=0)
     np.testing.assert_array_equal(read_bmp(out), tonemap_u8(want))
     np.testing.assert_array_equal(read_bmp(prog), tonemap_u8(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["zero", "running_sum"])
+def test_k1_windows_equal_one_shot_with_pixels_taken_twice(cuda, policy):
+    """K1's lanes take a new pixel from the work counter when theirs ends:
+    at 700x401 (280,700 pixels, more than the card's resident lanes and not
+    a multiple of a block) windows that tile the samples still give the
+    one-shot sum bit for bit, under both NaN policies, and the bounces of
+    the one-shot launch equal the windows' together."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cfg = ot.RenderConfig(width=700, height=401, spp=4, max_depth=5,
+                          nan_policy=policy)
+    n_pix = cfg.width * cfg.height
+    assert n_pix > sms * 2048 and n_pix % 128 != 0
+    s = ot.readme_scene().to(cuda)
+    args = (mk.camera_table(s), mk.sphere_table(s), s.spheres.count)
+    tail = (s.sky.kind, mk.specialize_flags(s), 7, n_pix)
+    whole = torch.zeros(1, dtype=torch.int64, device=cuda)
+    parts = torch.zeros(1, dtype=torch.int64, device=cuda)
+    one = torch.stack(mk.render_spheres(*args, cfg, *tail, mean=False,
+                                        bounces=whole))
+    acc = None
+    for s0, n in ((0, 1), (1, 2), (3, 1)):
+        acc = torch.stack(mk.render_spheres(
+            *args, cfg.replace(spp=n), *tail, sample_base=s0, acc0=acc,
+            mean=False, bounces=parts))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, one)
+    assert whole.item() == parts.item()
+
+
+def _duplicated_mesh():
+    """The tests/test_megamesh.py torus with every triangle twice, beside
+    a grid of edge-sharing triangles facing the camera: every hit of the
+    torus is a tie of two triangles at one t."""
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    tris, _ = parse_obj(make_torus_obj(12, 8), scale=(0.5, 0.5, 0.5),
+                        translate=(0.3, 0.0, -1.6))
+    xs = np.linspace(-1.2, -0.2, 9, dtype=np.float32)
+    ys = np.linspace(-0.4, 0.6, 9, dtype=np.float32)
+    grid = []
+    for i in range(8):
+        for j in range(8):
+            a = (xs[i], ys[j], -1.5)
+            b = (xs[i + 1], ys[j], -1.5)
+            c = (xs[i], ys[j + 1], -1.5)
+            d = (xs[i + 1], ys[j + 1], -1.5)
+            grid += [(a, b, c), (b, d, c)]
+    tv = np.concatenate([tris, tris, np.array(grid, np.float32)])
+    aabb = (tv.reshape(-1, 3).min(0), tv.reshape(-1, 3).max(0))
+    return ot.reference_scene(mesh_tris=tv, mesh_aabb=aabb)
+
+
+@pytest.mark.gpu
+def test_mesh_walk_ties_take_the_lower_index(cuda):
+    """The grouped walk keeps the winner rule: the first plan index of the
+    smallest t.  Each column of the tables gets a normal of its own, so
+    the image shows which of two tied triangles won; K2 against its plain
+    version (whose winner search is closest_tri_plain), and K3's indices
+    against closest_tri_plain's on the camera rays."""
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.tracer.mesh_accel import T_N
+    scene = _duplicated_mesh().to(cuda)
+    tab = mm.mesh_tables(scene)
+    j = torch.arange(tab.tri.shape[1], device=cuda, dtype=torch.float32)
+    nrm = torch.stack([torch.cos(j), torch.sin(j), torch.ones_like(j)])
+    tri = tab.tri.clone()
+    tri[T_N:T_N + 3] = nrm / nrm.norm(dim=0)
+    tab = tab._replace(tri=tri)
+    cfg = ot.RenderConfig(width=64, height=36, spp=2, max_depth=4)
+    args = (mm.mesh_camera_table(scene), mk.sphere_table(scene),
+            scene.spheres.count, tab, cfg, scene.sky.kind,
+            mm.specialize_mesh_flags(scene), 3, cfg.width * cfg.height)
+    got = torch.stack(mm.render_mesh(*args), -1)
+    want = torch.stack(mm.render_mesh_plain(*args), -1)
+    diff = (got - want).abs()
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99
+    o = torch.zeros((4096, 3), device=cuda) + scene.camera.look_from
+    g = torch.Generator(device="cpu").manual_seed(0)
+    d = torch.stack([torch.rand(4096, generator=g) * 1.6 - 1.0,
+                     torch.rand(4096, generator=g) * 1.0 - 0.5,
+                     -torch.ones(4096)], 1).to(cuda) - o
+    t_k, i_k = im.closest_tri(tab, o.contiguous(), d.contiguous(), 1e-3)
+    t_p, i_p = im.closest_tri_plain(tab, o.contiguous(), d.contiguous(),
+                                    1e-3)
+    assert (i_k == i_p).float().mean() >= 0.9999
+
+
+def _torus_15360():
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    tris, aabb = parse_obj(make_torus_obj(128, 60), scale=(0.15,) * 3,
+                           translate=(0.0, -0.5, -1.0))
+    return ot.reference_scene(16 / 9, mesh_tris=tris, mesh_aabb=aabb)
+
+
+@pytest.mark.gpu
+def test_mesh_kernel_matches_plain_at_15360_triangles(cuda):
+    """K2 with the grouped walk over 120 chunks (15 groups) against its
+    plain version, the forward tolerance."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = _torus_15360().to(cuda)
+    cfg = ot.RenderConfig(width=128, height=72, spp=2, max_depth=8)
+    tab = mm.mesh_tables(scene)
+    assert tab.chunk_box.shape[0] == 120 and tab.group_end.shape[0] == 15
+    args = (mm.mesh_camera_table(scene), mk.sphere_table(scene),
+            scene.spheres.count, tab, cfg, scene.sky.kind,
+            mm.specialize_mesh_flags(scene), 5, cfg.width * cfg.height)
+    got = torch.stack(mm.render_mesh(*args), -1)
+    want = torch.stack(mm.render_mesh_plain(*args), -1)
+    diff = (got - want).abs()
+    assert (diff > 1e-3).float().mean() < 0.005
+    assert (diff <= 1e-4).float().mean() > 0.99
+    assert abs(float(got.mean() - want.mean())) < 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["torus_576", "torus_15360", "many_boxes"])
+def test_grouped_walk_runs_the_earlier_walks_triangle_tests(cuda, case):
+    """K2 built with ORT_FLAT_WALK walks every chunk, as before the groups:
+    the same image bit for bit, the same bounces and triangle tests."""
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    if case == "torus_576":
+        from opencl_ray_tracer_tpu_torch.io import load_obj
+        here = os.path.dirname(os.path.abspath(__file__))
+        tris, aabb = load_obj(os.path.join(here, "..", "assets", "torus.obj"),
+                              (0.15,) * 3, (0.0, -0.5, -1.0))
+        scene = ot.reference_scene(16 / 9, mesh_tris=tris, mesh_aabb=aabb)
+    elif case == "torus_15360":
+        scene = _torus_15360()
+    else:
+        scene = split_boxes(mesh_scenes()["mesh"])
+    scene = scene.to(cuda)
+    cfg = ot.RenderConfig(width=160, height=90, spp=3, max_depth=8)
+    args = (mm.mesh_camera_table(scene), mk.sphere_table(scene),
+            scene.spheres.count, mm.mesh_tables(scene), cfg, scene.sky.kind,
+            mm.specialize_mesh_flags(scene), 9, cfg.width * cfg.height)
+    flat = _build.load("megamesh", mm._SYMBOLS, ("ORT_FLAT_WALK",))
+    out = {}
+    for name, lib in (("grouped", mm._library()), ("flat", flat)):
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        built = mm._library
+        mm._library = lambda lib=lib: lib
+        try:
+            img = torch.stack(mm.render_mesh(*args, counts=counts))
+        finally:
+            mm._library = built
+        torch.cuda.synchronize()
+        out[name] = (img, counts.tolist())
+    assert torch.equal(out["grouped"][0], out["flat"][0])
+    assert out["grouped"][1] == out["flat"][1] and out["flat"][1][1] > 0

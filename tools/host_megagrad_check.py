@@ -103,12 +103,13 @@ static std::vector<char> rd(const char* f) {
   if (fread(b.data(), 1, n, fp) != (size_t)n) exit(2);
   fclose(fp); return b; }
 int main(int argc, char** argv) {
-  if (argc != 16) return 2;
+  if (argc != 17) return 2;
   int a = 1;
   // mesh: 0 sphere variant (K4), 1 mesh variant, 2 K6, 3 K7
   const int mesh = atoi(argv[a++]), ns = atoi(argv[a++]);
   const int tab_w = atoi(argv[a++]), t_pad = atoi(argv[a++]);
   const int n_chunks = atoi(argv[a++]), n_boxes = atoi(argv[a++]);
+  const int n_groups = atoi(argv[a++]);
   const int mesh_type = atoi(argv[a++]), n_pix = atoi(argv[a++]);
   const unsigned seed = (unsigned)atoi(argv[a++]);
   const int n_samples = atoi(argv[a++]), width = atoi(argv[a++]);
@@ -116,10 +117,11 @@ int main(int argc, char** argv) {
   const float t_min = (float)atof(argv[a++]);
   const int flags = atoi(argv[a++]);
   auto cam = rd("cam.bin"), sph = rd("sph.bin"), g = rd("g.bin");
-  std::vector<char> tri, cl, sub, cb, bx;
+  std::vector<char> tri, cl, sub, cb, bx, gr, ge;
   if (mesh && t_pad > 0) {
     tri = rd("tri.bin"); cl = rd("cluster.bin"); sub = rd("sub.bin");
-    cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); }
+    cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); gr = rd("group.bin");
+    ge = rd("group_end.bin"); }
   std::vector<char> sky_rows;
   if (mesh == 3) sky_rows = rd("sky_rows.bin");
   std::vector<float> emit((size_t)6 * n_samples * n_pix, -7.f);
@@ -142,7 +144,9 @@ int main(int argc, char** argv) {
     p.mt = MeshTables{(const float*)tri.data(), t_pad,
                       (const float*)cl.data(), (const float*)sub.data(),
                       (const int*)cb.data(), n_chunks,
-                      (const float*)bx.data(), n_boxes};
+                      (const float*)bx.data(), n_boxes,
+                      (const float*)gr.data(), (const int*)ge.data(),
+                      n_groups};
     p.mesh_type = mesh_type; p.gtri = gtri.data();
   }
   p.emit = emit.data(); p.emis = emis.data();
@@ -262,9 +266,10 @@ def check_hdr(exe, work, scene, cfg, seed=7):
     arrays = {"cam": cam, "sph": sph}
     if tab.tri.shape[1]:
         arrays.update(tri=tab.tri, cluster=tab.cluster, sub=tab.sub,
-                      chunk_box=tab.chunk_box, boxes=tab.boxes)
+                      chunk_box=tab.chunk_box, boxes=tab.boxes,
+                      group=tab.group, group_end=tab.group_end)
     dims = (tab.tri.shape[1], tab.chunk_box.shape[0], tab.boxes.shape[0],
-            int(flags[5]))
+            tab.group_end.shape[0], int(flags[5]))
     bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
     # K6
     _write(work, {**arrays, "g": torch.zeros(3, n_pix)})
@@ -340,14 +345,15 @@ def check(exe, work, scene, cfg, seed=7):
                                          scene.sky.kind, flags, seed, n_pix),
                           -1)
         arrays = {"tri": tab.tri, "cluster": tab.cluster, "sub": tab.sub,
-                  "chunk_box": tab.chunk_box, "boxes": tab.boxes}
+                  "chunk_box": tab.chunk_box, "boxes": tab.boxes,
+                  "group": tab.group, "group_end": tab.group_end}
         dims = (tab.tri.shape[1], tab.chunk_box.shape[0],
-                tab.boxes.shape[0], int(flags[5]))
+                tab.boxes.shape[0], tab.group_end.shape[0], int(flags[5]))
     else:
         cam, flags = mk.camera_table(scene), mk.specialize_flags(scene)
         img = torch.stack(mk.render_spheres(cam, sph, n, cfg, scene.sky.kind,
                                             flags, seed, n_pix), -1)
-        arrays, dims = {}, (0, 0, 0, 0)
+        arrays, dims = {}, (0, 0, 0, 0, 0)
     g = ((2.0 / img.numel() / cfg.spp) * img.T).contiguous()
     for name, arr in {"cam": cam, "sph": sph, "g": g, **arrays}.items():
         arr.contiguous().numpy().tofile(work / f"{name}.bin")
