@@ -288,8 +288,11 @@ K1_SECTIONS = ("sphere_tests", "sky", "lambert", "metal", "dielectric",
 # 1): the earlier walk and the grouped walk counting their slabs, runs and
 # triangle tests and the warp passes at each (K2_WALK_KINDS), and each
 # running its walk twice (the second time from the same rays, its result
-# kept alive), so that the difference from the kernel is the walk's time.
-K2_VARIANTS = ("count_flat", "count_grouped", "twice_flat", "twice_grouped")
+# kept alive), so that the difference from the kernel is the walk's time;
+# and an option, the grouped walk reading the groups' and chunks' boxes
+# from a copy in shared memory.
+K2_VARIANTS = ("count_flat", "count_grouped", "twice_flat", "twice_grouped",
+               "staged_grouped")
 K2_WALK_KINDS = ("box_slabs", "group_slabs", "chunk_slabs", "sub_slabs",
                  "runs")
 # The instances of the measurement build of csrc/megagrad.cu, in the order

@@ -90,8 +90,11 @@ struct Params {
 // the earlier walk and the grouped walk counting what they test (WalkCount;
 // counts[2..12]), and each running its walk a second time, from the origin
 // xor p.zero (the same rays: zero is 0) with the result kept alive, so that
-// the difference from the kernel is the walk's time.
-enum Variant { kPlain, kCountFlat, kCountGrouped, kTwiceFlat, kTwiceGrouped };
+// the difference from the kernel is the walk's time; and the grouped walk
+// reading the groups, the chunk AABBs and the chunks' gating boxes from a
+// copy in shared memory (an option; the sub-boxes stay in global memory).
+enum Variant { kPlain, kCountFlat, kCountGrouped, kTwiceFlat, kTwiceGrouped,
+               kStagedGrouped };
 
 // The slabs and runs a walk tested, per lane, and the warp passes at each
 // (the lane that is first in __activemask counts one): SIMT efficiency is
@@ -111,11 +114,32 @@ __global__ void __launch_bounds__(kThreads)
 mesh_megakernel(const Params p) {
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_cam[kMeshCamSlots];
+  extern __shared__ float s_mesh[];  // kStagedGrouped: 7 (groups + chunks)
   const int n = p.n_spheres;
   for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
     s_sph[(k / n) * kMaxSpheres + k % n] = p.sph[(k / n) * p.tab_w + k % n];
   for (int k = threadIdx.x; k < kMeshCamSlots; k += blockDim.x)
     s_cam[k] = p.cam[k];
+  MeshTables smt = p.mt;
+  if constexpr (kVar == kStagedGrouped) {
+    const int ng = p.mt.n_groups, nc = p.mt.n_chunks;
+    float* s_group = s_mesh;
+    float* s_cluster = s_group + 6 * ng;
+    int* s_end = (int*)(s_cluster + 6 * nc);
+    int* s_box = s_end + ng;
+    for (int k = threadIdx.x; k < 6 * ng; k += blockDim.x)
+      s_group[k] = p.mt.group[k];
+    for (int k = threadIdx.x; k < 6 * nc; k += blockDim.x)
+      s_cluster[k] = p.mt.cluster[k];
+    for (int k = threadIdx.x; k < ng; k += blockDim.x)
+      s_end[k] = p.mt.group_end[k];
+    for (int k = threadIdx.x; k < nc; k += blockDim.x)
+      s_box[k] = p.mt.chunk_box[k];
+    smt.group = s_group;
+    smt.cluster = s_cluster;
+    smt.group_end = s_end;
+    smt.chunk_box = s_box;
+  }
   __syncthreads();
 #define SPH(field, i) s_sph[(field) * kMaxSpheres + (i)]
 
@@ -158,6 +182,11 @@ mesh_megakernel(const Params p) {
     else if constexpr (kVar == kCountGrouped)
       closest_triangle_grouped(p.mt, o, d, p.t_min, best_t, tri_t, tri_i,
                                n_tests, wc);
+    else if constexpr (kVar == kStagedGrouped) {
+      NoWalkProbe np;
+      closest_triangle_grouped<NoWalkProbe, true>(
+          smt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests, np);
+    }
     else
       closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests);
     if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped) {
@@ -355,21 +384,27 @@ extern "C" int mesh_megakernel_launch(MESH_ARGS) {
 }
 
 #ifdef ORT_K2_VARIANTS
-// The measurement build's instances by index (Variant; chip_smoke.py's
-// K2_VARIANTS names them in this order), launched as mesh_megakernel_launch
-// (no window) with counts of 2 + 2 * kWalkKinds + 1 entries.
+// The measurement build's instances by index (Variant from kCountFlat;
+// chip_smoke.py's K2_VARIANTS names them in this order), launched as
+// mesh_megakernel_launch (no window) with counts of 2 + 2 * kWalkKinds + 1
+// entries.
 extern "C" int mesh_megakernel_variant_launch(int v, MESH_ARGS) {
   using KernelFn = void (*)(const Params);
   const KernelFn variants[] = {
       mesh_megakernel<false, kCountFlat>, mesh_megakernel<false, kCountGrouped>,
-      mesh_megakernel<false, kTwiceFlat>, mesh_megakernel<false, kTwiceGrouped>};
+      mesh_megakernel<false, kTwiceFlat>, mesh_megakernel<false, kTwiceGrouped>,
+      mesh_megakernel<false, kStagedGrouped>};
   Params p;
-  if (v < 0 || v >= 4 || acc0 != nullptr || (flags & RAW_SUM) ||
+  if (v < 1 || v > 5 || acc0 != nullptr || (flags & RAW_SUM) ||
       !mesh_params(MESH_PARAMS))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return 0;
-  variants[v]<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
-                (cudaStream_t)stream>>>(p);
+  // the staged tables: the groups' and chunks' boxes and ints
+  const size_t smem =
+      v == kStagedGrouped ? (size_t)(7 * n_groups + 7 * n_chunks) * 4 : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  variants[v - 1]<<<(n_pix + kThreads - 1) / kThreads, kThreads, smem,
+                    (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 #endif

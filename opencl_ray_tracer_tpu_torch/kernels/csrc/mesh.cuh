@@ -266,11 +266,21 @@ __device__ __forceinline__ HitMaterial sphere_material(const float* sph,
                      m.fuzz(), m.ior(), m.inv_ior()};
 }
 
+// An int of the tables: through the read-only cache, or (kStaged) from
+// tables a measurement instance copied to shared memory.
+template <bool kStaged>
+__device__ __forceinline__ int table_int(const int* p) {
+  if constexpr (kStaged)
+    return *p;
+  else
+    return __ldg(p);
+}
+
 // The closest triangle nearer than lim (the sphere hit): t and index in
 // plan order, best_t left as it is when no triangle is nearer.  The walk
 // over the groups: a group's chunks are tested only when the ray enters
 // the group's box before the best t so far.
-template <class Probe>
+template <class Probe, bool kStaged = false>
 __device__ __forceinline__ void closest_triangle_grouped(
     const MeshTables& mt, const float o[3], const float d[3], float t_min,
     float lim, float& best_t, int& best_i, unsigned int& tests, Probe& pr) {
@@ -280,8 +290,8 @@ __device__ __forceinline__ void closest_triangle_grouped(
   if (!box.hit) return;
   int c0 = 0;
   for (int g = 0; g < mt.n_groups; ++g) {
-    const int c1 = __ldg(mt.group_end + g);
-    gate_box(mt, __ldg(mt.chunk_box + c0), box, o, inv, pr);
+    const int c1 = table_int<kStaged>(mt.group_end + g);
+    gate_box(mt, table_int<kStaged>(mt.chunk_box + c0), box, o, inv, pr);
     if (box.hit &&
         enters(mt.group + 6 * g, kSlabGroup, o, inv, fminf(lim, best_t), pr))
       for (int ci = c0; ci < c1; ++ci)
