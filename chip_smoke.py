@@ -53,9 +53,10 @@ Phases, each printing JSON lines on standard output:
    earlier design (a pixel per thread, each branch drawing on its own),
    the earlier design with one section run twice (the sphere tests, the
    sky, the Lambertian draw, the whole scatter, the camera ray), the
-   merged draw alone and K1's options (the fuzz direction in the metal
-   branch, 256-thread blocks, 6 and 7 blocks an SM), each cut at the
-   earlier design's threads and blocks an SM; every instance gives K1's
+   K1 with one pixel per thread, K1 without one of its options (the fuzz
+   direction in the metal branch, the merged divisions), K1 at 6 blocks an
+   SM, each cut at the earlier design's threads and blocks an SM; every
+   instance gives K1's
    image bit for bit and its bounces; the SIMT efficiency of each section
    of both designs and their idle share; the registers and spills of each
    instance.  6f: K2's walk split at REFERENCE_DEFAULTS with 576 and
@@ -270,31 +271,34 @@ KERNELS = {"megakernel": ("megakernel", ()),
 # its own), its SIMT-counting instance and its timing cuts (each runs one
 # section twice, from the same inputs, so no path changes: the sphere
 # tests, the sky, the bounce's Lambertian draw, the whole scatter, the
-# camera ray), the merged draw alone (a pixel per thread), the kernel's
-# options (the fuzz direction in the metal branch instead of the merged
-# slot; 256-thread blocks; register budgets for 6 and 7 blocks an SM), and
-# the kernel's SIMT-counting instance.  Each cut runs at the earlier
-# design's threads and blocks an SM (dynamic shared memory holds a cut
-# that needs fewer registers to them).  Every instance gives K1's image
+# camera ray), K1 with one pixel per thread (no work counter), K1 without
+# one of its options (the fuzz direction in the metal branch; the sky and
+# the metal branch dividing on their own), K1 at a budget of 80 registers
+# for 6 blocks an SM, and K1's SIMT-counting instance.  Each cut runs at the
+# earlier design's threads and blocks an SM (dynamic shared memory holds a
+# cut that needs fewer registers to them).  Every instance gives K1's image
 # bit for bit and its bounces (K1_SECTIONS names the counted sections).
 K1_VARIANTS = ("earlier", "earlier_simt", "earlier_twice_sphere",
                "earlier_twice_sky", "earlier_twice_lambert",
                "earlier_twice_scatter", "earlier_twice_camera",
-               "merged_draw_per_pixel", "fuzz_in_metal_branch", "block_256",
-               "regs_6_blocks", "regs_7_blocks", "k1_simt")
+               "k1_pixel_per_thread", "fuzz_in_metal_branch",
+               "separate_divisions", "regs_6_blocks", "k1_simt")
 K1_SECTIONS = ("sphere_tests", "sky", "lambert", "metal", "dielectric",
                "camera", "merged_draw")
-# The instances of K2's measurement build (csrc/megamesh.cu Variant, from
-# 1): the earlier walk and the grouped walk counting their slabs, runs and
-# triangle tests and the warp passes at each (K2_WALK_KINDS), and each
-# running its walk twice (the second time from the same rays, its result
-# kept alive), so that the difference from the kernel is the walk's time;
-# and an option, the grouped walk reading the groups' and chunks' boxes
-# from a copy in shared memory.
+# The instances of K2's measurement build (csrc/megamesh.cu kVariants), in
+# order: the earlier walk and the grouped walk counting their slabs, runs,
+# triangle tests and bounce steps and the warp passes at each
+# (K2_WALK_KINDS); each walk run twice (the second time from the same rays,
+# its result kept alive), so that the difference from the row-major,
+# one-pixel-per-thread kernel is the walk's time; the grouped walk with
+# each run's triangle tests twice (their time); and K2 without both of its
+# options (the grouped walk alone), without the triangle-major table, and
+# without persistent lanes.
 K2_VARIANTS = ("count_flat", "count_grouped", "twice_flat", "twice_grouped",
-               "staged_grouped")
+               "twice_runs", "grouped_only", "without_major",
+               "without_persistent")
 K2_WALK_KINDS = ("box_slabs", "group_slabs", "chunk_slabs", "sub_slabs",
-                 "runs")
+                 "runs", "bounce_steps")
 # The instances of the measurement build of csrc/megagrad.cu, in the order
 # of its kVariants: K4's earlier design (a pixel per thread, the megagrad
 # template's sphere instance) and its timing cuts, then K4's timing cuts.
@@ -866,22 +870,23 @@ def k2_split(dev, built=None, time_new: bool = True) -> dict:
             res = torch.empty((3, n_pix), dtype=torch.float32, device=dev)
 
             def launch(counts=None):
+                work = torch.zeros(1, dtype=torch.int32, device=dev)
                 rc = var.mesh_megakernel_variant_launch(
                     v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
-                    *table_args(tab), int(flags[5]), res[0].data_ptr(),
-                    res[1].data_ptr(), res[2].data_ptr(), None,
-                    counts.data_ptr() if counts is not None else None,
-                    n_pix, 0, 0, 0, cfg.width, cfg.height, cfg.spp,
-                    cfg.max_depth, cfg.t_min, bits, *sky,
+                    *table_args(tab), int(flags[5]),
+                    res[0].data_ptr(), res[1].data_ptr(), res[2].data_ptr(),
+                    None, counts.data_ptr() if counts is not None else None,
+                    work.data_ptr(), n_pix, 0, 0, 0, cfg.width, cfg.height,
+                    cfg.spp, cfg.max_depth, cfg.t_min, bits, *sky,
                     torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
-                    fail(f"K2 variant {K2_VARIANTS[v - 1]}: CUDA error {rc}")
+                    fail(f"K2 variant {K2_VARIANTS[v]}: CUDA error {rc}")
                 return res
             return launch
 
         fns = {"K2": k2, "K2_flat_walk": flat_walk(k2)}
         for i, name in enumerate(K2_VARIANTS):
-            fns[name] = variant(i + 1)
+            fns[name] = variant(i)
         counts = {}
         img = None
         for name in ("K2", "K2_flat_walk", *K2_VARIANTS):
@@ -957,7 +962,10 @@ def k2_split(dev, built=None, time_new: bool = True) -> dict:
                 "tests_per_bounce": c[1] / bounces}
         walk["flat"]["walk_ms"] = ms["twice_flat"] - ms["K2_flat_walk"]
         if time_new:
-            walk["grouped"]["walk_ms"] = ms["twice_grouped"] - ms["K2"]
+            walk["grouped"]["walk_ms"] = (ms["twice_grouped"]
+                                          - ms["grouped_only"])
+            walk["grouped"]["tests_ms"] = (ms["twice_runs"]
+                                           - ms["grouped_only"])
         out[case] = dict(ms=ms, walk=walk, bounces=bounces,
                          tests=counts["K2"][1], agree=agree,
                          n_chunks=tab.chunk_box.shape[0],

@@ -577,7 +577,10 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         int ti = 0;
         if constexpr (kMesh) {
           float tri_t = kBig;
-          closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, ti, n_tests);
+          // K6 reads the triangle-major table (as K2 does); K5 and K7 the
+          // row-major one, whose spills the other would raise
+          closest_triangle<kEmit>(p.mt, o, d, p.t_min, best_t, tri_t, ti,
+                                  n_tests);
           tri_win = tri_t < best_t;
           if (tri_win) best_t = tri_t;
         }
@@ -1357,7 +1360,8 @@ extern "C" int mesh_megagrad_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    const float* group, const int* group_end, int n_groups, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
     float* cam_part, float* gsph, float* gtri, float* rec, int n_threads,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int n_samples, int width, int height,
@@ -1393,7 +1397,7 @@ extern "C" int mesh_megagrad_launch(
   p.t_min = t_min;
   p.flags = flags;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes, group, group_end, n_groups};
+                    n_boxes, group, group_end, n_groups, tri_major};
   p.mesh_type = mesh_type;
   p.gtri = gtri;
   megagrad<true, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
@@ -1420,7 +1424,8 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
                          const float* cluster, const float* sub,
                          const int* chunk_box, int n_chunks,
                          const float* boxes, int n_boxes, const float* group,
-                         const int* group_end, int n_groups, int mesh_type,
+                         const int* group_end, int n_groups,
+                         const float* tri_major, int mesh_type,
                          unsigned long long* counts, int n_pix,
                          int pix_offset, unsigned int seed,
                          unsigned int sample_base, int n_samples, int width,
@@ -1442,7 +1447,7 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
   p.t_min = t_min;
   p.flags = flags;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes, group, group_end, n_groups};
+                    n_boxes, group, group_end, n_groups, tri_major};
   p.mesh_type = mesh_type;
   return p;
 }
@@ -1457,7 +1462,8 @@ extern "C" int hdr_emit_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    const float* group, const int* group_end, int n_groups, int mesh_type, float* emit, float* emis, unsigned long long* counts,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, float* emit, float* emis, unsigned long long* counts,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
     int flags, void* stream) {
@@ -1467,7 +1473,7 @@ extern "C" int hdr_emit_launch(
   if (n_pix == 0 || n_samples == 0) return 0;
   Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
                         chunk_box, n_chunks, boxes, n_boxes, group,
-                        group_end, n_groups, mesh_type,
+                        group_end, n_groups, tri_major, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
   const int blocks = (n_pix + kThreads - 1) / kThreads;
@@ -1485,7 +1491,8 @@ extern "C" int hdr_consume_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    const float* group, const int* group_end, int n_groups, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
     const float* sky_rows, float* cam_part, float* gsph, float* gtri,
     float* rec, int n_threads, unsigned long long* counts, int n_pix,
     int pix_offset, unsigned int seed, unsigned int sample_base,
@@ -1498,7 +1505,7 @@ extern "C" int hdr_consume_launch(
   if (n_pix == 0 || n_samples == 0) return 0;
   Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
                         chunk_box, n_chunks, boxes, n_boxes, group,
-                        group_end, n_groups, mesh_type,
+                        group_end, n_groups, tri_major, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
   p.g_r = g_r;

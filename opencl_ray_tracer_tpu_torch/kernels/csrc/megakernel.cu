@@ -199,18 +199,29 @@ __device__ __forceinline__ void camera_from_draw(const float* cam, int flags,
            o[k];
 }
 
+// The kernel's options (kOpt bits).  kOptPersistent: a lane that ends its
+// pixel takes the next one from p.work (the grid holds one block per
+// resident slot); else each lane renders one pixel (a block per kBlock
+// pixels).  kOptFuzzInDraw: a fuzzy metal's square root and angle take the
+// merged slot (else its branch computes them).  kOptMergedDiv: every lane
+// takes |d| after the trace, and one set of three divisions serves a hit's
+// normal, (h - c) / r, and a miss's unit direction, d / |d|, which the sky
+// reads (else the sky and the metal and dielectric branches take their
+// own).
+enum Opt { kOptPersistent = 1, kOptFuzzInDraw = 2, kOptMergedDiv = 4 };
+// The options the entry point's kernel takes.
+constexpr int kOptK1 = kOptPersistent | kOptFuzzInDraw | kOptMergedDiv;
+
 // kWindow: a sample window (acc0 or RAW_SUM); the monolithic instance has
-// no code for either.  kPersistent: a lane that ends its pixel takes the
-// next one from p.work (the grid holds one block per resident slot); else
-// each lane renders one pixel (a block per kBlock pixels).  kFuzzInDraw: a
-// fuzzy metal's square root and angle take the merged slot (else its
-// branch computes them).  kBlock and kMinBlocks: the block's threads and
-// the blocks an SM must hold, which sets the register budget.  kSimt:
-// count the sections' SIMT efficiency.
-template <bool kWindow, bool kPersistent, bool kFuzzInDraw, int kBlock,
-          int kMinBlocks, bool kSimt>
+// no code for either.  kOpt: Opt bits.  kBlock and kMinBlocks: the block's
+// threads and the blocks an SM must hold, which sets the register budget.
+// kSimt: count the sections' SIMT efficiency.
+template <bool kWindow, int kOpt, int kBlock, int kMinBlocks, bool kSimt>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 sphere_megakernel(const Params p) {
+  constexpr bool kPersistent = (kOpt & kOptPersistent) != 0;
+  constexpr bool kFuzzInDraw = (kOpt & kOptFuzzInDraw) != 0;
+  constexpr bool kMergedDiv = (kOpt & kOptMergedDiv) != 0;
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_cam[kCamSlots];
   stage_tables(p, s_sph, s_cam);
@@ -265,16 +276,44 @@ sphere_megakernel(const Params p) {
     bool scatter = false;
     bool front = false;
     int mt = LAMBERTIAN;
-    if (!(best_t < kBig)) {
+    const bool hit = best_t < kBig;
+    float len = 0.f;  // kMergedDiv: |d|
+    if constexpr (kMergedDiv) {
+      // a hit's normal or a miss's unit direction, in one set of divisions
+      len = sqrtf(a);
+      float den = len;
+      for (int k = 0; k < 3; ++k) nrm[k] = d[k];
+      if (hit) {
+        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
+        for (int k = 0; k < 3; ++k) nrm[k] = h[k] - SPH(F_CX + k, bi);
+        den = SPH(F_R, bi);
+      }
+      for (int k = 0; k < 3; ++k) nrm[k] = nrm[k] / den;
+    }
+    if (!hit) {
       // miss: throughput times the sky (gpu_kernel.cl:342-347)
       simt.at(kSecSky);
       float sky[3];
-      sky_colour(s_cam, flags, d, a, sky);
+      if constexpr (kMergedDiv) {
+        // common.cuh::sky_colour with d[1] / sqrtf(a) taken above
+        if (flags & SKY_CONST) {
+          for (int k = 0; k < 3; ++k) sky[k] = s_cam[C_SKY + k];
+        } else {
+          const float t = 0.5f * (nrm[1] + 1.f);
+          sky[0] = fmaf(t, 0.5f, 1.f - t);
+          sky[1] = fmaf(t, 0.7f, 1.f - t);
+          sky[2] = fmaf(t, 1.f, 1.f - t);
+        }
+      } else {
+        sky_colour(s_cam, flags, d, a, sky);
+      }
       for (int k = 0; k < 3; ++k) c[k] = thr[k] * sky[k];
     } else {
-      for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
-      for (int k = 0; k < 3; ++k)
-        nrm[k] = (h[k] - SPH(F_CX + k, bi)) / SPH(F_R, bi);
+      if constexpr (!kMergedDiv) {
+        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
+        for (int k = 0; k < 3; ++k)
+          nrm[k] = (h[k] - SPH(F_CX + k, bi)) / SPH(F_R, bi);
+      }
       front = dot3(d, nrm) < 0.f;
       if (!front)
         for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
@@ -338,7 +377,7 @@ sphere_megakernel(const Params p) {
           fabsf(dir[2]) < 1e-8f)
         for (int k = 0; k < 3; ++k) dir[k] = nrm[k];
     } else {
-      const float len = sqrtf(a);
+      if constexpr (!kMergedDiv) len = sqrtf(a);
       const float ud[3] = {d[0] / len, d[1] / len, d[2] / len};
       const float dn = dot3(ud, nrm);
       float ref[3];
@@ -470,7 +509,7 @@ int grid_blocks(const void* fn, int block, bool persistent, int n_pix) {
 
 template <bool kWindow>
 int launch(const Params& p, cudaStream_t stream) {
-  const auto fn = sphere_megakernel<kWindow, true, true, kThreads, 1, false>;
+  const auto fn = sphere_megakernel<kWindow, kOptK1, kThreads, 1, false>;
   const int blocks = grid_blocks((const void*)fn, kThreads, true, p.n_pix);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   fn<<<blocks, kThreads, 0, stream>>>(p);
@@ -687,21 +726,19 @@ const VariantFn kVariants[] = {
     {sphere_megakernel_earlier<kTwiceLambert>, kThreads, false},
     {sphere_megakernel_earlier<kTwiceScatter>, kThreads, false},
     {sphere_megakernel_earlier<kTwiceCamera>, kThreads, false},
-    // the merged draw alone, one pixel per thread
-    {sphere_megakernel<false, false, true, kThreads, 1, false>, kThreads,
-     false},
-    // the kernel's options: the fuzz direction in the metal branch;
-    // 256-thread blocks; register budgets for 6 and 7 blocks of 128 an SM
-    {sphere_megakernel<false, true, false, kThreads, 1, false>, kThreads,
-     true},
-    {sphere_megakernel<false, true, true, 256, 1, false>, 256, true},
-    {sphere_megakernel<false, true, true, kThreads, 6, false>, kThreads,
-     true},
-    {sphere_megakernel<false, true, true, kThreads, 7, false>, kThreads,
-     true},
+    // the kernel with one pixel per thread (no work counter)
+    {sphere_megakernel<false, kOptK1 & ~kOptPersistent, kThreads, 1, false>,
+     kThreads, false},
+    // the kernel without one of its options: the fuzz direction in the
+    // metal branch; the sky and the metal branch dividing on their own
+    {sphere_megakernel<false, kOptK1 & ~kOptFuzzInDraw, kThreads, 1, false>,
+     kThreads, true},
+    {sphere_megakernel<false, kOptK1 & ~kOptMergedDiv, kThreads, 1, false>,
+     kThreads, true},
+    // a register budget for 6 blocks of 128 an SM (80 registers)
+    {sphere_megakernel<false, kOptK1, kThreads, 6, false>, kThreads, true},
     // the kernel counting its sections' SIMT efficiency
-    {sphere_megakernel<false, true, true, kThreads, 1, true>, kThreads,
-     true},
+    {sphere_megakernel<false, kOptK1, kThreads, 1, true>, kThreads, true},
 };
 constexpr int kEarlierVariants = 7;  // the earlier design and its cuts
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);

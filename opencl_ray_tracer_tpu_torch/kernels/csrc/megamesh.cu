@@ -82,24 +82,35 @@ struct Params {
   float t_min;
   int flags;
   HdrImage sky;
+  int* work;                    // kOptPersistent: pixels taken, zeroed
   uint32_t zero;                // 0; the measurement instances' perturbation
 };
 
-// The instances of the kernel: the one the entry points launch, and the
-// measurement build's (ORT_K2_VARIANTS; chip_smoke.py's split of the walk):
-// the earlier walk and the grouped walk counting what they test (WalkCount;
-// counts[2..12]), and each running its walk a second time, from the origin
-// xor p.zero (the same rays: zero is 0) with the result kept alive, so that
-// the difference from the kernel is the walk's time; and the grouped walk
-// reading the groups, the chunk AABBs and the chunks' gating boxes from a
-// copy in shared memory (an option; the sub-boxes stay in global memory).
+// The kernel's options (kOpt bits).  kOptMajor: the triangle tests read
+// the triangle-major copy of the table (MeshTables::tri_major, five float4
+// a test).  kOptPersistent: a lane that ends its pixel takes the next from
+// p.work, as megakernel.cu's lanes do (the grid holds one block per
+// resident slot).
+enum Opt { kOptMajor = 1, kOptPersistent = 2 };
+// The options the entry point's kernel takes; the measurement build of the
+// earlier walk (ORT_FLAT_WALK) is the earlier kernel, with neither.
+constexpr int kOptK2 = kFlatWalk ? 0 : kOptMajor | kOptPersistent;
+
+// The measurement build's instances (ORT_K2_VARIANTS; chip_smoke.py's split
+// of the walk), besides the options: the earlier walk and the grouped walk
+// counting what they test (WalkCount; counts[2..]), each running its walk a
+// second time from the origin xor p.zero (the same rays: zero is 0) with
+// the result kept alive, so that the difference from the kernel is the
+// walk's time, and the grouped walk running each run's triangle tests
+// twice (their time).
 enum Variant { kPlain, kCountFlat, kCountGrouped, kTwiceFlat, kTwiceGrouped,
-               kStagedGrouped };
+               kTwiceRuns };
 
 // The slabs and runs a walk tested, per lane, and the warp passes at each
 // (the lane that is first in __activemask counts one): SIMT efficiency is
 // lane steps over (warp passes x 32).
 struct WalkCount {
+  static constexpr bool kRunsTwice = false;
   unsigned int lane[kWalkKinds] = {};
   unsigned int warp[kWalkKinds] = {};
   __device__ __forceinline__ void at(int k) {
@@ -109,66 +120,55 @@ struct WalkCount {
 };
 
 // kWindow: a sample window (acc0 or RAW_SUM), as in megakernel.cu.
-template <bool kWindow, int kVar = kPlain>
+template <bool kWindow, int kOpt = kOptK2, int kVar = kPlain>
 __global__ void __launch_bounds__(kThreads)
 mesh_megakernel(const Params p) {
+  constexpr bool kPersistent = (kOpt & kOptPersistent) != 0;
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_cam[kMeshCamSlots];
-  extern __shared__ float s_mesh[];  // kStagedGrouped: 7 (groups + chunks)
   const int n = p.n_spheres;
   for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
     s_sph[(k / n) * kMaxSpheres + k % n] = p.sph[(k / n) * p.tab_w + k % n];
   for (int k = threadIdx.x; k < kMeshCamSlots; k += blockDim.x)
     s_cam[k] = p.cam[k];
-  MeshTables smt = p.mt;
-  if constexpr (kVar == kStagedGrouped) {
-    const int ng = p.mt.n_groups, nc = p.mt.n_chunks;
-    float* s_group = s_mesh;
-    float* s_cluster = s_group + 6 * ng;
-    int* s_end = (int*)(s_cluster + 6 * nc);
-    int* s_box = s_end + ng;
-    for (int k = threadIdx.x; k < 6 * ng; k += blockDim.x)
-      s_group[k] = p.mt.group[k];
-    for (int k = threadIdx.x; k < 6 * nc; k += blockDim.x)
-      s_cluster[k] = p.mt.cluster[k];
-    for (int k = threadIdx.x; k < ng; k += blockDim.x)
-      s_end[k] = p.mt.group_end[k];
-    for (int k = threadIdx.x; k < nc; k += blockDim.x)
-      s_box[k] = p.mt.chunk_box[k];
-    smt.group = s_group;
-    smt.cluster = s_cluster;
-    smt.group_end = s_end;
-    smt.chunk_box = s_box;
-  }
   __syncthreads();
+  const MeshTables& mt = p.mt;
 #define SPH(field, i) s_sph[(field) * kMaxSpheres + (i)]
-
-  const int local = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = local < p.n_pix;
-  const int lin = p.pix_offset + local;
-  const uint32_t pix = (uint32_t)lin;
-  const float px = (float)(lin % p.width);
-  const float py = (float)(lin / p.width);
   const int flags = p.flags;
+  const int n_lanes = gridDim.x * kThreads;
 
+  // the lane's pixel and its sample's state
+  int local = blockIdx.x * kThreads + threadIdx.x;
+  bool live = local < p.n_pix;
+  uint32_t pix = 0;
+  float px = 0.f, py = 0.f;
   float o[3], d[3];
   float thr[3] = {1.f, 1.f, 1.f};
   float acc[3] = {0.f, 0.f, 0.f};
-  if (kWindow && valid && p.acc0 != nullptr)
-    for (int k = 0; k < 3; ++k) acc[k] = p.acc0[k * p.n_pix + local];
   int sample = 0;
   int depth = 0;
+  auto start_pixel = [&]() {
+    const int lin = p.pix_offset + local;
+    pix = (uint32_t)lin;
+    px = (float)(lin % p.width);
+    py = (float)(lin / p.width);
+    for (int k = 0; k < 3; ++k)
+      acc[k] = (kWindow && p.acc0 != nullptr) ? p.acc0[k * p.n_pix + local]
+                                              : 0.f;
+    camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, p.sample_base,
+               px, py, o, d);
+  };
   unsigned int n_bounce = 0;
   unsigned int n_tests = 0;
   WalkCount wc;                  // kCountFlat, kCountGrouped
-  uint32_t sink = 0;             // kTwiceFlat, kTwiceGrouped
-  if (valid)
-    camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, p.sample_base,
-               px, py, o, d);
+  uint32_t sink = 0;             // kTwice*
+  if (live) start_pixel();
 
-  const int max_iters = p.spp * p.max_depth + 1;
-  for (int it = 0; valid && sample < p.spp && it < max_iters; ++it) {
+  // Every sample takes at most max_depth steps, so the loop ends.
+  while (live) {
     ++n_bounce;
+    if constexpr (kVar == kCountFlat || kVar == kCountGrouped)
+      wc.at(kBounceStep);
     const uint32_t sid = p.sample_base + (uint32_t)sample;
     const float a = dot3(d, d);
     float best_t;
@@ -176,19 +176,21 @@ mesh_megakernel(const Params p) {
     closest_sphere(s_sph, kMaxSpheres, n, o, d, a, p.t_min, best_t, best_i);
     float tri_t = kBig;
     int tri_i = 0;
-    if constexpr (kVar == kCountFlat)
-      closest_triangle_flat(p.mt, o, d, p.t_min, best_t, tri_t, tri_i,
+    if constexpr (kVar == kCountFlat) {
+      closest_triangle_flat(mt, o, d, p.t_min, best_t, tri_t, tri_i,
                             n_tests, wc);
-    else if constexpr (kVar == kCountGrouped)
-      closest_triangle_grouped(p.mt, o, d, p.t_min, best_t, tri_t, tri_i,
+    } else if constexpr (kVar == kCountGrouped) {
+      closest_triangle_grouped(mt, o, d, p.t_min, best_t, tri_t, tri_i,
                                n_tests, wc);
-    else if constexpr (kVar == kStagedGrouped) {
-      NoWalkProbe np;
-      closest_triangle_grouped<NoWalkProbe, true>(
-          smt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests, np);
+    } else if constexpr (kVar == kTwiceRuns) {
+      TwiceRuns tr{p.zero, 0u};
+      closest_triangle_grouped(mt, o, d, p.t_min, best_t, tri_t, tri_i,
+                               n_tests, tr);
+      sink ^= tr.sink;
+    } else {
+      closest_triangle<(kOpt & kOptMajor) != 0>(mt, o, d, p.t_min, best_t,
+                                                tri_t, tri_i, n_tests);
     }
-    else
-      closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, tri_i, n_tests);
     if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped) {
       float o2[3];
       for (int k = 0; k < 3; ++k)
@@ -198,11 +200,11 @@ mesh_megakernel(const Params p) {
       unsigned int tests2 = 0;
       NoWalkProbe np;
       if constexpr (kVar == kTwiceFlat)
-        closest_triangle_flat(p.mt, o2, d, p.t_min, best_t, t2, i2, tests2,
+        closest_triangle_flat(mt, o2, d, p.t_min, best_t, t2, i2, tests2,
                               np);
       else
-        closest_triangle_grouped(p.mt, o2, d, p.t_min, best_t, t2, i2,
-                                 tests2, np);
+        closest_triangle_grouped(mt, o2, d, p.t_min, best_t, t2, i2, tests2,
+                                 np);
       sink ^= __float_as_uint(t2) ^ (uint32_t)i2 ^ tests2;
     }
     const bool tri_win = tri_t < best_t;
@@ -257,24 +259,30 @@ mesh_megakernel(const Params p) {
         if (isnan(v)) v = (flags & NAN_RUNNING_SUM) ? acc[k] : 0.f;
         acc[k] = acc[k] + v;
       }
-      ++sample;
-      if (sample < p.spp) {
+      thr[0] = thr[1] = thr[2] = 1.f;
+      depth = 0;
+      if (++sample < p.spp) {
         camera_ray(s_cam, p.seed, p.width, p.height, flags, pix,
                    p.sample_base + (uint32_t)sample, px, py, o, d);
-        thr[0] = thr[1] = thr[2] = 1.f;
-        depth = 0;
+        continue;
+      }
+      // the mean (gpu_kernel.cl:647), or the raw sum of a sample window
+      const bool raw = kWindow && (flags & RAW_SUM) != 0;
+      p.out_r[local] = raw ? acc[0] : acc[0] / (float)p.spp;
+      p.out_g[local] = raw ? acc[1] : acc[1] / (float)p.spp;
+      p.out_b[local] = raw ? acc[2] : acc[2] / (float)p.spp;
+      sample = 0;
+      if constexpr (kPersistent) {
+        local = n_lanes + atomicAdd(p.work, 1);
+        live = local < p.n_pix;
+        if (live) start_pixel();
+      } else {
+        live = false;
       }
     }
   }
 #undef SPH
 
-  if (valid) {
-    // the mean (gpu_kernel.cl:647), or the raw sum of a sample window
-    const bool raw = kWindow && (flags & RAW_SUM) != 0;
-    p.out_r[local] = raw ? acc[0] : acc[0] / (float)p.spp;
-    p.out_g[local] = raw ? acc[1] : acc[1] / (float)p.spp;
-    p.out_b[local] = raw ? acc[2] : acc[2] / (float)p.spp;
-  }
   if (p.counts != nullptr) {
     const unsigned int bounce_sum = __reduce_add_sync(0xffffffffu, n_bounce);
     const unsigned int test_sum = __reduce_add_sync(0xffffffffu, n_tests);
@@ -292,10 +300,11 @@ mesh_megakernel(const Params p) {
                     (unsigned long long)warps);
         }
       }
+    if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped ||
+                  kVar == kTwiceRuns)
+      if (sink == 0x9e3779b9u)
+        atomicAdd(p.counts + 2 + 2 * kWalkKinds, 1ull);
   }
-  if constexpr (kVar == kTwiceFlat || kVar == kTwiceGrouped)
-    if (sink == 0x9e3779b9u && p.counts != nullptr)
-      atomicAdd(p.counts + 2 + 2 * kWalkKinds, 1ull);
 }
 
 }  // namespace
@@ -306,9 +315,11 @@ static bool mesh_params(
     Params& p, const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
-    const float* group, const int* group_end, int n_groups, int mesh_type,
-    float* out_r, float* out_g, float* out_b, const float* acc0,
-    unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, float* out_r, float* out_g,
+    float* out_b, const float* acc0,
+    unsigned long long* counts, int* work, int n_pix, int pix_offset,
+    unsigned int seed,
     unsigned int sample_base, int width, int height, int spp, int max_depth,
     float t_min, int flags, const float* sky, int sky_w, int sky_h) {
   const bool hdr = (flags & SKY_HDR) != 0;
@@ -325,7 +336,7 @@ static bool mesh_params(
   p.tab_w = tab_w;
   p.n_spheres = n_spheres;
   p.mt = MeshTables{tri, t_pad, cluster, sub, chunk_box, n_chunks, boxes,
-                    n_boxes, group, group_end, n_groups};
+                    n_boxes, group, group_end, n_groups, tri_major};
   p.mesh_type = mesh_type;
   p.out_r = out_r;
   p.out_g = out_g;
@@ -343,8 +354,32 @@ static bool mesh_params(
   p.t_min = t_min;
   p.flags = flags;
   p.sky = HdrImage{sky, sky_w, sky_h};
+  p.work = work;
   p.zero = 0;
   return true;
+}
+
+// Launches instance fn (options opt) of the kernel: one block per resident
+// slot when persistent (at most one per kThreads pixels).
+static int launch_kernel(const void* fn, int opt, const Params& p,
+                         cudaStream_t stream) {
+  int blocks = (p.n_pix + kThreads - 1) / kThreads;
+  if (opt & kOptPersistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      0) != cudaSuccess ||
+        per_sm < 1)
+      return (int)cudaErrorInvalidConfiguration;
+    if (blocks > sms * per_sm) blocks = sms * per_sm;
+  }
+  void* args[] = {(void*)&p};
+  const cudaError_t rc =
+      cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0, stream);
+  cudaGetLastError();  // the launch's error, which rc carries, cleared
+  return (int)rc;
 }
 
 #define MESH_ARGS                                                           \
@@ -352,17 +387,18 @@ static bool mesh_params(
       const float *tri, int t_pad, const float *cluster, const float *sub,  \
       const int *chunk_box, int n_chunks, const float *boxes, int n_boxes,  \
       const float *group, const int *group_end, int n_groups,               \
-      int mesh_type, float *out_r, float *out_g, float *out_b,              \
-      const float *acc0, unsigned long long *counts, int n_pix,             \
-      int pix_offset, unsigned int seed, unsigned int sample_base,          \
-      int width, int height, int spp, int max_depth, float t_min,           \
-      int flags, const float *sky, int sky_w, int sky_h, void *stream
+      const float *tri_major, int mesh_type, float *out_r, float *out_g,    \
+      float *out_b, const float *acc0, unsigned long long *counts,          \
+      int *work, int n_pix, int pix_offset, unsigned int seed,              \
+      unsigned int sample_base, int width, int height, int spp,             \
+      int max_depth, float t_min, int flags, const float *sky, int sky_w,   \
+      int sky_h, void *stream
 #define MESH_PARAMS                                                         \
   p, cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub, chunk_box,       \
-      n_chunks, boxes, n_boxes, group, group_end, n_groups, mesh_type,      \
-      out_r, out_g, out_b, acc0, counts, n_pix, pix_offset, seed,           \
-      sample_base, width, height, spp, max_depth, t_min, flags, sky, sky_w, \
-      sky_h
+      n_chunks, boxes, n_boxes, group, group_end, n_groups, tri_major,      \
+      mesh_type, out_r, out_g, out_b, acc0, counts, work, n_pix,            \
+      pix_offset, seed, sample_base, width, height, spp, max_depth, t_min,  \
+      flags, sky, sky_w, sky_h
 
 // Launches the kernel on `stream` and returns cudaGetLastError(): nonzero
 // when the launch was refused.  Outputs are (n_pix,) float planes, the mean
@@ -371,41 +407,55 @@ static bool mesh_params(
 // when not null, receives the bounces traced and the triangle tests run.
 // With SKY_HDR in flags, sky is the (sky_h, sky_w, 3) image of an HDR sky
 // and the scene may have no triangles (n_chunks, n_boxes and n_groups 0).
+// work: one int, zero on the stream, that the lanes count the pixels they
+// take on.
 extern "C" int mesh_megakernel_launch(MESH_ARGS) {
   Params p;
-  if (!mesh_params(MESH_PARAMS)) return (int)cudaErrorInvalidValue;
+  if (!mesh_params(MESH_PARAMS) || work == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return 0;
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  if (acc0 != nullptr || (flags & RAW_SUM))
-    mesh_megakernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
-  else
-    mesh_megakernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const bool window = acc0 != nullptr || (flags & RAW_SUM);
+  return launch_kernel(window ? (const void*)mesh_megakernel<true>
+                              : (const void*)mesh_megakernel<false>,
+                       kOptK2, p, (cudaStream_t)stream);
 }
 
 #ifdef ORT_K2_VARIANTS
-// The measurement build's instances by index (Variant from kCountFlat;
-// chip_smoke.py's K2_VARIANTS names them in this order), launched as
+namespace {
+
+struct VariantFn {
+  void (*fn)(const Params);
+  int opt;
+};
+
+// chip_smoke.py's K2_VARIANTS names these in this order: the counting and
+// timing instances, then the kernel without both its options and without
+// each.
+const VariantFn kVariants[] = {
+    {mesh_megakernel<false, 0, kCountFlat>, 0},
+    {mesh_megakernel<false, 0, kCountGrouped>, 0},
+    {mesh_megakernel<false, 0, kTwiceFlat>, 0},
+    {mesh_megakernel<false, 0, kTwiceGrouped>, 0},
+    {mesh_megakernel<false, 0, kTwiceRuns>, 0},
+    {mesh_megakernel<false, 0>, 0},
+    {mesh_megakernel<false, kOptPersistent>, kOptPersistent},
+    {mesh_megakernel<false, kOptMajor>, kOptMajor},
+};
+constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
+
+}  // namespace
+
+// The measurement build's instances by index, launched as
 // mesh_megakernel_launch (no window) with counts of 2 + 2 * kWalkKinds + 1
 // entries.
 extern "C" int mesh_megakernel_variant_launch(int v, MESH_ARGS) {
-  using KernelFn = void (*)(const Params);
-  const KernelFn variants[] = {
-      mesh_megakernel<false, kCountFlat>, mesh_megakernel<false, kCountGrouped>,
-      mesh_megakernel<false, kTwiceFlat>, mesh_megakernel<false, kTwiceGrouped>,
-      mesh_megakernel<false, kStagedGrouped>};
   Params p;
-  if (v < 1 || v > 5 || acc0 != nullptr || (flags & RAW_SUM) ||
-      !mesh_params(MESH_PARAMS))
+  if (v < 0 || v >= kNumVariants || acc0 != nullptr || (flags & RAW_SUM) ||
+      work == nullptr || !mesh_params(MESH_PARAMS))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return 0;
-  // the staged tables: the groups' and chunks' boxes and ints
-  const size_t smem =
-      v == kStagedGrouped ? (size_t)(7 * n_groups + 7 * n_chunks) * 4 : 0;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  variants[v - 1]<<<(n_pix + kThreads - 1) / kThreads, kThreads, smem,
-                    (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_kernel((const void*)kVariants[v].fn, kVariants[v].opt, p,
+                       (cudaStream_t)stream);
 }
 #endif
 

@@ -26,11 +26,15 @@
 // group's box contains its chunks' boxes, so the group test only culls
 // chunks the chunk test would cull: the triangle tests are those of the
 // walk over every chunk (closest_triangle_flat, the earlier design, which
-// measurement builds take with ORT_FLAT_WALK).
+// measurement builds take with ORT_FLAT_WALK).  A walk may read the
+// triangles from the table's triangle-major copy (MeshTables::tri_major:
+// one 96-byte row a triangle, five float4 a test, where the (kTriRows,
+// t_pad) table spreads a triangle over 19 rows).
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -62,6 +66,9 @@ struct MeshTables {
   const float* group;
   const int* group_end;
   int n_groups;
+  // the triangle table triangle by triangle: (t_pad, 24) floats, rows 0-21
+  // of each column and 2 zeros, 16-byte aligned
+  const float* tri_major;
 };
 
 // The launchers' check of the tables' sizes: one or more chunks, gating
@@ -74,9 +81,21 @@ inline bool mesh_args_ok(int t_pad, int n_chunks, int n_boxes,
 
 // What a walk tested, for the measurement builds' counts (WalkCount in
 // megamesh.cu); the kernels take NoWalkProbe, which counts nothing.
+// kBounceStep counts the bounce loop's steps (its SIMT efficiency is 1 - the
+// share of lanes whose pixel has ended).
 enum WalkSlab { kSlabBox, kSlabGroup, kSlabChunk, kSlabSub, kRunEntered,
-                kWalkKinds };
+                kBounceStep, kWalkKinds };
 struct NoWalkProbe {
+  static constexpr bool kRunsTwice = false;
+  __device__ __forceinline__ void at(int) {}
+};
+
+// A measurement probe: each run's triangle tests run a second time, from
+// the origin xor z (the same ray: z is 0), the result kept in sink.
+struct TwiceRuns {
+  static constexpr bool kRunsTwice = true;
+  uint32_t z;
+  uint32_t sink;
   __device__ __forceinline__ void at(int) {}
 };
 
@@ -127,13 +146,46 @@ __device__ __forceinline__ float tri_candidate(const float* tab, int stride,
   return ok ? t : kBig;
 }
 
-// Tests the n triangles of columns j0.. of a table (row stride `stride`) and
-// keeps the first smallest t: index base + column.
+// tri_candidate on a triangle-major table (MeshTables::tri_major): triangle
+// j's rows 0-19 read as five float4, the same operations.
+__device__ __forceinline__ float tri_candidate_major(const float* tab, int j,
+                                                     const float d[3],
+                                                     const float m[3],
+                                                     const float o[3],
+                                                     float t_min) {
+  const float4* r = reinterpret_cast<const float4*>(tab) + 6 * j;
+  float w[20];
+  for (int q = 0; q < 5; ++q) {
+    const float4 v = __ldg(r + q);
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+  return tri_candidate(w, 1, 0, d, m, o, t_min);
+}
+
+// Tests the n triangles of columns j0.. of a table (row stride `stride`; or
+// kMajor, a triangle-major table) and keeps the first smallest t: index
+// base + column.
+template <bool kMajor = false>
 __device__ __forceinline__ void tri_run(const float* tab, int stride, int j0,
                                         int n, int base, const float d[3],
                                         const float m[3], const float o[3],
                                         float t_min, float& best_t,
                                         int& best_i) {
+  if constexpr (kMajor) {
+    // not unrolled: the unrolled run's hoisted float4 loads spilled
+#pragma unroll 1
+    for (int j = j0; j < j0 + n; ++j) {
+      const float t = tri_candidate_major(tab, j, d, m, o, t_min);
+      if (t < best_t) {
+        best_t = t;
+        best_i = base + j;
+      }
+    }
+    return;
+  }
   for (int j = j0; j < j0 + n; ++j) {
     const float t = tri_candidate(tab, stride, j, d, m, o, t_min);
     if (t < best_t) {
@@ -214,8 +266,8 @@ __device__ __forceinline__ bool chunk_gate(const MeshTables& mt, int ci,
 
 // The runs of chunk ci whose sub-box the ray enters before the best t so
 // far, tested from the table tab (row stride `stride`, chunk ci starting at
-// column j0).
-template <class Probe = NoWalkProbe>
+// column j0; kMajor: mt.tri_major).
+template <bool kMajor = false, class Probe = NoWalkProbe>
 __device__ __forceinline__ void chunk_runs(const MeshTables& mt, int ci,
                                            const float* tab, int stride,
                                            int j0, const float o[3],
@@ -228,8 +280,18 @@ __device__ __forceinline__ void chunk_runs(const MeshTables& mt, int ci,
     if (enters(mt.sub + 6 * (ci * kSub + s), kSlabSub, o, inv,
                fminf(lim, best_t), pr)) {
       pr.at(kRunEntered);
-      tri_run(tab, stride, j0 + s * kRun, kRun, ci * kChunk - j0, d, m, o,
-              t_min, best_t, best_i);
+      if constexpr (std::decay_t<Probe>::kRunsTwice) {
+        float o2[3];
+        for (int k = 0; k < 3; ++k)
+          o2[k] = __uint_as_float(__float_as_uint(o[k]) ^ pr.z);
+        float t2 = best_t;
+        int i2 = best_i;
+        tri_run<kMajor>(kMajor ? mt.tri_major : tab, stride, j0 + s * kRun,
+                        kRun, ci * kChunk - j0, d, m, o2, t_min, t2, i2);
+        pr.sink ^= __float_as_uint(t2) ^ (uint32_t)i2;
+      }
+      tri_run<kMajor>(kMajor ? mt.tri_major : tab, stride, j0 + s * kRun,
+                      kRun, ci * kChunk - j0, d, m, o, t_min, best_t, best_i);
       tests += kRun;
     }
   }
@@ -266,21 +328,12 @@ __device__ __forceinline__ HitMaterial sphere_material(const float* sph,
                      m.fuzz(), m.ior(), m.inv_ior()};
 }
 
-// An int of the tables: through the read-only cache, or (kStaged) from
-// tables a measurement instance copied to shared memory.
-template <bool kStaged>
-__device__ __forceinline__ int table_int(const int* p) {
-  if constexpr (kStaged)
-    return *p;
-  else
-    return __ldg(p);
-}
-
 // The closest triangle nearer than lim (the sphere hit): t and index in
 // plan order, best_t left as it is when no triangle is nearer.  The walk
 // over the groups: a group's chunks are tested only when the ray enters
-// the group's box before the best t so far.
-template <class Probe, bool kStaged = false>
+// the group's box before the best t so far.  kMajor: the triangles from
+// mt.tri_major.
+template <class Probe, bool kMajor = false>
 __device__ __forceinline__ void closest_triangle_grouped(
     const MeshTables& mt, const float o[3], const float d[3], float t_min,
     float lim, float& best_t, int& best_i, unsigned int& tests, Probe& pr) {
@@ -290,15 +343,15 @@ __device__ __forceinline__ void closest_triangle_grouped(
   if (!box.hit) return;
   int c0 = 0;
   for (int g = 0; g < mt.n_groups; ++g) {
-    const int c1 = table_int<kStaged>(mt.group_end + g);
-    gate_box(mt, table_int<kStaged>(mt.chunk_box + c0), box, o, inv, pr);
+    const int c1 = __ldg(mt.group_end + g);
+    gate_box(mt, __ldg(mt.chunk_box + c0), box, o, inv, pr);
     if (box.hit &&
         enters(mt.group + 6 * g, kSlabGroup, o, inv, fminf(lim, best_t), pr))
       for (int ci = c0; ci < c1; ++ci)
         if (enters(mt.cluster + 6 * ci, kSlabChunk, o, inv,
                    fminf(lim, best_t), pr))
-          chunk_runs(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m, inv,
-                     t_min, lim, best_t, best_i, tests, pr);
+          chunk_runs<kMajor>(mt, ci, mt.tri, mt.t_pad, ci * kChunk, o, d, m,
+                             inv, t_min, lim, best_t, best_i, tests, pr);
     c0 = c1;
   }
 }
@@ -320,8 +373,17 @@ __device__ __forceinline__ void closest_triangle_flat(
                  lim, best_t, best_i, tests, pr);
 }
 
-// The walk the kernels take: over the groups, or with ORT_FLAT_WALK (a
-// measurement build) the earlier walk over every chunk.
+// Whether this build walks every chunk (ORT_FLAT_WALK, a measurement build
+// of the earlier walk).
+#ifdef ORT_FLAT_WALK
+constexpr bool kFlatWalk = true;
+#else
+constexpr bool kFlatWalk = false;
+#endif
+
+// The walk the kernels take: over the groups (kMajor: reading
+// mt.tri_major), or with ORT_FLAT_WALK the earlier walk over every chunk.
+template <bool kMajor = false>
 __device__ __forceinline__ void closest_triangle(const MeshTables& mt,
                                                  const float o[3],
                                                  const float d[3],
@@ -329,11 +391,11 @@ __device__ __forceinline__ void closest_triangle(const MeshTables& mt,
                                                  float& best_t, int& best_i,
                                                  unsigned int& tests) {
   NoWalkProbe pr;
-#ifdef ORT_FLAT_WALK
-  closest_triangle_flat(mt, o, d, t_min, lim, best_t, best_i, tests, pr);
-#else
-  closest_triangle_grouped(mt, o, d, t_min, lim, best_t, best_i, tests, pr);
-#endif
+  if constexpr (kFlatWalk)
+    closest_triangle_flat(mt, o, d, t_min, lim, best_t, best_i, tests, pr);
+  else
+    closest_triangle_grouped<NoWalkProbe, kMajor>(mt, o, d, t_min, lim,
+                                                  best_t, best_i, tests, pr);
 }
 
 }  // namespace ort

@@ -18,7 +18,9 @@ sub-boxes, each chunk's gating box and the gating boxes, and over the
 chunks a second level (``group_tables``): groups of up to ``MESH_GROUP``
 consecutive chunks of one gating box, each with the union of its chunks'
 AABBs, which the mesh megakernel's walk and the mesh backward kernels'
-test first.  It keeps the
+test first; and the triangle table's triangle-major copy (``tri_major``,
+one 96-byte row a triangle) that the mesh megakernel and the HDR emit
+pass read their triangle tests from.  It keeps the
 tables of the last few scenes, keyed by a digest of the leaves they are
 built from (``leaves_key``).  Given a plan, it builds them from the
 scene's current vertices in that plan's order: a fit that moves the
@@ -77,6 +79,7 @@ class MeshTables(NamedTuple):
     plan: MeshPlan           # the order: plan.perm maps columns to ids
     group: torch.Tensor      # (n_groups, 6) f32 [min, max]
     group_end: torch.Tensor  # (n_groups,) i32, each group's last chunk + 1
+    tri_major: torch.Tensor  # (T_pad, 24) f32: tri's columns, 2 zeros each
 
 
 def group_tables(cluster: torch.Tensor, chunk_box: torch.Tensor,
@@ -104,19 +107,19 @@ def group_tables(cluster: torch.Tensor, chunk_box: torch.Tensor,
 def table_args(tab: MeshTables) -> tuple:
     """The tables as the kernels' entry points take them: tri, t_pad,
     cluster, sub, chunk_box, n_chunks, boxes, n_boxes, group, group_end,
-    n_groups (pointers and counts)."""
+    n_groups, tri_major (pointers and counts)."""
     return (tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
             tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
             tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
             tab.group.data_ptr(), tab.group_end.data_ptr(),
-            tab.group_end.shape[0])
+            tab.group_end.shape[0], tab.tri_major.data_ptr())
 
 
 # ctypes argument types of table_args.
 TABLE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_int]
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def leaves_key(leaves: dict, *extra) -> tuple:
@@ -193,7 +196,15 @@ def _build_tables(scene, plan: MeshPlan | None = None) -> MeshTables:
         chunk_box=chunk_box,
         boxes=torch.cat([scene.boxes.box_min, scene.boxes.box_max],
                         dim=1).contiguous(),
-        feats=feats, plan=plan, group=group, group_end=group_end)
+        feats=feats, plan=plan, group=group, group_end=group_end,
+        tri_major=triangle_major(feats.table))
+
+
+def triangle_major(tri: torch.Tensor) -> torch.Tensor:
+    """The triangle table (TRI_ROWS, T_pad) as the kernels' triangle-major
+    copy: (T_pad, 24), a triangle's 22 rows and 2 zeros in one 96-byte
+    row, so that a triangle test reads five float4."""
+    return torch.nn.functional.pad(tri.T, (0, 24 - TRI_ROWS)).contiguous()
 
 
 def empty_tables(device) -> MeshTables:
@@ -207,7 +218,8 @@ def empty_tables(device) -> MeshTables:
                       sub=zeros(0, 6), chunk_box=zeros(0, dtype=torch.int32),
                       boxes=zeros(0, 6), feats=None, plan=None,
                       group=zeros(0, 6),
-                      group_end=zeros(0, dtype=torch.int32))
+                      group_end=zeros(0, dtype=torch.int32),
+                      tri_major=zeros(0, 24))
 
 
 def check_tables(tab: MeshTables, allow_empty: bool = False) -> None:
@@ -223,7 +235,8 @@ def check_tables(tab: MeshTables, allow_empty: bool = False) -> None:
               (tab.chunk_box, (n_chunks,), torch.int32),
               (tab.boxes, (tab.boxes.shape[0], 6), torch.float32),
               (tab.group, (n_groups, 6), torch.float32),
-              (tab.group_end, (n_groups,), torch.int32))
+              (tab.group_end, (n_groups,), torch.int32),
+              (tab.tri_major, (n_chunks * MESH_CHUNK, 24), torch.float32))
     for t, shape, dtype in shapes:
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != tab.tri.device):

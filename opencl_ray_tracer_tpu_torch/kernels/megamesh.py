@@ -54,7 +54,7 @@ LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {"mesh_megakernel_launch": (
-    [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P, _P,
+    [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P, _P, _P,
      _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
      ctypes.c_float, _I, _P, _I, _I, _P], _I),
     "hdr_texel_launch": ([_P, _I, _I, _I, _P, _P], _I)}
@@ -224,6 +224,8 @@ def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
     bits = (_flag_bits(cfg, sky_kind, flags[:5])
             | (0 if mean else FLAG_RAW_SUM))
     out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
+    # the pixels the lanes take after their first, counted from 0
+    work = torch.zeros(1, dtype=torch.int32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().mesh_megakernel_launch(
@@ -231,8 +233,9 @@ def render_mesh(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
             *table_args(tab),
             int(flags[5]), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), acc0.data_ptr() if acc0 is not None else None,
-            counts.data_ptr() if counts is not None else None, n_pix,
-            pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
+            counts.data_ptr() if counts is not None else None,
+            work.data_ptr(), n_pix, pix_offset, seed & 0xFFFFFFFF,
+            sample_base & 0xFFFFFFFF,
             cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.t_min, bits,
             *sky_args(sky_image), stream)
     if rc != 0:

@@ -1,7 +1,8 @@
 """The mesh tables' second level (``intersect_mm.group_tables``): groups
 of up to ``MESH_GROUP`` consecutive chunks of one gating box, in plan
 order, each with the exact union of its chunks' AABBs, which the kernels'
-grouped walk tests before a group's chunks (csrc/mesh.cuh).  A group's box
+grouped walk tests before a group's chunks (csrc/mesh.cuh); and the
+triangle table's triangle-major copy (``tri_major``).  A group's box
 holds its chunks' boxes bit for bit, so the grouped walk culls no chunk the
 earlier walk over every chunk would test; that the two walks run the same
 triangle tests is checked on the card (test_torch_kernels_gpu.py and
@@ -102,7 +103,8 @@ def test_group_split_rule():
 
 
 @pytest.mark.parametrize("fault", ["group_width", "group_end_dtype",
-                                   "more_groups_than_chunks", "no_group"])
+                                   "more_groups_than_chunks", "no_group",
+                                   "tri_major_width"])
 def test_check_tables_refuses_bad_groups(fault):
     tab = im.mesh_tables(_torus_2304_two_boxes())
     bad = {
@@ -114,15 +116,27 @@ def test_check_tables_refuses_bad_groups(fault):
                                    dtype=torch.int32)),
         "no_group": dict(group=torch.zeros((0, 6)),
                          group_end=torch.zeros((0,), dtype=torch.int32)),
+        "tri_major_width": dict(tri_major=tab.tri.T.contiguous()),
     }[fault]
     with pytest.raises(ValueError):
         im.check_tables(tab._replace(**bad))
+
+
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_triangle_major_copy_holds_the_table(case):
+    """tri_major, which K2 and K6 read their triangle tests from: column j
+    of the (22, T_pad) table as row j, then two zeros (96 bytes)."""
+    tab = im.mesh_tables(SCENES[case]())
+    assert tab.tri_major.shape == (tab.tri.shape[1], 24)
+    assert torch.equal(tab.tri_major[:, :22], tab.tri.T)
+    assert not tab.tri_major[:, 22:].any()
 
 
 def test_empty_tables_have_no_group():
     tab = im.empty_tables("cpu")
     im.check_tables(tab, allow_empty=True)
     assert tab.group.shape == (0, 6) and tab.group_end.shape == (0,)
+    assert tab.tri_major.shape == (0, 24)
 
 
 def _ulps(a, b):

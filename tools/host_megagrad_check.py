@@ -61,6 +61,7 @@ SHIM = r'''
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 using std::isnan;
 #define __device__
 #define __global__
@@ -88,6 +89,10 @@ inline bool __any_sync(unsigned, bool p) { return p; }
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 inline float __shfl_sync(unsigned, float v, int) { return v; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u; memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) {
+  float x; memcpy(&x, &u, 4); return x; }
 '''
 # Reads the tables from the working directory, runs every pixel as its own
 # block of one thread (K4: a third as many threads as pixels, so that each
@@ -117,11 +122,11 @@ int main(int argc, char** argv) {
   const float t_min = (float)atof(argv[a++]);
   const int flags = atoi(argv[a++]);
   auto cam = rd("cam.bin"), sph = rd("sph.bin"), g = rd("g.bin");
-  std::vector<char> tri, cl, sub, cb, bx, gr, ge;
+  std::vector<char> tri, cl, sub, cb, bx, gr, ge, tm;
   if (mesh && t_pad > 0) {
     tri = rd("tri.bin"); cl = rd("cluster.bin"); sub = rd("sub.bin");
     cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); gr = rd("group.bin");
-    ge = rd("group_end.bin"); }
+    ge = rd("group_end.bin"); tm = rd("tri_major.bin"); }
   std::vector<char> sky_rows;
   if (mesh == 3) sky_rows = rd("sky_rows.bin");
   std::vector<float> emit((size_t)6 * n_samples * n_pix, -7.f);
@@ -146,7 +151,7 @@ int main(int argc, char** argv) {
                       (const int*)cb.data(), n_chunks,
                       (const float*)bx.data(), n_boxes,
                       (const float*)gr.data(), (const int*)ge.data(),
-                      n_groups};
+                      n_groups, (const float*)tm.data()};
     p.mesh_type = mesh_type; p.gtri = gtri.data();
   }
   p.emit = emit.data(); p.emis = emis.data();
@@ -267,7 +272,8 @@ def check_hdr(exe, work, scene, cfg, seed=7):
     if tab.tri.shape[1]:
         arrays.update(tri=tab.tri, cluster=tab.cluster, sub=tab.sub,
                       chunk_box=tab.chunk_box, boxes=tab.boxes,
-                      group=tab.group, group_end=tab.group_end)
+                      group=tab.group, group_end=tab.group_end,
+                      tri_major=tab.tri_major)
     dims = (tab.tri.shape[1], tab.chunk_box.shape[0], tab.boxes.shape[0],
             tab.group_end.shape[0], int(flags[5]))
     bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
@@ -346,7 +352,8 @@ def check(exe, work, scene, cfg, seed=7):
                           -1)
         arrays = {"tri": tab.tri, "cluster": tab.cluster, "sub": tab.sub,
                   "chunk_box": tab.chunk_box, "boxes": tab.boxes,
-                  "group": tab.group, "group_end": tab.group_end}
+                  "group": tab.group, "group_end": tab.group_end,
+                  "tri_major": tab.tri_major}
         dims = (tab.tri.shape[1], tab.chunk_box.shape[0],
                 tab.boxes.shape[0], tab.group_end.shape[0], int(flags[5]))
     else:

@@ -40,11 +40,6 @@ from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
 SHIM = hm.SHIM.replace(
     "static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1};",
     "static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1}, gridDim{1};") + r'''
-#include <cstring>
-inline unsigned __float_as_uint(float x) {
-  unsigned u; memcpy(&u, &x, 4); return u; }
-inline float __uint_as_float(unsigned u) {
-  float x; memcpy(&x, &u, 4); return x; }
 inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
 '''
 # Runs instance v (chip_smoke.py's K1_VARIANTS order) over the pixels, its
@@ -91,13 +86,12 @@ int main(int argc, char** argv) {
     case 4: run([&] { sphere_megakernel_earlier<kTwiceLambert>(p); }, 128, per); break;
     case 5: run([&] { sphere_megakernel_earlier<kTwiceScatter>(p); }, 128, per); break;
     case 6: run([&] { sphere_megakernel_earlier<kTwiceCamera>(p); }, 128, per); break;
-    case 7: run([&] { sphere_megakernel<false, false, true, 128, 1, false>(p); }, 128, per); break;
-    case 8: run([&] { sphere_megakernel<false, true, false, 128, 1, false>(p); }, 128, 3); break;
-    case 9: run([&] { sphere_megakernel<false, true, true, 256, 1, false>(p); }, 256, 3); break;
-    case 10: run([&] { sphere_megakernel<false, true, true, 128, 6, false>(p); }, 128, 3); break;
-    case 11: run([&] { sphere_megakernel<false, true, true, 128, 7, false>(p); }, 128, 3); break;
-    case 12: run([&] { sphere_megakernel<false, true, true, 128, 1, true>(p); }, 128, 3); break;
-    case 13: run([&] { sphere_megakernel<false, true, true, 128, 1, false>(p); }, 128, 3); break;
+    case 7: run([&] { sphere_megakernel<false, kOptK1 & ~kOptPersistent, 128, 1, false>(p); }, 128, per); break;
+    case 8: run([&] { sphere_megakernel<false, kOptK1 & ~kOptFuzzInDraw, 128, 1, false>(p); }, 128, 3); break;
+    case 9: run([&] { sphere_megakernel<false, kOptK1 & ~kOptMergedDiv, 128, 1, false>(p); }, 128, 3); break;
+    case 10: run([&] { sphere_megakernel<false, kOptK1, 128, 6, false>(p); }, 128, 3); break;
+    case 11: run([&] { sphere_megakernel<false, kOptK1, 128, 1, true>(p); }, 128, 3); break;
+    case 12: run([&] { sphere_megakernel<false, kOptK1, 128, 1, false>(p); }, 128, 3); break;
     default: return 4;
   }
   FILE* fp = fopen("out.bin", "wb");
@@ -111,8 +105,8 @@ int main(int argc, char** argv) {
 NAMES = ("earlier", "earlier_simt", "earlier_twice_sphere",
          "earlier_twice_sky", "earlier_twice_lambert",
          "earlier_twice_scatter", "earlier_twice_camera",
-         "merged_draw_per_pixel", "fuzz_in_metal_branch", "block_256",
-         "regs_6_blocks", "regs_7_blocks", "k1_simt", "k1")
+         "k1_pixel_per_thread", "fuzz_in_metal_branch", "separate_divisions",
+         "regs_6_blocks", "k1_simt", "k1")
 
 
 def build(work: pathlib.Path) -> pathlib.Path:
