@@ -52,22 +52,23 @@ Phases, each printing JSON lines on standard output:
    the median of 5 CUDA-event times after a warm-up, in turns, of K1, the
    earlier design (a pixel per thread, each branch drawing on its own),
    the earlier design with one section run twice (the sphere tests, the
-   sky, the Lambertian draw, the whole scatter, the camera ray), the
-   K1 with one pixel per thread, K1 without one of its options (the fuzz
-   direction in the metal branch, the merged divisions), K1 at 6 blocks an
-   SM, each cut at the earlier design's threads and blocks an SM; every
-   instance gives K1's
-   image bit for bit and its bounces; the SIMT efficiency of each section
-   of both designs and their idle share; the registers and spills of each
-   instance.  6f: K2's walk split at REFERENCE_DEFAULTS with 576 and
-   15,360 triangles under the gradient and the HDR sky, from the
-   measurement builds ORT_K2_VARIANTS and ORT_FLAT_WALK: per bounce the
-   gating-box, group, chunk and sub-box slabs, the runs entered and the
-   triangle tests of the earlier walk (every chunk) and the grouped walk,
-   the SIMT efficiency at each, the walk's time (each walk run twice,
-   less its kernel), and K2 (both bodies), K5, K6 and K7 with each walk,
-   medians of 5 in turns; both walks give equal images, bounces, triangle
-   tests and K6 records, and K5's and K7's cotangents within 1e-4.
+   sky, the Lambertian draw, the whole scatter, the camera ray), and K1
+   with one pixel per thread, each cut at the earlier design's threads and
+   blocks an SM; every instance gives K1's image bit for bit and its
+   bounces; the SIMT efficiency of each section of both designs and their
+   idle share; the registers and spills of each instance.  6f: K2's walk
+   split at REFERENCE_DEFAULTS with 576 and 15,360 triangles under the
+   gradient and the HDR sky, from the measurement builds ORT_K2_VARIANTS
+   and ORT_FLAT_WALK (the earlier K2, K5, K6 and K7): per bounce the
+   gating-box, group, chunk and sub-box slabs, the runs entered, the
+   triangle tests and the bounce steps of the earlier walk (every chunk)
+   and the grouped walk, the SIMT efficiency at each, the walk's time and
+   its triangle tests' time (each run twice, less its kernel), K2 without
+   its triangle-major table, without its persistent lanes and without
+   both, and K2 (both bodies), K5, K6 and K7 against their earlier
+   designs, medians of 5 in turns; every instance gives K2's image bit for
+   bit, its bounces and its triangle tests, K6 equal records, and K5's and
+   K7's cotangents within 1e-4 of the earlier design's.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -271,18 +272,15 @@ KERNELS = {"megakernel": ("megakernel", ()),
 # its own), its SIMT-counting instance and its timing cuts (each runs one
 # section twice, from the same inputs, so no path changes: the sphere
 # tests, the sky, the bounce's Lambertian draw, the whole scatter, the
-# camera ray), K1 with one pixel per thread (no work counter), K1 without
-# one of its options (the fuzz direction in the metal branch; the sky and
-# the metal branch dividing on their own), K1 at a budget of 80 registers
-# for 6 blocks an SM, and K1's SIMT-counting instance.  Each cut runs at the
-# earlier design's threads and blocks an SM (dynamic shared memory holds a
-# cut that needs fewer registers to them).  Every instance gives K1's image
-# bit for bit and its bounces (K1_SECTIONS names the counted sections).
+# camera ray), K1 with one pixel per thread (no work counter), and K1's
+# SIMT-counting instance.  Each cut runs at the earlier design's threads
+# and blocks an SM (dynamic shared memory holds a cut that needs fewer
+# registers to them).  Every instance gives K1's image bit for bit and its
+# bounces (K1_SECTIONS names the counted sections).
 K1_VARIANTS = ("earlier", "earlier_simt", "earlier_twice_sphere",
                "earlier_twice_sky", "earlier_twice_lambert",
                "earlier_twice_scatter", "earlier_twice_camera",
-               "k1_pixel_per_thread", "fuzz_in_metal_branch",
-               "separate_divisions", "regs_6_blocks", "k1_simt")
+               "k1_pixel_per_thread", "k1_simt")
 K1_SECTIONS = ("sphere_tests", "sky", "lambert", "metal", "dielectric",
                "camera", "merged_draw")
 # The instances of K2's measurement build (csrc/megamesh.cu kVariants), in
@@ -507,6 +505,18 @@ def split_boxes(scene, n_boxes: int = 40):
     return dataclasses.replace(
         scene, triangles=dataclasses.replace(t, box_id=bid),
         boxes=ot.BoundingBoxes(lo + away, hi + away))
+
+
+def walk_table_bytes(tab, major: bool = False) -> int:
+    """The bytes of the mesh tables a walk reads: the triangle table (the
+    row-major one, or with major the triangle-major copy and the row-major
+    normals), the chunks' AABBs, sub-boxes and gating boxes, the gating
+    boxes and the groups."""
+    tri = (tab.tri_major.numel() + 3 * tab.tri.shape[1] if major
+           else tab.tri.numel())
+    return 4 * (tri + tab.cluster.numel() + tab.sub.numel()
+                + tab.boxes.numel() + tab.chunk_box.numel()
+                + tab.group.numel() + tab.group_end.numel())
 
 
 def bound_of(flops: float, io_bytes: float) -> dict:
@@ -1139,10 +1149,8 @@ def mesh_phases(dev) -> tuple:
         cam, sph, n, tab = args[:4]
         flops = (kc[0] * n * FLOPS_PER_SPHERE_TEST
                  + kc[1] * FLOPS_PER_TRI_TEST)
-        io_bytes = (cam.numel() + sph.numel() + tab.tri.numel()
-                    + tab.cluster.numel() + tab.sub.numel()
-                    + tab.boxes.numel() + tab.chunk_box.numel()
-                    + 3 * n_pix) * 4
+        io_bytes = ((cam.numel() + sph.numel() + 3 * n_pix) * 4
+                    + walk_table_bytes(tab, major=True))
         entry = dict(kernel_ms=ms, bounces=kc[0],
                      bounces_per_sample=kc[0] / (n_pix * ref.spp),
                      tri_tests=kc[1], tri_tests_per_bounce=kc[1] / kc[0],
@@ -1532,10 +1540,8 @@ def mesh_grad_phases(dev, k2) -> dict:
                  + tests * FLOPS_PER_TRI_TEST
                  + (reverse - reverse_tri) * FLOPS_PER_REVERSE_BOUNCE
                  + reverse_tri * FLOPS_PER_TRI_REVERSE_BOUNCE)
-        io_bytes = (2 * (cam.numel() + sph.numel()) + tab.tri.numel()
-                    + tab.cluster.numel() + tab.sub.numel()
-                    + tab.boxes.numel() + tab.chunk_box.numel()
-                    + 3 * n_pix + 10 * tab.tri.shape[1]) * 4
+        io_bytes = ((2 * (cam.numel() + sph.numel()) + 3 * n_pix
+                     + 10 * tab.tri.shape[1]) * 4 + walk_table_bytes(tab))
         k2_ms = k2["ms"] if name == "torus_576" else k2["torus_15360_ms"]
         main[name] = dict(fwd_bwd_ms=1e3 * secs, k5_ms=k5_ms, k2_ms=k2_ms,
                           loss=float(loss), replay_bounces=replay,
@@ -1717,10 +1723,8 @@ def hdr_phases(dev) -> list:
                 "sphere_megagrad": mg.LAUNCHES,
                 "mesh_megagrad": mg.MESH_LAUNCHES, "closest_tri": im.LAUNCHES}
 
-    def table_bytes(cam, sph, tab):
-        return (cam.numel() + sph.numel() + tab.tri.numel()
-                + tab.cluster.numel() + tab.sub.numel() + tab.boxes.numel()
-                + tab.chunk_box.numel()) * 4
+    def table_bytes(cam, sph, tab, major=False):
+        return (cam.numel() + sph.numel()) * 4 + walk_table_bytes(tab, major)
 
     # ---- 17. hdr_lookup: the kernels' texel against the plain version's
     # on 2^20 directions ----
@@ -1942,7 +1946,8 @@ def hdr_phases(dev) -> list:
         tb = table_bytes(cam, sph, tab)
         k2_bound = bound_of(c2[0] * n * FLOPS_PER_SPHERE_TEST
                             + c2[1] * FLOPS_PER_TRI_TEST,
-                            tb + image.numel() * 4 + 3 * n_pix * 4)
+                            table_bytes(cam, sph, tab, major=True)
+                            + image.numel() * 4 + 3 * n_pix * 4)
         k6_bound = bound_of(c6[0] * n * FLOPS_PER_SPHERE_TEST
                             + c6[1] * FLOPS_PER_TRI_TEST,
                             tb + (emit_.numel() + emis.numel()) * 4)

@@ -577,10 +577,7 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         int ti = 0;
         if constexpr (kMesh) {
           float tri_t = kBig;
-          // K6 reads the triangle-major table (as K2 does); K5 and K7 the
-          // row-major one, whose spills the other would raise
-          closest_triangle<kEmit>(p.mt, o, d, p.t_min, best_t, tri_t, ti,
-                                  n_tests);
+          closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, ti, n_tests);
           tri_win = tri_t < best_t;
           if (tri_win) best_t = tri_t;
         }
@@ -1452,12 +1449,12 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
   return p;
 }
 
-// Launches K6 on `stream`, one thread per pixel, and returns
-// cudaGetLastError().  Tables as mesh_megagrad_launch's (n_chunks, n_boxes
-// and n_groups may be 0: no triangles); emit (6 x n_samples x n_pix) receives
-// each sample's miss direction and throughput, emis (3 x n_pix) each
-// pixel's non-sky sum; counts, when not null, receives the bounces replayed
-// and the triangle tests.
+// Launches K6 on `stream` on the resident threads, each taking several
+// pixels, and returns cudaGetLastError().  Tables as mesh_megagrad_launch's
+// (n_chunks, n_boxes and n_groups may be 0: no triangles); emit
+// (6 x n_samples x n_pix) receives each sample's miss direction and
+// throughput, emis (3 x n_pix) each pixel's non-sky sum; counts, when not
+// null, receives the bounces replayed and the triangle tests.
 extern "C" int hdr_emit_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
@@ -1476,11 +1473,19 @@ extern "C" int hdr_emit_launch(
                         group_end, n_groups, tri_major, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  p.n_threads = blocks * kThreads;
+  // a thread a pixel in the earlier design (the ORT_FLAT_WALK build); else
+  // the resident threads, each taking pixels tid, tid + n_threads, ..., as
+  // K5 and K7 do, so that a lane whose pixel ends starts the next instead
+  // of idling until its warp's last pixel ends
+  p.n_threads = kFlatWalk ? (n_pix + kThreads - 1) / kThreads * kThreads
+                          : resident_threads(
+                                (const void*)megagrad<true, kSkyEmit>, 0,
+                                n_pix);
+  if (p.n_threads < kThreads) return (int)cudaErrorInvalidConfiguration;
   p.emit = emit;
   p.emis = emis;
-  megagrad<true, kSkyEmit><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  megagrad<true, kSkyEmit><<<p.n_threads / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -26,10 +26,12 @@
 // Lambertian's, or a fuzzy metal's fuzz direction, which reads the same
 // draw), so the lanes that end a sample and those that scatter run the
 // hash and the transcendentals together instead of one branch after the
-// other.  Only the second draw of fuzzy metal and dielectric lanes (the
-// fuzz radius, the Fresnel draw), their reflection and refraction, and
-// the camera ray after a metal absorbs stay divergent.  PERF.md holds the
-// measured split this design answers.
+// other; likewise one square root of |d|^2 and one set of three divisions
+// per lane give a hit's normal or a miss's unit direction.  Only the
+// second draw of fuzzy metal and dielectric lanes (the fuzz radius, the
+// Fresnel draw), their reflection and refraction, and the camera ray after
+// a metal absorbs stay divergent.  PERF.md holds the measured split this
+// design answers (chip_smoke.py phase 6e).
 //
 // One pixel's samples stay in one lane and add in order, which keeps the
 // running-sum NaN policy exact.  Sample windows (checkpointed renders):
@@ -199,36 +201,21 @@ __device__ __forceinline__ void camera_from_draw(const float* cam, int flags,
            o[k];
 }
 
-// The kernel's options (kOpt bits).  kOptPersistent: a lane that ends its
-// pixel takes the next one from p.work (the grid holds one block per
-// resident slot); else each lane renders one pixel (a block per kBlock
-// pixels).  kOptFuzzInDraw: a fuzzy metal's square root and angle take the
-// merged slot (else its branch computes them).  kOptMergedDiv: every lane
-// takes |d| after the trace, and one set of three divisions serves a hit's
-// normal, (h - c) / r, and a miss's unit direction, d / |d|, which the sky
-// reads (else the sky and the metal and dielectric branches take their
-// own).
-enum Opt { kOptPersistent = 1, kOptFuzzInDraw = 2, kOptMergedDiv = 4 };
-// The options the entry point's kernel takes.
-constexpr int kOptK1 = kOptPersistent | kOptFuzzInDraw | kOptMergedDiv;
-
 // kWindow: a sample window (acc0 or RAW_SUM); the monolithic instance has
-// no code for either.  kOpt: Opt bits.  kBlock and kMinBlocks: the block's
-// threads and the blocks an SM must hold, which sets the register budget.
-// kSimt: count the sections' SIMT efficiency.
-template <bool kWindow, int kOpt, int kBlock, int kMinBlocks, bool kSimt>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+// no code for either.  kPersistent: a lane that ends its pixel takes the
+// next one from p.work (the grid holds one block per resident slot), as the
+// entry point launches it; else each lane renders one pixel (a measurement
+// instance).  kSimt: count the sections' SIMT efficiency.
+template <bool kWindow, bool kPersistent = true, bool kSimt = false>
+__global__ void __launch_bounds__(kThreads)
 sphere_megakernel(const Params p) {
-  constexpr bool kPersistent = (kOpt & kOptPersistent) != 0;
-  constexpr bool kFuzzInDraw = (kOpt & kOptFuzzInDraw) != 0;
-  constexpr bool kMergedDiv = (kOpt & kOptMergedDiv) != 0;
   __shared__ float s_sph[kFields * kMaxSpheres];
   __shared__ float s_cam[kCamSlots];
   stage_tables(p, s_sph, s_cam);
 #define SPH(field, i) s_sph[(field) * kMaxSpheres + (i)]
   const int n = p.n_spheres;
   const int flags = p.flags;
-  const int n_lanes = gridDim.x * kBlock;
+  const int n_lanes = gridDim.x * kThreads;
   Simt<kSimt> simt;
   unsigned int n_bounce = 0;
 
@@ -237,7 +224,8 @@ sphere_megakernel(const Params p) {
   float acc[3];
   int sample = 0;
   int depth = 0;
-  PixelState px = {(int)(blockIdx.x * kBlock + threadIdx.x), 0u, 0.f, 0.f};
+  PixelState px = {(int)(blockIdx.x * kThreads + threadIdx.x), 0u, 0.f,
+                   0.f};
   bool live = px.local < p.n_pix;
   if (live) {
     px = start_pixel<kWindow>(p, px.local, acc);
@@ -277,43 +265,33 @@ sphere_megakernel(const Params p) {
     bool front = false;
     int mt = LAMBERTIAN;
     const bool hit = best_t < kBig;
-    float len = 0.f;  // kMergedDiv: |d|
-    if constexpr (kMergedDiv) {
-      // a hit's normal or a miss's unit direction, in one set of divisions
-      len = sqrtf(a);
-      float den = len;
-      for (int k = 0; k < 3; ++k) nrm[k] = d[k];
-      if (hit) {
-        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
-        for (int k = 0; k < 3; ++k) nrm[k] = h[k] - SPH(F_CX + k, bi);
-        den = SPH(F_R, bi);
-      }
-      for (int k = 0; k < 3; ++k) nrm[k] = nrm[k] / den;
+    // Every lane takes |d|, and one set of three divisions gives a hit's
+    // normal, (h - c) / r, or a miss's unit direction, d / |d|, which the
+    // sky reads (the metal and dielectric branches reuse |d|).
+    const float len = sqrtf(a);
+    float den = len;
+    for (int k = 0; k < 3; ++k) nrm[k] = d[k];
+    if (hit) {
+      for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
+      for (int k = 0; k < 3; ++k) nrm[k] = h[k] - SPH(F_CX + k, bi);
+      den = SPH(F_R, bi);
     }
+    for (int k = 0; k < 3; ++k) nrm[k] = nrm[k] / den;
     if (!hit) {
-      // miss: throughput times the sky (gpu_kernel.cl:342-347)
+      // miss: throughput times the sky (gpu_kernel.cl:342-347), as
+      // common.cuh::sky_colour with d[1] / sqrtf(a) taken above
       simt.at(kSecSky);
       float sky[3];
-      if constexpr (kMergedDiv) {
-        // common.cuh::sky_colour with d[1] / sqrtf(a) taken above
-        if (flags & SKY_CONST) {
-          for (int k = 0; k < 3; ++k) sky[k] = s_cam[C_SKY + k];
-        } else {
-          const float t = 0.5f * (nrm[1] + 1.f);
-          sky[0] = fmaf(t, 0.5f, 1.f - t);
-          sky[1] = fmaf(t, 0.7f, 1.f - t);
-          sky[2] = fmaf(t, 1.f, 1.f - t);
-        }
+      if (flags & SKY_CONST) {
+        for (int k = 0; k < 3; ++k) sky[k] = s_cam[C_SKY + k];
       } else {
-        sky_colour(s_cam, flags, d, a, sky);
+        const float t = 0.5f * (nrm[1] + 1.f);
+        sky[0] = fmaf(t, 0.5f, 1.f - t);
+        sky[1] = fmaf(t, 0.7f, 1.f - t);
+        sky[2] = fmaf(t, 1.f, 1.f - t);
       }
       for (int k = 0; k < 3; ++k) c[k] = thr[k] * sky[k];
     } else {
-      if constexpr (!kMergedDiv) {
-        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
-        for (int k = 0; k < 3; ++k)
-          nrm[k] = (h[k] - SPH(F_CX + k, bi)) / SPH(F_R, bi);
-      }
       front = dot3(d, nrm) < 0.f;
       if (!front)
         for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
@@ -340,7 +318,7 @@ sphere_megakernel(const Params p) {
     simt.at(kSecDraw);
     const bool is_metal = scatter && (flags & HAS_METAL) && mt == METAL;
     const bool is_diel = scatter && (flags & HAS_DIEL) && mt == DIELECTRIC;
-    const bool fuzz_in_draw = kFuzzInDraw && is_metal && (flags & HAS_FUZZ);
+    const bool fuzz_in_draw = is_metal && (flags & HAS_FUZZ);
     float u[4];
     uniform4(p.seed, px.pix, scatter ? sid : p.sample_base + (uint32_t)sample,
              scatter ? 4u + 2u * (uint32_t)depth : 0u, u);
@@ -377,7 +355,6 @@ sphere_megakernel(const Params p) {
           fabsf(dir[2]) < 1e-8f)
         for (int k = 0; k < 3; ++k) dir[k] = nrm[k];
     } else {
-      if constexpr (!kMergedDiv) len = sqrtf(a);
       const float ud[3] = {d[0] / len, d[1] / len, d[2] / len};
       const float dn = dot3(ud, nrm);
       float ref[3];
@@ -391,12 +368,7 @@ sphere_megakernel(const Params p) {
         simt.at(kSecMetal);
         for (int k = 0; k < 3; ++k) dir[k] = ref[k];
         if (flags & HAS_FUZZ) {
-          if (!kFuzzInDraw) {
-            const float phs = kTwoPi * u[3];
-            root = sqrtf(fmaxf(0.f, fmaf(-zs, zs, 1.f)));
-            cs = cosf(phs);
-            sn = sinf(phs);
-          }
+          // root, cs and sn are the fuzz's (the merged slot above)
           const float rad = fuzz_radius(ub[0]);
           const float fz = SPH(F_FUZZ, bi);
           dir[0] = fmaf((root * cs) * rad, fz, ref[0]);
@@ -490,18 +462,18 @@ bool sphere_params(Params& p, const float* cam, const float* sph, int tab_w,
   return true;
 }
 
-// Blocks of a launch of kernel fn (kBlock threads a block) over n_pix
-// pixels: one per resident slot when persistent, at most one per kBlock
-// pixels; 0 when the occupancy query fails.
-int grid_blocks(const void* fn, int block, bool persistent, int n_pix) {
-  const int per_pixel = (n_pix + block - 1) / block;
+// Blocks of a launch of kernel fn over n_pix pixels: one per resident slot
+// when persistent, at most one per kThreads pixels; 0 when the occupancy
+// query fails.
+int grid_blocks(const void* fn, bool persistent, int n_pix) {
+  const int per_pixel = (n_pix + kThreads - 1) / kThreads;
   if (!persistent) return per_pixel;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, block, 0) !=
-          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                    0) != cudaSuccess ||
       per_sm < 1)
     return 0;
   return per_pixel < sms * per_sm ? per_pixel : sms * per_sm;
@@ -509,8 +481,8 @@ int grid_blocks(const void* fn, int block, bool persistent, int n_pix) {
 
 template <bool kWindow>
 int launch(const Params& p, cudaStream_t stream) {
-  const auto fn = sphere_megakernel<kWindow, kOptK1, kThreads, 1, false>;
-  const int blocks = grid_blocks((const void*)fn, kThreads, true, p.n_pix);
+  const auto fn = sphere_megakernel<kWindow>;
+  const int blocks = grid_blocks((const void*)fn, true, p.n_pix);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   fn<<<blocks, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
@@ -713,32 +685,22 @@ sphere_megakernel_earlier(const Params p) {
 
 struct VariantFn {
   void (*fn)(const Params);
-  int block;
   bool persistent;
 };
 
 // chip_smoke.py's K1_VARIANTS names these in this order.
 const VariantFn kVariants[] = {
-    {sphere_megakernel_earlier<kCutNone>, kThreads, false},
-    {sphere_megakernel_earlier<kSimtOld>, kThreads, false},
-    {sphere_megakernel_earlier<kTwiceSphere>, kThreads, false},
-    {sphere_megakernel_earlier<kTwiceSky>, kThreads, false},
-    {sphere_megakernel_earlier<kTwiceLambert>, kThreads, false},
-    {sphere_megakernel_earlier<kTwiceScatter>, kThreads, false},
-    {sphere_megakernel_earlier<kTwiceCamera>, kThreads, false},
+    {sphere_megakernel_earlier<kCutNone>, false},
+    {sphere_megakernel_earlier<kSimtOld>, false},
+    {sphere_megakernel_earlier<kTwiceSphere>, false},
+    {sphere_megakernel_earlier<kTwiceSky>, false},
+    {sphere_megakernel_earlier<kTwiceLambert>, false},
+    {sphere_megakernel_earlier<kTwiceScatter>, false},
+    {sphere_megakernel_earlier<kTwiceCamera>, false},
     // the kernel with one pixel per thread (no work counter)
-    {sphere_megakernel<false, kOptK1 & ~kOptPersistent, kThreads, 1, false>,
-     kThreads, false},
-    // the kernel without one of its options: the fuzz direction in the
-    // metal branch; the sky and the metal branch dividing on their own
-    {sphere_megakernel<false, kOptK1 & ~kOptFuzzInDraw, kThreads, 1, false>,
-     kThreads, true},
-    {sphere_megakernel<false, kOptK1 & ~kOptMergedDiv, kThreads, 1, false>,
-     kThreads, true},
-    // a register budget for 6 blocks of 128 an SM (80 registers)
-    {sphere_megakernel<false, kOptK1, kThreads, 6, false>, kThreads, true},
+    {sphere_megakernel<false, false>, false},
     // the kernel counting its sections' SIMT efficiency
-    {sphere_megakernel<false, kOptK1, kThreads, 1, true>, kThreads, true},
+    {sphere_megakernel<false, true, true>, true},
 };
 constexpr int kEarlierVariants = 7;  // the earlier design and its cuts
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
@@ -761,8 +723,7 @@ extern "C" int sphere_megakernel_variant_launch(
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return 0;
   const VariantFn& vf = kVariants[v];
-  const int blocks = grid_blocks((const void*)vf.fn, vf.block,
-                                 vf.persistent, n_pix);
+  const int blocks = grid_blocks((const void*)vf.fn, vf.persistent, n_pix);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   // the earlier design's cuts run at its blocks an SM: unused dynamic
   // shared memory holds a cut that needs fewer registers to them
@@ -777,7 +738,7 @@ extern "C" int sphere_megakernel_variant_launch(
            own > base && smem < 48 * 1024)
       smem += 1024;
   }
-  vf.fn<<<blocks, vf.block, smem, (cudaStream_t)stream>>>(p);
+  vf.fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

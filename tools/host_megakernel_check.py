@@ -86,12 +86,9 @@ int main(int argc, char** argv) {
     case 4: run([&] { sphere_megakernel_earlier<kTwiceLambert>(p); }, 128, per); break;
     case 5: run([&] { sphere_megakernel_earlier<kTwiceScatter>(p); }, 128, per); break;
     case 6: run([&] { sphere_megakernel_earlier<kTwiceCamera>(p); }, 128, per); break;
-    case 7: run([&] { sphere_megakernel<false, kOptK1 & ~kOptPersistent, 128, 1, false>(p); }, 128, per); break;
-    case 8: run([&] { sphere_megakernel<false, kOptK1 & ~kOptFuzzInDraw, 128, 1, false>(p); }, 128, 3); break;
-    case 9: run([&] { sphere_megakernel<false, kOptK1 & ~kOptMergedDiv, 128, 1, false>(p); }, 128, 3); break;
-    case 10: run([&] { sphere_megakernel<false, kOptK1, 128, 6, false>(p); }, 128, 3); break;
-    case 11: run([&] { sphere_megakernel<false, kOptK1, 128, 1, true>(p); }, 128, 3); break;
-    case 12: run([&] { sphere_megakernel<false, kOptK1, 128, 1, false>(p); }, 128, 3); break;
+    case 7: run([&] { sphere_megakernel<false, false>(p); }, 128, per); break;
+    case 8: run([&] { sphere_megakernel<false, true, true>(p); }, 128, 3); break;
+    case 9: run([&] { sphere_megakernel<false>(p); }, 128, 3); break;
     default: return 4;
   }
   FILE* fp = fopen("out.bin", "wb");
@@ -105,8 +102,7 @@ int main(int argc, char** argv) {
 NAMES = ("earlier", "earlier_simt", "earlier_twice_sphere",
          "earlier_twice_sky", "earlier_twice_lambert",
          "earlier_twice_scatter", "earlier_twice_camera",
-         "k1_pixel_per_thread", "fuzz_in_metal_branch", "separate_divisions",
-         "regs_6_blocks", "k1_simt", "k1")
+         "k1_pixel_per_thread", "k1_simt", "k1")
 
 
 def build(work: pathlib.Path) -> pathlib.Path:
