@@ -37,14 +37,16 @@
 // chunks, then the AABB and sub-boxes of each chunk of a group the ray
 // enters, each entered before the nearer of the sphere hit and the triangle
 // hit so far (the plan orders chunks front to back from the camera).  A ray
-// that hits the ground sphere before the mesh's box tests no triangle.  At
-// 15,360 triangles (120 chunks) a ray in the mesh's box tests 15 group
-// slabs and the chunks of the groups it enters, where the earlier walk
-// tested all 120 chunk slabs (PERF.md, the walk's split).  The triangle
-// table (22 floats per triangle, 1.35 MB for 15,360 triangles) stays in L2;
-// the rays of a warp that test the same run read each column as one
-// broadcast.  Left for later work: divergence between the rays of a warp
-// that enter different runs.
+// that hits the ground sphere before the mesh's box tests no triangle.  The
+// measured split (PERF.md, chip_smoke.py phase 6f) put the time elsewhere
+// than the box slabs: in the triangle tests, whose 19 rows a test reads lie
+// in 19 lines of the (22, t_pad) table, and in lanes whose pixel has ended
+// while their warp runs on (37% of the bounce loop's lane steps).  So the
+// triangle tests read the table's triangle-major copy (five float4 from one
+// 96-byte row), and the blocks are persistent: a lane that ends its pixel
+// takes the next from a work counter, as the sphere megakernel's do.  Left
+// for later work: divergence between the rays of a warp that enter
+// different runs (the walk's slabs run at 13-31% SIMT efficiency).
 
 #include <cstdint>
 #include <cuda_runtime.h>
