@@ -787,7 +787,8 @@ def k1_split(dev, built=None, time_new: bool = True) -> dict:
         e = ms["earlier"]
         split = {f"{sec}_ms": ms[f"earlier_twice_{sec}"] - e
                  for sec in ("sphere", "sky", "lambert", "scatter", "camera")}
-        split["metal_dielectric_ms"] = split["scatter_ms"] - split["lambert_ms"]
+        split["metal_dielectric_ms"] = (split["scatter_ms"]
+                                        - split["lambert_ms"])
         split["rest_ms"] = e - sum(split[f"{sec}_ms"] for sec in
                                    ("sphere", "sky", "scatter", "camera"))
         simt = {name: simt_of(counts[name], K1_SECTIONS)

@@ -1347,7 +1347,8 @@ extern "C" int sphere_megagrad_variant_launch(
 
 // Launches the mesh variant on `stream`, as sphere_megagrad_launch, with
 // the mesh tables of the mesh megakernel (tri, cluster, sub, chunk_box,
-// boxes, group, group_end), the mesh's material type, and gtri (10 x t_pad, added to);
+// boxes, group, group_end, tri_major), the mesh's material type, and gtri
+// (10 x t_pad, added to);
 // n_spheres may be 0; rec holds n_threads * max_depth * 12 floats; counts,
 // when not null, receives the bounces replayed, the bounces walked back
 // (sphere and triangle bounces, without the sphere variant's one more per
@@ -1358,7 +1359,8 @@ extern "C" int mesh_megagrad_launch(
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
     const float* group, const int* group_end, int n_groups,
-    const float* tri_major, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* tri_major, int mesh_type, const float* g_r,
+    const float* g_g, const float* g_b,
     float* cam_part, float* gsph, float* gtri, float* rec, int n_threads,
     unsigned long long* counts, int n_pix, int pix_offset, unsigned int seed,
     unsigned int sample_base, int n_samples, int width, int height,
@@ -1449,8 +1451,8 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
   return p;
 }
 
-// Launches K6 on `stream` on the resident threads, each taking several
-// pixels, and returns cudaGetLastError().  Tables as mesh_megagrad_launch's
+// Launches K6 on `stream`, one thread per pixel, and returns
+// cudaGetLastError().  Tables as mesh_megagrad_launch's
 // (n_chunks, n_boxes and n_groups may be 0: no triangles); emit
 // (6 x n_samples x n_pix) receives each sample's miss direction and
 // throughput, emis (3 x n_pix) each pixel's non-sky sum; counts, when not
@@ -1460,7 +1462,8 @@ extern "C" int hdr_emit_launch(
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
     const float* group, const int* group_end, int n_groups,
-    const float* tri_major, int mesh_type, float* emit, float* emis, unsigned long long* counts,
+    const float* tri_major, int mesh_type, float* emit, float* emis,
+    unsigned long long* counts,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
     int flags, void* stream) {
@@ -1473,31 +1476,25 @@ extern "C" int hdr_emit_launch(
                         group_end, n_groups, tri_major, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
-  // a thread a pixel in the earlier design (the ORT_FLAT_WALK build); else
-  // the resident threads, each taking pixels tid, tid + n_threads, ..., as
-  // K5 and K7 do, so that a lane whose pixel ends starts the next instead
-  // of idling until its warp's last pixel ends
-  p.n_threads = kFlatWalk ? (n_pix + kThreads - 1) / kThreads * kThreads
-                          : resident_threads(
-                                (const void*)megagrad<true, kSkyEmit>, 0,
-                                n_pix);
-  if (p.n_threads < kThreads) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = (n_pix + kThreads - 1) / kThreads;
+  p.n_threads = blocks * kThreads;
   p.emit = emit;
   p.emis = emis;
-  megagrad<true, kSkyEmit><<<p.n_threads / kThreads, kThreads, 0,
-                             (cudaStream_t)stream>>>(p);
+  megagrad<true, kSkyEmit><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks, n_boxes and
-// n_groups may be 0: no triangles), with sky_rows (3 x n_samples x n_pix) the sky
+// n_groups may be 0: no triangles), with sky_rows (3 x n_samples x n_pix)
+// the sky
 // value of each sample that missed.
 extern "C" int hdr_consume_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
     const float* group, const int* group_end, int n_groups,
-    const float* tri_major, int mesh_type, const float* g_r, const float* g_g, const float* g_b,
+    const float* tri_major, int mesh_type, const float* g_r,
+    const float* g_g, const float* g_b,
     const float* sky_rows, float* cam_part, float* gsph, float* gtri,
     float* rec, int n_threads, unsigned long long* counts, int n_pix,
     int pix_offset, unsigned int seed, unsigned int sample_base,

@@ -78,16 +78,22 @@ int main(int argc, char** argv) {
                      0, seed, 0, width, height, spp, max_depth, t_min, flags))
     return 3;
   const int per = (n_pix + 127) / 128;
+  auto earlier = [&](auto fn) { run(fn, 128, per); };
   switch (v) {
-    case 0: run([&] { sphere_megakernel_earlier<kCutNone>(p); }, 128, per); break;
-    case 1: run([&] { sphere_megakernel_earlier<kSimtOld>(p); }, 128, per); break;
-    case 2: run([&] { sphere_megakernel_earlier<kTwiceSphere>(p); }, 128, per); break;
-    case 3: run([&] { sphere_megakernel_earlier<kTwiceSky>(p); }, 128, per); break;
-    case 4: run([&] { sphere_megakernel_earlier<kTwiceLambert>(p); }, 128, per); break;
-    case 5: run([&] { sphere_megakernel_earlier<kTwiceScatter>(p); }, 128, per); break;
-    case 6: run([&] { sphere_megakernel_earlier<kTwiceCamera>(p); }, 128, per); break;
-    case 7: run([&] { sphere_megakernel<false, false>(p); }, 128, per); break;
-    case 8: run([&] { sphere_megakernel<false, true, true>(p); }, 128, 3); break;
+    case 0: earlier([&] { sphere_megakernel_earlier<kCutNone>(p); }); break;
+    case 1: earlier([&] { sphere_megakernel_earlier<kSimtOld>(p); }); break;
+    case 2: earlier([&] { sphere_megakernel_earlier<kTwiceSphere>(p); });
+      break;
+    case 3: earlier([&] { sphere_megakernel_earlier<kTwiceSky>(p); }); break;
+    case 4: earlier([&] { sphere_megakernel_earlier<kTwiceLambert>(p); });
+      break;
+    case 5: earlier([&] { sphere_megakernel_earlier<kTwiceScatter>(p); });
+      break;
+    case 6: earlier([&] { sphere_megakernel_earlier<kTwiceCamera>(p); });
+      break;
+    case 7: earlier([&] { sphere_megakernel<false, false>(p); }); break;
+    case 8: run([&] { sphere_megakernel<false, true, true>(p); }, 128, 3);
+      break;
     case 9: run([&] { sphere_megakernel<false>(p); }, 128, 3); break;
     default: return 4;
   }
