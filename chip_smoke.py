@@ -2427,7 +2427,7 @@ def main() -> None:
         io_bytes = (cam.numel() + sph.numel() + 3 * n_pix) * 4
         bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS,
                              io_bytes / PEAK_HBM_BYTES)
-        # the bound of the sphere tests alone (PR 1 to PR 7's bound)
+        # the bound of the sphere tests alone, without the scatter's work
         tests_bound_ms = bound_of(n_bounces * n * FLOPS_PER_SPHERE_TEST,
                                   io_bytes)["bound_ms"]
         entry = dict(kernel_ms=ms, bounces=n_bounces,

@@ -103,8 +103,8 @@ int main(int argc, char** argv) {
   return 0;
 }
 '''
-# The instances the driver runs: chip_smoke.py's K1_VARIANTS, then the
-# kernel as the entry point launches it.
+# The instances the host program runs: chip_smoke.py's K1_VARIANTS, then
+# the kernel as the entry point launches it.
 NAMES = ("earlier", "earlier_simt", "earlier_twice_sphere",
          "earlier_twice_sky", "earlier_twice_lambert",
          "earlier_twice_scatter", "earlier_twice_camera",
