@@ -39,7 +39,9 @@ from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
 
 SHIM = hm.SHIM.replace(
     "static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1};",
-    "static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1}, gridDim{1};")
+    "static Dim3 threadIdx{0}, blockIdx{0}, blockDim{1}, gridDim{1};") + r'''
+inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
+'''
 # Runs instance v (chip_smoke.py's K1_VARIANTS order) over the pixels, its
 # blocks' threads one after another (a persistent instance on 3 blocks, so
 # that lanes take several pixels), and writes the (3, n_pix) planes.
