@@ -68,7 +68,20 @@ Phases, each printing JSON lines on standard output:
    both, and K2 (both bodies), K5, K6 and K7 against their earlier
    designs, medians of 5 in turns; every instance gives K2's image bit for
    bit, its bounces and its triangle tests, K6 equal records, and K5's and
-   K7's cotangents within 1e-4 of the earlier design's.
+   K7's cotangents within 1e-4 of the earlier walk's.  6g: K5's and K7's
+   split at REFERENCE_DEFAULTS with 576 and 15,360 triangles (K5 under
+   the gradient sky, K7 under the flagship's HDR sky), from the
+   measurement build ORT_K5_VARIANTS (K5_VARIANTS): the median of 5
+   CUDA-event times after a warm-up, in turns, of K5 or K7, the earlier
+   design (a pixel per thread, the megagrad template's mesh instance) and
+   its timing cuts (the replay alone, the replay with its record writes,
+   plain adds instead of the shared sphere atomics, plain adds instead of
+   the global triangle atomics) and K5's own cuts, each cut at the
+   threads and blocks an SM of the kernel it is cut from; the SIMT
+   efficiency of replay and walk back of both designs; every instance
+   that is not a cut counts K5's (K7's) bounces, triangle tests and
+   triangle bounces and agrees with it within 1e-4, and two launches of
+   K5 (K7) give equal camera cotangents.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -184,8 +197,8 @@ Phases, each printing JSON lines on standard output:
    1280x720x5/d32) in a subprocess on the card; ``read_bmp`` of its output
    equal to ``tonemap_u8(render())`` of the same scene.
 27. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
-   window-mode keys and K4's the earlier design's time, and the result
-   line.  Each of phases 12 to 16, 21 and
+   window-mode keys and K4's, K5's and K7's the earlier design's time, and
+   the result line.  Each of phases 12 to 16, 21 and
    22 to 23 prints its seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
@@ -256,7 +269,8 @@ FIT_LR = 1e-3
 # and options (K1_VARIANTS), the mesh forward with the walk's counting and
 # timing instances (K2_VARIANTS), and the mesh forward and the backward
 # with the earlier walk over every chunk (ORT_FLAT_WALK: K2, K5, K6 and K7
-# as they were before the grouped walk).
+# with the walk as it was before the grouped walk), and the backward with
+# the instances of K5's and K7's split (K5_VARIANTS).
 KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad": ("megagrad", ()),
            "megamesh": ("megamesh", ()),
@@ -266,7 +280,8 @@ KERNELS = {"megakernel": ("megakernel", ()),
            "megakernel_k1_variants": ("megakernel", ("ORT_K1_VARIANTS",)),
            "megamesh_k2_variants": ("megamesh", ("ORT_K2_VARIANTS",)),
            "megamesh_flat_walk": ("megamesh", ("ORT_FLAT_WALK",)),
-           "megagrad_flat_walk": ("megagrad", ("ORT_FLAT_WALK",))}
+           "megagrad_flat_walk": ("megagrad", ("ORT_FLAT_WALK",)),
+           "megagrad_k5_variants": ("megagrad", ("ORT_K5_VARIANTS",))}
 # The instances of K1's measurement build (csrc/megakernel.cu kVariants),
 # in order: the earlier design (a pixel per thread, each branch drawing on
 # its own), its SIMT-counting instance and its timing cuts (each runs one
@@ -310,6 +325,30 @@ K4_VARIANTS = ("earlier", "earlier_replay_only", "earlier_replay_records",
                "k4_replay_only", "k4_simt")
 K4_CUTS = ("earlier_replay_only", "earlier_replay_records",
            "earlier_no_atomics", "k4_no_atomics", "k4_replay_only")
+# The instances of the measurement build of K5 and K7 (csrc/megagrad.cu
+# kMeshVariants), in order: the earlier design (a pixel per thread, the
+# megagrad template's mesh instances), K5's then K7's, each with its timing
+# cuts (the replay alone, the replay with its record writes, plain adds
+# instead of the shared sphere atomics, plain adds instead of the global
+# triangle atomics) and its SIMT-counting instance; then the instances of
+# mesh_megagrad (K5 and K7 as launched): their SIMT counts and K5's timing
+# cuts (plain adds instead of the sphere atomics, instead of the triangle
+# atomics, the replay alone).  Each cut runs at the threads and blocks an
+# SM of the kernel it is cut from.  The cuts' results are wrong on purpose
+# (K5_CUTS); every other instance must count K5's (K7's) bounces and
+# triangle tests and agree with it within K5_AGREE.
+K5_VARIANTS = (
+    "earlier_k5", "earlier_k5_replay_only", "earlier_k5_replay_records",
+    "earlier_k5_no_atomics", "earlier_k5_no_tri_atomics", "earlier_k5_simt",
+    "earlier_k7", "earlier_k7_replay_only", "earlier_k7_replay_records",
+    "earlier_k7_no_atomics", "earlier_k7_no_tri_atomics", "earlier_k7_simt",
+    "k5_simt", "k7_simt", "k5_no_atomics", "k5_no_tri_atomics",
+    "k5_replay_only")
+K5_CUTS = tuple(v for v in K5_VARIANTS if "replay" in v or "no_" in v)
+# max|a - b| / max|b| per block (camera, sphere and triangle cotangents)
+# against K5's or K7's: the atomics add in another order from run to run
+# (the two walks' K5 and K7 agreed within 2.7e-7 of each other).
+K5_AGREE = 1e-4
 # max|a - b| / max|b| of the sphere-table and camera cotangents against
 # K4's: the earlier design adds each lane's values straight into a block's
 # shared cell, 10^5 to 10^6 terms a cell in float32, and parts from K4 by
@@ -541,6 +580,12 @@ def median_ms(fns: dict, reps: int = 5) -> dict:
             torch.cuda.synchronize()
             times[k].append(start.elapsed_time(end))
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def rel_blocks(a, b) -> float:
+    """The largest max|x - y| / max|y| over the blocks of two results."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
 
 
 def k4_variant(lib, v: int, cam, sph, n: int, cfg, sky_kind: int, flags,
@@ -942,9 +987,7 @@ def k2_split(dev, built=None, time_new: bool = True) -> dict:
                 agree[name] = bool(torch.equal(a[0], b[0])
                                    and torch.equal(a[1], b[1]))
             else:
-                agree[name] = max(float((x - y).abs().max()
-                                        / max(float(y.abs().max()), 1e-30))
-                                  for x, y in zip(a, b))
+                agree[name] = rel_blocks(a, b)
             if (counts[name] != counts[f"{name}_flat_walk"]
                     or agree[name] is False
                     or (agree[name] is not True and agree[name] > 1e-4)):
@@ -989,11 +1032,193 @@ def k2_split(dev, built=None, time_new: bool = True) -> dict:
     return out
 
 
+def k5_variant(lib, v: int, cam, sph, n: int, tab, cfg, sky_kind: int, flags,
+               g, seed: int, sky_rows=None):
+    """A launcher of instance v of K5's measurement build (K5_VARIANTS) on
+    the image cotangent g (3, n_pix), with sky_rows for K7's instances:
+    counts (7 int64) or None -> (gcam (1, 128), gsph, gtri), as
+    kernels/megagrad.py's wrappers return them; and its threads."""
+    import ctypes
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels.intersect_mm import table_args
+    from opencl_ray_tracer_tpu_torch.scene.sky import KIND_HDR
+    for name, argtypes in (
+            ("mesh_megagrad_variant_threads", [ctypes.c_int] * 4),
+            ("mesh_megagrad_variant_launch",
+             [ctypes.c_int, *mg._SYMBOLS["hdr_consume_launch"][0]])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    n_pix = g.shape[1]
+    threads = lib.mesh_megagrad_variant_threads(v, n_pix, cfg.spp, n)
+    if threads <= 0:
+        fail(f"K5 variant {K5_VARIANTS[v]}: occupancy query failed")
+    rec = torch.empty(threads * cfg.max_depth * 12, dtype=torch.float32,
+                      device=cam.device)
+    cam_part = torch.zeros((threads // 128, 22), dtype=torch.float32,
+                           device=cam.device)
+    gsph = torch.zeros_like(sph)
+    gtri = torch.zeros((10, tab.tri.shape[1]), dtype=torch.float32,
+                       device=cam.device)
+    bits = mk._flag_bits(cfg.replace(nan_policy="zero")
+                         if sky_kind == KIND_HDR else cfg, sky_kind,
+                         flags[:5])
+
+    def launch(counts=None):
+        gsph.zero_()
+        gtri.zero_()
+        rc = lib.mesh_megagrad_variant_launch(
+            v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
+            *table_args(tab), int(flags[5]), g[0].data_ptr(),
+            g[1].data_ptr(), g[2].data_ptr(),
+            sky_rows.data_ptr() if sky_rows is not None else None,
+            cam_part.data_ptr(), gsph.data_ptr(), gtri.data_ptr(),
+            rec.data_ptr(), threads,
+            counts.data_ptr() if counts is not None else None, n_pix, 0,
+            seed, 0, cfg.spp, cfg.width, cfg.height, cfg.max_depth,
+            cfg.t_min, bits, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"K5 variant {K5_VARIANTS[v]}: CUDA error {rc}")
+        gcam = torch.zeros_like(cam)
+        gcam[0, :22] = cam_part.sum(0)
+        return gcam, gsph, gtri
+
+    return launch, threads
+
+
+def k5_split(dev, built=None, time_new: bool = True) -> dict:
+    """K5's and K7's split at REFERENCE_DEFAULTS (1280x720x5/d32) with 576
+    and 15,360 triangles, K5 under the gradient sky and K7 under the
+    flagship's HDR sky: K5 or K7 as launched and every instance of the
+    measurement build of its sky (K5_VARIANTS), the median of 5 CUDA-event
+    times after a warm-up (the launch that reads the counts), in turns in
+    one process.  The earlier design's time by part (the replay, the record
+    writes, the walk back, the sphere and the triangle atomics), the SIMT
+    efficiency of replay and walk back of both designs (lane steps over
+    warp iterations x 32), each kernel's bound, and each result against
+    K5's (K7's): every instance that is not a cut counts its bounces and
+    triangle tests and agrees within K5_AGREE; two launches of K5 (K7)
+    give equal camera cotangents.  With time_new False only the earlier
+    design's instances are timed."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    lib = _build.load(*KERNELS["megagrad_k5_variants"][:1], {},
+                      KERNELS["megagrad_k5_variants"][1])
+    cfg = ot.REFERENCE_DEFAULTS
+    n_pix = cfg.width * cfg.height
+    flagship = flagship_scenes()
+    scenes = {"mesh_576": torus_scene(), "mesh_15360": torus_scene(128, 60),
+              "hdr_576": flagship["torus_576"],
+              "hdr_15360": flagship["torus_15360"]}
+    out = {}
+    for case, scene in scenes.items():
+        cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, dev)
+        kind = scene.sky.kind
+        k = "k7" if image is not None else "k5"
+        img = torch.stack(mm.render_mesh(cam, sph, n, tab, cfg, kind, flags,
+                                         0, n_pix, sky_image=image))
+        g = ((2.0 / (3 * n_pix) / cfg.spp) * img).contiguous()
+        sky_rows = None
+        if image is not None:
+            emit_, _ = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 0, n_pix)
+            sky_rows, _ = mg.hdr_lookup(image, emit_)
+            del emit_
+
+            def kernel(c=None):
+                return mg.hdr_consume(cam, sph, n, tab, cfg, flags, g[0],
+                                      g[1], g[2], sky_rows, 0, n_pix,
+                                      counts=c)
+        else:
+            def kernel(c=None):
+                return mg.render_grad_mesh_tables(
+                    cam, sph, n, tab, cfg, kind, flags, g[0], g[1], g[2], 0,
+                    n_pix, counts=c)
+        names = [v for v in K5_VARIANTS
+                 if v.startswith(f"earlier_{k}") or v.startswith(f"{k}_")]
+        fns, threads = {k.upper(): kernel}, {}
+        for name in names:
+            fns[name], threads[name] = k5_variant(
+                lib, K5_VARIANTS.index(name), cam, sph, n, tab, cfg, kind,
+                flags, g, 0, sky_rows)
+        # counts and results, one launch each, the warm-up
+        counts, results = {}, {}
+        for name, fn in fns.items():
+            c = torch.zeros(7, dtype=torch.int64, device=dev)
+            res = fn(c[:4] if name == k.upper() else c)
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            results[name] = tuple(x.clone() for x in res)
+        base = results[k.upper()]
+        repeat = fns[k.upper()]()
+        torch.cuda.synchronize()
+        if not torch.equal(repeat[0], base[0]):
+            fail(f"K5 split {case}: two launches of {k.upper()} give other "
+                 "camera cotangents")
+        agree = {}
+        for name in names:
+            if name in K5_CUTS:
+                continue
+            agree[name] = rel_blocks(results[name], base)
+            if (counts[name][:4] != counts[k.upper()][:4]
+                    or agree[name] >= K5_AGREE):
+                fail(f"K5 split {case}: {name} disagrees with {k.upper()}: "
+                     f"{agree[name]}, counts {counts[name][:4]} against "
+                     f"{counts[k.upper()][:4]}")
+        ms = median_ms({key: f for key, f in fns.items()
+                        if not key.endswith("simt")
+                        and (time_new or key.startswith("earlier"))})
+        e = f"earlier_{k}"
+        split = {"replay_ms": ms[f"{e}_replay_only"],
+                 "records_ms": ms[f"{e}_replay_records"]
+                 - ms[f"{e}_replay_only"],
+                 "walk_back_ms": ms[e] - ms[f"{e}_replay_records"],
+                 "sphere_atomics_ms": ms[e] - ms[f"{e}_no_atomics"],
+                 "tri_atomics_ms": ms[e] - ms[f"{e}_no_tri_atomics"]}
+        if time_new:
+            split["speedup"] = ms[e] / ms[k.upper()]
+            if k == "k5":
+                split.update(
+                    new_replay_ms=ms["k5_replay_only"],
+                    new_sphere_atomics_ms=ms["K5"] - ms["k5_no_atomics"],
+                    new_tri_atomics_ms=ms["K5"] - ms["k5_no_tri_atomics"])
+        simt = {}
+        for name in (f"{e}_simt", f"{k}_simt"):
+            c = counts[name]
+            simt[name] = {"replay": c[0] / (32 * c[4]) if c[4] else None,
+                          "walk_back": c[5] / (32 * c[6]) if c[6] else None,
+                          "replay_warp_iterations": c[4],
+                          "walk_back_lane_steps": c[5],
+                          "walk_back_warp_iterations": c[6]}
+        replay, reverse, tests, reverse_tri = counts[k.upper()][:4]
+        flops = (replay * n * FLOPS_PER_SPHERE_TEST
+                 + tests * FLOPS_PER_TRI_TEST
+                 + (reverse - reverse_tri) * FLOPS_PER_REVERSE_BOUNCE
+                 + reverse_tri * FLOPS_PER_TRI_REVERSE_BOUNCE)
+        io_bytes = ((2 * (cam.numel() + sph.numel()) + 3 * n_pix
+                     + 10 * tab.tri.shape[1]
+                     + (sky_rows.numel() if sky_rows is not None else 0)) * 4
+                    + walk_table_bytes(tab))
+        bound = bound_of(flops, io_bytes)
+        if time_new:
+            bound["share_of_bound"] = bound["bound_ms"] / ms[k.upper()]
+        out[case] = dict(ms=ms, split=split, simt=simt, bound=bound,
+                         agree=agree, threads=threads)
+        emit({"phase": "k5_split", "case": case, "size": "1280x720x5/d32",
+              **out[case], "counts": counts,
+              "ptxas": [ln for ln in ptxas_of(built, "megagrad")
+                        if "mesh_megagrad" in ln]
+              + ptxas_of(built, "megagrad_k5_variants")})
+        del results, base, repeat, sky_rows
+    return out
+
+
 def split_only(*splits, time_new: bool = True) -> None:
-    """The device line, the build and the splits alone (K1's, K2's walk
-    and K4's, or those named: "k1", "k2", "k4"), with time_new False
-    timing only the earlier designs:
-    python3 -c 'import chip_smoke; chip_smoke.split_only()'."""
+    """The device line, the build and the splits alone (K1's, K2's walk,
+    K4's and K5's and K7's, or those named: "k1", "k2", "k4", "k5"), with
+    time_new False timing only the earlier designs:
+    python3 -c 'import chip_smoke; chip_smoke.split_only("k5")'."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -1008,10 +1233,11 @@ def split_only(*splits, time_new: bool = True) -> None:
                              "ptxas": ptxas}
                       for name, (lib, secs, ptxas) in built.items()}})
     dev = torch.device("cuda")
-    for name in splits or ("k1", "k2", "k4"):
+    for name in splits or ("k1", "k2", "k4", "k5"):
         {"k1": lambda: k1_split(dev, built, time_new),
          "k2": lambda: k2_split(dev, built, time_new),
-         "k4": lambda: k4_split(dev)}[name]()
+         "k4": lambda: k4_split(dev),
+         "k5": lambda: k5_split(dev, built, time_new)}[name]()
 
 
 def mesh_phases(dev) -> tuple:
@@ -2684,6 +2910,10 @@ def main() -> None:
     # and K2, K5, K6 and K7 with each walk ----
     k2s = k2_split(dev, built)
 
+    # ---- 6g. K5's and K7's split: the earlier design's time by part, K5
+    # and K7 against it, the SIMT efficiencies ----
+    k5s = k5_split(dev, built)
+
     # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
     true = ot.readme_scene(16 / 9)
     target = ot.render(true, bench, seed=0)
@@ -2791,6 +3021,16 @@ def main() -> None:
             entry["median_ms"] = {c: k2s[c]["ms"][k] for c in cases}
             entry["earlier_walk_median_ms"] = {
                 c: k2s[c]["ms"][f"{k}_flat_walk"] for c in cases}
+    # K5 and K7 beside their earlier design (a pixel per thread), phase 6g
+    for entry in kernels:
+        k = {"mesh_megagrad": "k5", "hdr_consume": "k7"}.get(entry["name"])
+        if k is not None:
+            cases = [c for c in k5s if c.startswith(
+                "mesh" if k == "k5" else "hdr")]
+            entry["redesign_median_ms"] = {
+                c: k5s[c]["ms"][k.upper()] for c in cases}
+            entry["earlier_design_median_ms"] = {
+                c: k5s[c]["ms"][f"earlier_{k}"] for c in cases}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

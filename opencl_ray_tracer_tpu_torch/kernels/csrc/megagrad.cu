@@ -4,27 +4,34 @@
 //
 // - sphere_megagrad (K4): sphere scenes (mesh=None, hdr_mode=None), a
 //   kernel of its own with a flat loop per lane over work items (see the
-//   note above it).  The next three are instances of one body, the
-//   megagrad template, one thread per pixel:
-// - mesh_megagrad (K5): spheres and one uniform-material triangle mesh in
-//   gating boxes (mesh=(n_chunks, chunk, chunk_box_ids, n_boxes, m_type),
-//   through _grad_tables_mesh_inner and its ladder).
+//   note above it).
+// - mesh_megagrad<kSkyComputed> (K5): spheres and one uniform-material
+//   triangle mesh in gating boxes (mesh=(n_chunks, chunk, chunk_box_ids,
+//   n_boxes, m_type), through _grad_tables_mesh_inner and its ladder), a
+//   kernel of its own with K4's flat loop (see the note above it).
 // - hdr_emit (K6): the HDR backward's first pass (hdr_mode="emit", through
 //   _hdr_emit_window and its ladder), on the scenes of the mesh megakernel's
-//   HDR scope, with or without triangles: the mesh instance's replay alone,
-//   which writes each sample's miss direction and throughput ((0, 0, 1) and
-//   0 for a sample that did not miss) and each pixel's sum of the sample
-//   contributions that are not sky (emitters, clamped, NaN as 0).  The
-//   caller looks the texels up and rebuilds the image from these; the
-//   lookup stays a torch op, as it stays an XLA op in the JAX package,
-//   since the image's cotangent is a scatter over the same texels.
-// - hdr_consume (K7): the second pass (hdr_mode="consume", through
-//   _hdr_consume_window and its ladder): K5 with each miss's sky value read
-//   from the caller's (3, n_samples, n_pix) rows instead of computed.  The
-//   nearest-texel lookup is constant in the direction, so a miss seeds the
-//   throughput's adjoint alone.  K6 and K7 replay with the same code, so
-//   their directions agree bit for bit.  A scene without triangles runs the
-//   mesh instance with no chunk and no gating box: no triangle is tested.
+//   HDR scope, with or without triangles: the megagrad template's mesh
+//   replay alone (one thread per pixel), which writes each sample's miss
+//   direction and throughput ((0, 0, 1) and 0 for a sample that did not
+//   miss) and each pixel's sum of the sample contributions that are not sky
+//   (emitters, clamped, NaN as 0).  The caller looks the texels up and
+//   rebuilds the image from these; the lookup stays a torch op, as it
+//   stays an XLA op in the JAX package, since the image's cotangent is a
+//   scatter over the same texels.
+// - mesh_megagrad<kSkyConsume> (K7): the second pass (hdr_mode="consume",
+//   through _hdr_consume_window and its ladder): K5 with each miss's sky
+//   value read from the caller's (3, n_samples, n_pix) rows instead of
+//   computed.  The nearest-texel lookup is constant in the direction, so a
+//   miss seeds the throughput's adjoint alone.  K6 and K7 replay with the
+//   same device code, so their directions agree bit for bit.  A scene
+//   without triangles runs with no chunk and no gating box: no triangle is
+//   tested.
+//
+// The megagrad template, one thread per pixel, is also the earlier design
+// of K4, K5 and K7, which the measurement builds (ORT_K4_VARIANTS,
+// ORT_K5_VARIANTS) keep beside their timing cuts for chip_smoke.py's
+// splits; no entry point launches it but as K6.
 //
 // The Pallas TPU kernels replay paths into a VMEM record ring and walk it
 // back with adjoints that jax.vjp derived at trace time.  Here the adjoints
@@ -50,16 +57,18 @@
 // are the triangles' own.  The chain to the scene's radius, camera and
 // vertices happens outside, in kernels/megagrad.py.
 //
-// Design, per pixel and sample (K4 takes the same steps in its flat loop):
+// Design, per pixel sample (K4, K5 and K7 take these steps in a flat loop
+// per lane, the megagrad template in a loop per pixel):
 // 1. Forward replay with the forward kernels' own device code (common.cuh,
 //    and mesh.cuh's culled triangle hit for the mesh), so every discrete
 //    decision is the forward's, but for the fuzz radius, which follows the
 //    plain version (see common.cuh).  Each bounce that goes on stores its
 //    state (origin, direction, throughput, winner code: a sphere index, or
-//    n_spheres for a triangle; the mesh variant adds the hit t and the
-//    triangle's plan-order id) in a global scratch buffer, one column per
-//    thread of the grid, so neighbouring threads write neighbouring words
-//    (K4: three float4 per bounce, a thread's record in two sectors).
+//    n_spheres for a triangle; the mesh kernels add the hit t and the
+//    triangle's plan-order id) in a global scratch buffer: K4, K5 and K7
+//    three float4 at (depth * n_threads + thread), so a lane's record is
+//    two sectors whatever depth its neighbours are at; the megagrad
+//    template one column per thread.
 // 2. A sample that ends black (absorbed, or out of depth) contributes
 //    nothing and is skipped.  A miss or an emissive hit seeds the adjoint of
 //    the throughput (and of the direction, through the gradient sky).
@@ -71,18 +80,19 @@
 //    t_plane = (c - n.o) / (n.d), the interior derivative of
 //    Moller-Trumbore for a fixed triangle; its shading normal is
 //    n / max(|n|, 1e-20).
-// 4. Sphere cotangents are summed in shared memory per block (shared-memory
-//    atomics; K4 first sums a bounce's over the lanes of the warp that hit
-//    the same sphere) and flushed with one global atomicAdd per entry and
-//    block;
-//    triangle cotangents go to gtri with one global atomicAdd per entry and
-//    bounce.  The order of those float sums varies from run to run.  Camera
-//    cotangents are summed per thread (K4: in shared memory, a column per
-//    thread), then over the block in a fixed order, and each block writes
-//    its row of sums
-//    (cam_part), which the wrapper adds up: they come out the same in every
-//    run.  That matters where they cancel: a pinhole camera's focus-distance
-//    gradient is exactly zero, and what is left of it is rounding.
+// 4. Sphere cotangents are summed in shared memory per block (K4, K5 and
+//    K7 first sum a bounce's over the lanes of the warp that hit the same
+//    sphere, add_rows_aggregated; the megagrad template adds each lane's
+//    with a shared atomic) and flushed with one global atomicAdd per entry
+//    and block; triangle cotangents go to gtri with one global atomicAdd
+//    per row and bounce.  The order of those float sums varies from run to
+//    run.  Camera cotangents are summed per thread in the order of its
+//    items (K4, K5, K7: in shared memory, a column per thread), then over
+//    the block in a fixed order, and each block writes its row of sums
+//    (cam_part), which the wrapper adds up: they come out the same in
+//    every run.  That matters where they cancel: a pinhole camera's
+//    focus-distance gradient is exactly zero, and what is left of it is
+//    rounding.
 //
 // What bounds it: FP32 work, as the forward: the replay tests every sphere
 // at every bounce (17 FLOPs a test, 4 to 6 more for a hit) and the
@@ -90,17 +100,16 @@
 // 132 FLOPs for a Lambertian sphere bounce, 89 for a Lambertian triangle
 // bounce and 72 more for a fuzzy-metal one (counted operation by
 // operation in chip_smoke.py).  Device memory carries the tables, the
-// cotangent planes and the records (40 bytes a bounce, 48 in K4 and the
-// mesh variant, written once and read once, mostly from L2).  What held
-// the sphere backward back, measured by chip_smoke.py's split of the
-// earlier one-thread-per-pixel K4 (the megagrad template's sphere
-// instance, kept for that measurement): the shared-memory atomics (half
-// its time: a warp's lanes hit the same sphere), and the replay and walk
-// back each waiting for the warp's deepest lane (23% of lanes busy in the
-// replay); the records cost little.  K4's flat loop and its aggregated
-// atomics answer both.  Left for later work in K5 to K7: the same waits
-// and atomics, and the global atomics of the triangle cotangents (a block
-// could stage them in shared memory where the mesh is small enough).
+// cotangent planes and the records (48 bytes a bounce, written once and
+// read once, mostly from L2).  What held the earlier one-pixel-per-thread
+// design back, measured by chip_smoke.py's splits (PERF.md): the replay
+// and the walk back each waiting for the warp's deepest lane (29% of
+// lanes busy in the mesh replay, 23% in the sphere one), and
+// the shared-memory atomics of the sphere cotangents (half of K4's time, a
+// seventh of K5's at 576 triangles); the records and the triangle atomics
+// cost little.  The flat loop and the aggregated atomics answer both; the
+// walk back's own SIMT efficiency falls under the flat loop (48% -> 28%
+// in K5 and K7), which the replay's gain outweighs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -223,11 +232,11 @@ struct LaneSink {
   __device__ __forceinline__ void add(int, float x) { sum += x; }
 };
 
-// Material cotangents of a triangle, in registers until the bounce ends.
+// Material cotangents of a triangle, into its gtri rows (gt, kGtriRows).
 struct TriSink {
-  float g[kGtriRows - GT_MAT];
+  float* g;
   __device__ __forceinline__ void add(int row, float v) {
-    g[row - G_ALR] += v;
+    g[GT_MAT + row - G_ALR] += v;
   }
 };
 
@@ -439,13 +448,13 @@ __device__ __forceinline__ void bounce_adjoint(
 // triangle j (plan order) at t_rec, as bounce_adjoint for a sphere.  The
 // triangle's raw normal n and plane constant c = -(t bias) come from the
 // triangle table; the hit's t is differentiated as the ray-plane
-// intersection's.  The cotangents of n, c and the triangle's material go to
-// column j of gtri (rows of t_pad).
+// intersection's.  The cotangents of n, c and the triangle's material (the
+// rows of column j of gtri) are returned in rows.
 __device__ __forceinline__ void tri_adjoint(
-    const MeshTables& mt, const float* cam, int mesh_type, float* gtri,
-    int flags, uint32_t seed, uint32_t pix, uint32_t sid, int depth,
-    const float o[3], const float d[3], const float T[3], int j, float t_rec,
-    float go[3], float gd[3], float gT[3]) {
+    const MeshTables& mt, const float* cam, int mesh_type, int flags,
+    uint32_t seed, uint32_t pix, uint32_t sid, int depth, const float o[3],
+    const float d[3], const float T[3], int j, float t_rec, float go[3],
+    float gd[3], float gT[3], float (&rows)[kGtriRows]) {
   const int tp = mt.t_pad;
   const float a = dot3(d, d);
   float n[3], unit[3], nrm[3];
@@ -464,7 +473,8 @@ __device__ __forceinline__ void tri_adjoint(
                  cam[C_MA + 4], cam[C_MA + 5]};
 
   // ---- throughput and direction ----
-  TriSink sink{{0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+  for (int r = 0; r < kGtriRows; ++r) rows[r] = 0.f;
+  TriSink sink{rows};
   float gn[3], gdd[3];
   scatter_adjoint(m, sink, flags, seed, pix, sid, depth, d, a, nrm, front, T,
                   gd, gT, gn, gdd);
@@ -492,23 +502,32 @@ __device__ __forceinline__ void tri_adjoint(
     gdd[k] += gnd * n[k];
     gd[k] = gdd[k];
   }
-  atomicAdd(&gtri[(GT_N + 0) * tp + j], gnr[0]);
-  atomicAdd(&gtri[(GT_N + 1) * tp + j], gnr[1]);
-  atomicAdd(&gtri[(GT_N + 2) * tp + j], gnr[2]);
-  atomicAdd(&gtri[GT_C * tp + j], gq);
-  for (int r = 0; r < kGtriRows - GT_MAT; ++r)
-    if (sink.g[r] != 0.f) atomicAdd(&gtri[(GT_MAT + r) * tp + j], sink.g[r]);
+  for (int k = 0; k < 3; ++k) rows[GT_N + k] = gnr[k];
+  rows[GT_C] = gq;
 }
 
-// Timing-only cuts of the earlier design's sphere instance, which
-// chip_smoke.py's split of K4's time launches (the measurement build,
-// ORT_K4_VARIANTS; no entry point launches them): the replay alone (no
-// record written, no walk back), the replay with its record writes, the
-// whole kernel with plain adds into a lane-private sum instead of the
-// shared atomics (its results are wrong on purpose), and the whole kernel
-// counting its SIMT efficiency (counts[2..4]: the warp iterations of the
-// replay, the lane steps of the walk back and its warp iterations).
-enum Cut { kCutNone, kCutReplay, kCutRecords, kCutAtomics, kCutSimt };
+// Adds one bounce's triangle cotangents gt to column j of gtri (rows of
+// tp), one global atomic per row (the material rows when nonzero).
+__device__ __forceinline__ void add_tri_rows(float* gtri, int tp, int j,
+                                             const float (&gt)[kGtriRows]) {
+  for (int r = 0; r < kGtriRows; ++r)
+    if (r < GT_MAT || gt[r] != 0.f) atomicAdd(&gtri[r * tp + j], gt[r]);
+}
+
+// Timing-only cuts of the earlier design, which chip_smoke.py's splits of
+// K4's and of K5's and K7's time launch (the measurement builds
+// ORT_K4_VARIANTS and ORT_K5_VARIANTS; no entry point launches them): the
+// replay alone (no record written, no walk back), the replay with its
+// record writes, the whole kernel with plain adds into a lane-private sum
+// instead of the shared atomics of the sphere cotangents, or (the mesh
+// variant) instead of the global atomics of the triangle cotangents (the
+// results of both are wrong on purpose), and the whole kernel counting its
+// SIMT efficiency (counts[2..4], the mesh variant's counts[4..6]: the warp
+// iterations of the replay, the lane steps of the walk back and its warp
+// iterations).
+enum Cut {
+  kCutNone, kCutReplay, kCutRecords, kCutAtomics, kCutTriAtomics, kCutSimt
+};
 
 template <bool kMesh, int kSky, int kCut = kCutNone>
 __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
@@ -701,9 +720,13 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
       for (int k = 0; k < 3; ++k) gT[k] = gcv[k] * src[k];
       if (ending == END_EMIT) {
         if (win_tri) {
-          for (int k = 0; k < 3; ++k)
-            atomicAdd(&p.gtri[(GT_MAT + k) * p.mt.t_pad + win],
-                      gcv[k] * T[k]);
+          for (int k = 0; k < 3; ++k) {
+            if constexpr (kCut == kCutTriAtomics)
+              lane_sink.add(0, gcv[k] * T[k]);
+            else
+              atomicAdd(&p.gtri[(GT_MAT + k) * p.mt.t_pad + win],
+                        gcv[k] * T[k]);
+          }
         } else {
           for (int k = 0; k < 3; ++k) {
             if constexpr (kCut == kCutAtomics)
@@ -743,9 +766,15 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         if constexpr (kMesh) {
           if (code == n) {
             ++n_reverse_tri;
-            tri_adjoint(p.mt, s_cam, p.mesh_type, p.gtri, flags, p.seed, pix,
-                        sid, k, ok, dk, tk, (int)r[R_TID * rs], r[R_T * rs],
-                        go, gd, gT);
+            const int j = (int)r[R_TID * rs];
+            float gt[kGtriRows];
+            tri_adjoint(p.mt, s_cam, p.mesh_type, flags, p.seed, pix, sid, k,
+                        ok, dk, tk, j, r[R_T * rs], go, gd, gT, gt);
+            if constexpr (kCut == kCutTriAtomics) {
+              for (int q = 0; q < kGtriRows; ++q) lane_sink.add(0, gt[q]);
+            } else {
+              add_tri_rows(p.gtri, p.mt.t_pad, j, gt);
+            }
             continue;
           }
         }
@@ -804,13 +833,14 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         atomicAdd(&p.counts[1], (unsigned long long)w1);
       }
       if constexpr (kCut == kCutSimt) {
+        constexpr int c0 = kMesh ? 4 : 2;
         const unsigned int w2 = __reduce_add_sync(0xffffffffu, w_replay);
         const unsigned int w3 = __reduce_add_sync(0xffffffffu, n_back);
         const unsigned int w4 = __reduce_add_sync(0xffffffffu, w_back);
         if ((threadIdx.x & 31) == 0) {
-          atomicAdd(&p.counts[2], (unsigned long long)w2);
-          atomicAdd(&p.counts[3], (unsigned long long)w3);
-          atomicAdd(&p.counts[4], (unsigned long long)w4);
+          atomicAdd(&p.counts[c0], (unsigned long long)w2);
+          atomicAdd(&p.counts[c0 + 1], (unsigned long long)w3);
+          atomicAdd(&p.counts[c0 + 2], (unsigned long long)w4);
         }
       }
       if constexpr (kMesh) {
@@ -1182,11 +1212,388 @@ __global__ void __launch_bounds__(kThreads, 6)
   }
 }
 
-// Threads to launch for n_work items (pixels, or K4's pixel samples) of
-// `kernel` with `smem` bytes of dynamic shared memory on the current
-// device: at most as many as can be resident at once, so that the record
-// buffer (n_threads * max_depth * record floats) stays small; -1 when the
-// query fails.
+// ---- K5 and K7: the mesh backward, one flat loop per lane ----
+//
+// K4's schedule with the mesh's replay and the triangle bounces: each lane
+// takes work items (pixel, sample) from K4's static map (item i = sample *
+// n_pix + pixel; thread t takes t, t + n_threads, ...), so that
+// neighbouring lanes hold neighbouring pixels of one sample and K7's reads
+// of sky_rows are neighbouring words, and runs one flat loop over (item,
+// phase, bounce): each iteration steps every live lane by one replay
+// bounce or one bounce walked back.  The replay is the forward's device
+// code (closest_sphere, mesh.cuh's closest_triangle, scatter_material,
+// camera_ray), the same as K6's, so K7 takes K6's discrete decisions bit
+// for bit.  Records are three float4 at (depth * n_threads + thread): the
+// origin, direction, throughput, winner code, hit t and plan-order
+// triangle id.  A sphere bounce walked back sums its cotangents over the
+// warp's lanes that hit the same sphere before the shared atomic
+// (add_rows_aggregated); a triangle bounce adds its cotangents to gtri
+// with a global atomic per row, as the earlier design did (summing them
+// over the lanes that hit the same triangle first was 2-3% slower: they
+// are few, and the neighbours' triangles differ).  Camera cotangents as
+// K4's: each thread's in the order of its items, in its shared column,
+// then the columns in order into the block's row of cam_part.  What the
+// measurements chose (chip_smoke.py phase 6g, PERF.md): the flat
+// loop halves the replay's warp iterations (its SIMT efficiency 29% ->
+// 52%), which is most of K5 and K7 at 15,360 triangles, and 7 blocks an
+// SM hide the walk's dependent loads (1.5x faster than 5 spill-free
+// blocks); a walk back run to the camera in the iteration its sample's
+// replay ends, the triangle-major table in the replay, and 5, 6 or 8
+// blocks an SM were slower.
+//
+// Timing-only instances (kTime bits), which only chip_smoke.py's split of
+// K5's and K7's time launches (the measurement build ORT_K5_VARIANTS): the
+// sphere atomics, or the triangle atomics, as plain adds into a
+// lane-private sum (wrong on purpose), the replay alone, and the SIMT
+// counts (counts[4..6], as the earlier design's).
+enum MeshTime { kTimeNoTriAtomics = 8 };
+// The blocks an SM the register budget is set for: 72 registers, 82 and
+// 92 bytes spilled (K7, K5), faster than the 88 spill-free registers of 5
+// blocks an SM (PERF.md).
+constexpr int kMeshBlocks = 7;
+
+// Dynamic shared memory of K5 and K7 for n spheres: K4's, with the mesh
+// camera table's slots.
+static size_t k5_smem_bytes(int n) {
+  return sizeof(float) * ((size_t)(kFields + kGradRows) * n + kMeshCamSlots +
+                          (size_t)kCamSlots * kThreads);
+}
+
+template <int kSky, int kTime = 0, int kMinBlocks = kMeshBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    mesh_megagrad(const Params p) {
+  constexpr bool kNoAtomics = (kTime & kTimeNoAtomics) != 0;
+  constexpr bool kNoTriAtomics = (kTime & kTimeNoTriAtomics) != 0;
+  constexpr bool kReplayOnly = (kTime & kTimeReplay) != 0;
+  constexpr bool kSimt = (kTime & kTimeSimt) != 0;
+  extern __shared__ float smem[];
+  const int n = p.n_spheres;
+  float* const s_sph = smem;                    // kFields rows of n
+  float* const s_acc = s_sph + kFields * n;     // kGradRows rows of n
+  float* const s_cam = s_acc + kGradRows * n;   // kMeshCamSlots
+  float* const s_gcam = s_cam + kMeshCamSlots;  // kCamSlots rows of kThreads
+  for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
+    s_sph[k] = p.sph[(k / n) * p.tab_w + k % n];
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
+    s_acc[k] = 0.f;
+  for (int k = threadIdx.x; k < kMeshCamSlots; k += blockDim.x)
+    s_cam[k] = p.cam[k];
+  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
+    s_gcam[k] = 0.f;
+  __syncthreads();
+  // this thread's camera cotangents: slot k at gcam[k * kThreads]
+  float* const gcam = s_gcam + threadIdx.x;
+
+  const int flags = p.flags;
+  const bool lens = (flags & HAS_APERTURE) && s_cam[C_APERTURE] > 0.f;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int nt = p.n_threads;
+  const int tp = p.mt.t_pad;
+  unsigned int n_replay = 0, n_reverse = 0, n_tests = 0, n_reverse_tri = 0;
+  unsigned int w_replay = 0, n_back = 0, w_back = 0;  // kTimeSimt
+  LaneSink lane_sink{0.f};                           // the timing cuts' sink
+
+  // the lane's item (sample s_item, pixel local), as K4's, and state: the
+  // ray (o, d) and throughput T of the replay, or the record being walked
+  // back and the adjoints (go, gd, gT); depth counts the records
+  const int step_s = nt / p.n_pix, step_pix = nt % p.n_pix;
+  int s_item = tid / p.n_pix, local = tid % p.n_pix, depth = 0;
+  bool back = false;
+  float o[3], d[3], T[3], go[3], gd[3], gT[3];
+  for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
+
+  auto advance = [&]() {
+    s_item += step_s;
+    local += step_pix;
+    if (local >= p.n_pix) {
+      local -= p.n_pix;
+      ++s_item;
+    }
+  };
+  // Takes the item at (s_item, local), or the first after it whose pixel
+  // has a nonzero cotangent, and casts its camera ray; false when none is
+  // left.
+  auto next_item = [&]() -> bool {
+    for (; s_item < p.n_samples; advance()) {
+      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
+        continue;
+      const int lin = p.pix_offset + local;
+      const uint32_t pix = (uint32_t)lin,
+                     sid = p.sample_base + (uint32_t)s_item;
+      camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
+                 (float)(lin % p.width), (float)(lin / p.width), o, d);
+      for (int k = 0; k < 3; ++k) T[k] = 1.f;
+      depth = 0;
+      back = false;
+      return true;
+    }
+    return false;
+  };
+  // The adjoint of the camera ray into the thread's camera cotangents.
+  auto camera_adjoint = [&]() {
+    const int lin = p.pix_offset + local;
+    const uint32_t pix = (uint32_t)lin,
+                   sid = p.sample_base + (uint32_t)s_item;
+    float o0[3], d0[3];
+    const CamDraw cd =
+        camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
+                   (float)(lin % p.width), (float)(lin / p.width), o0, d0);
+    for (int k = 0; k < 3; ++k) {
+      const float gok = go[k] - gd[k];
+      gcam[(C_L + k) * kThreads] += gd[k];
+      gcam[(C_H + k) * kThreads] += cd.uu * gd[k];
+      gcam[(C_V + k) * kThreads] += cd.vv * gd[k];
+      gcam[(C_O + k) * kThreads] += gok;
+      if (lens) {
+        gcam[(C_DU + k) * kThreads] += cd.lx * gok;
+        gcam[(C_DV + k) * kThreads] += cd.ly * gok;
+      }
+    }
+  };
+  auto rec_at = [&](int k) -> float4* {
+    return reinterpret_cast<float4*>(p.rec +
+                                      ((size_t)k * nt + tid) * kRecAoS);
+  };
+  bool live = next_item();
+  while (__any_sync(kFullMask, live)) {
+    const bool replay = live && !back;
+    const bool reverse = live && back;
+    if constexpr (kSimt) {
+      const unsigned rep_lanes = __ballot_sync(kFullMask, replay);
+      const unsigned rev_lanes = __ballot_sync(kFullMask, reverse);
+      if (lane == 0) {
+        w_replay += rep_lanes != 0u;
+        w_back += rev_lanes != 0u;
+      }
+    }
+    bool done = false;       // the item ends in this iteration
+    bool at_camera = false;  // its walk back reaches the camera
+    const uint32_t pix = (uint32_t)(p.pix_offset + local),
+                   sid = p.sample_base + (uint32_t)s_item;
+
+    if (replay) {
+      // ---- one bounce of the replay (the forward's device code) ----
+      ++n_replay;
+      const float a = dot3(d, d);
+      float best_t;
+      int bi;
+      closest_sphere(s_sph, n, n, o, d, a, p.t_min, best_t, bi);
+      float tri_t = kBig;
+      int ti = 0;
+      closest_triangle(p.mt, o, d, p.t_min, best_t, tri_t, ti, n_tests);
+      const bool tri_win = tri_t < best_t;
+      if (tri_win) best_t = tri_t;
+      int ending = END_BLACK;
+      if (!(best_t < kBig)) {
+        ending = END_MISS;
+      } else {
+        float h[3], nrm[3];
+        for (int k = 0; k < 3; ++k) h[k] = fmaf(best_t, d[k], o[k]);
+        if (tri_win) {
+          for (int k = 0; k < 3; ++k)
+            nrm[k] = __ldg(p.mt.tri + (T_N + k) * tp + ti);
+        } else {
+          for (int k = 0; k < 3; ++k)
+            nrm[k] =
+                (h[k] - s_sph[(F_CX + k) * n + bi]) / s_sph[F_R * n + bi];
+        }
+        const bool front = dot3(d, nrm) < 0.f;
+        if (!front)
+          for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
+        const HitMaterial mat = tri_win ? mesh_material(s_cam, p.mesh_type)
+                                        : sphere_material(s_sph, n, bi);
+        const Scatter sc = scatter_material(mat, flags, p.seed, pix, sid,
+                                            depth, d, a, nrm, front);
+        if (sc.emitted) {
+          ending = END_EMIT;
+        } else if (sc.absorbed || depth + 1 >= p.max_depth) {
+          done = true;  // black
+        } else {
+          if constexpr (!kReplayOnly) {
+            float4* r4 = rec_at(depth);
+            r4[0] = make_float4(o[0], o[1], o[2], d[0]);
+            r4[1] = make_float4(d[1], d[2], T[0], T[1]);
+            r4[2] = make_float4(T[2], (float)(tri_win ? n : bi), best_t,
+                                (float)ti);
+          }
+          for (int k = 0; k < 3; ++k) {
+            o[k] = h[k];
+            d[k] = sc.dir[k];
+            T[k] = T[k] * sc.att[k];
+          }
+          ++depth;
+        }
+      }
+      if (ending != END_BLACK && kReplayOnly) {
+        lane_sink.add(0, T[0] + d[0]);
+        done = true;
+      } else if (ending != END_BLACK) {
+        // ---- the seed: c = T * src, clamped, NaN -> 0 ----
+        const float g[3] = {p.g_r[local], p.g_g[local], p.g_b[local]};
+        float src[3];
+        if (ending == END_MISS) {
+          if constexpr (kSky == kSkyConsume) {
+            // the sky value K6's lookup gave this sample
+            for (int k = 0; k < 3; ++k)
+              src[k] = p.sky_rows[((size_t)k * p.n_samples + s_item) *
+                                      p.n_pix + local];
+          } else {
+            sky_colour(s_cam, flags, d, dot3(d, d), src);
+          }
+        } else if (tri_win) {
+          for (int k = 0; k < 3; ++k) src[k] = s_cam[C_MA + k];
+        } else {
+          for (int k = 0; k < 3; ++k) src[k] = s_sph[(F_ALR + k) * n + bi];
+        }
+        float gcv[3];
+        bool any = false;
+        for (int k = 0; k < 3; ++k) {
+          const float cv = T[k] * src[k];
+          const float cg = (flags & CLAMP) ? clamp01_grad(cv) : 1.f;
+          gcv[k] = isnan(cv) ? 0.f : g[k] * cg;
+          any = any || gcv[k] != 0.f;
+        }
+        if (!any) {
+          done = true;
+        } else {
+          // the bounces walked back, without the seed
+          n_reverse += (unsigned int)depth;
+          for (int k = 0; k < 3; ++k) {
+            go[k] = 0.f;
+            gd[k] = 0.f;
+            gT[k] = gcv[k] * src[k];
+          }
+          if (ending == END_EMIT) {
+            for (int k = 0; k < 3; ++k) {
+              const float v = gcv[k] * T[k];
+              if (tri_win) {
+                if constexpr (kNoTriAtomics)
+                  lane_sink.add(0, v);
+                else
+                  atomicAdd(&p.gtri[(GT_MAT + k) * tp + ti], v);
+              } else {
+                if constexpr (kNoAtomics)
+                  lane_sink.add(0, v);
+                else
+                  atomicAdd(&s_acc[(G_ALR + k) * n + bi], v);
+              }
+            }
+          } else if constexpr (kSky == kSkyConsume) {
+            // a constant sky value: no adjoint of the direction (the
+            // texel's cotangent is the caller's)
+          } else if (flags & SKY_CONST) {
+            for (int k = 0; k < 3; ++k)
+              gcam[(C_SKY + k) * kThreads] += gcv[k] * T[k];
+          } else {
+            // sky = (1 - t) + t blue, t = (d_y / |d| + 1) / 2
+            const float a2 = dot3(d, d);
+            const float len = sqrtf(a2);
+            const float gtk = gcv[0] * T[0] * (0.5f - 1.f) +
+                              gcv[1] * T[1] * (0.7f - 1.f);
+            const float gy = 0.5f * gtk;
+            for (int k = 0; k < 3; ++k)
+              gd[k] = gy * ((k == 1 ? 1.f : 0.f) - d[1] * d[k] / a2) / len;
+          }
+          back = true;
+          at_camera = depth == 0;
+        }
+      }
+    }
+
+    // ---- one bounce walked back, from its record (the ballot of the
+    // sphere bounces runs on all 32 lanes) ----
+    int code = 0, j = 0;
+    float t_rec = 0.f;
+    if (reverse) {
+      --depth;
+      if constexpr (kSimt) ++n_back;
+      const float4* r4 = rec_at(depth);
+      const float4 a = r4[0], b = r4[1], c = r4[2];
+      o[0] = a.x; o[1] = a.y; o[2] = a.z;
+      d[0] = a.w; d[1] = b.x; d[2] = b.y;
+      T[0] = b.z; T[1] = b.w; T[2] = c.x;
+      code = (int)c.y;
+      t_rec = c.z;
+      j = (int)c.w;
+    }
+    const bool tri = reverse && code == n;
+    const unsigned sph_lanes = __ballot_sync(kFullMask, reverse && !tri);
+    if (tri) {
+      ++n_reverse_tri;
+      float gt[kGtriRows];
+      tri_adjoint(p.mt, s_cam, p.mesh_type, flags, p.seed, pix, sid, depth,
+                  o, d, T, j, t_rec, go, gd, gT, gt);
+      if constexpr (kNoTriAtomics) {
+        for (int r = 0; r < kGtriRows; ++r) lane_sink.add(0, gt[r]);
+      } else {
+        add_tri_rows(p.gtri, tp, j, gt);
+      }
+    } else if (reverse) {
+      if constexpr (kNoAtomics) {
+        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                       d, T, code, go, gd, gT, lane_sink);
+      } else {
+        RowSink rows{};
+        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                       d, T, code, go, gd, gT, rows);
+        add_rows_aggregated(sph_lanes, code, rows.v, s_acc, n, flags);
+      }
+    }
+    if (reverse && depth == 0) at_camera = true;
+    if (at_camera) {
+      camera_adjoint();
+      done = true;
+    }
+    if (done) {
+      advance();
+      live = next_item();
+    }
+  }
+
+  // ---- flush: the counts, the block's sphere cotangents (one global
+  // atomic per entry) and its camera cotangents, summed over the threads
+  // in a fixed order into the block's row of cam_part ----
+  if constexpr (kNoAtomics || kNoTriAtomics || kReplayOnly)
+    gcam[0] += lane_sink.sum;
+  if (p.counts != nullptr) {
+    const unsigned int w0 = __reduce_add_sync(kFullMask, n_replay);
+    const unsigned int w1 = __reduce_add_sync(kFullMask, n_reverse);
+    const unsigned int w2 = __reduce_add_sync(kFullMask, n_tests);
+    const unsigned int w3 = __reduce_add_sync(kFullMask, n_reverse_tri);
+    if (lane == 0) {
+      atomicAdd(&p.counts[0], (unsigned long long)w0);
+      atomicAdd(&p.counts[1], (unsigned long long)w1);
+      atomicAdd(&p.counts[2], (unsigned long long)w2);
+      atomicAdd(&p.counts[3], (unsigned long long)w3);
+    }
+    if constexpr (kSimt) {
+      const unsigned int w5 = __reduce_add_sync(kFullMask, n_back);
+      if (lane == 0) {
+        atomicAdd(&p.counts[4], (unsigned long long)w_replay);
+        atomicAdd(&p.counts[5], (unsigned long long)w5);
+        atomicAdd(&p.counts[6], (unsigned long long)w_back);
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
+    const float v = s_acc[k];
+    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
+  }
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+    float v = 0.f;
+    for (int t = 0; t < kThreads; ++t) v += s_gcam[k * kThreads + t];
+    p.cam_part[blockIdx.x * kCamSlots + k] = v;
+  }
+}
+
+// Threads to launch for n_work items (pixels, or the pixel samples of K4,
+// K5 and K7) of `kernel` with `smem` bytes of dynamic shared memory on the
+// current
+// device: at most as many as can be resident at once, so that the
+// record buffer (n_threads * max_depth * record floats) stays small; -1
+// when the query fails.
 static int resident_threads(const void* kernel, size_t smem,
                             long long n_work) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1250,12 +1657,16 @@ extern "C" int sphere_megagrad_threads(long long n_items, int n_spheres) {
       k4_smem_bytes(n_spheres), n_items);
 }
 
-extern "C" int mesh_megagrad_threads(int n_pix) {
-  return resident_threads((const void*)megagrad<true, kSkyComputed>, 0, n_pix);
+// Threads K5 and K7 launch for n_items = pixels x samples with n_spheres
+// spheres.
+extern "C" int mesh_megagrad_threads(long long n_items, int n_spheres) {
+  return resident_threads((const void*)mesh_megagrad<kSkyComputed>,
+                          k5_smem_bytes(n_spheres), n_items);
 }
 
-extern "C" int hdr_consume_threads(int n_pix) {
-  return resident_threads((const void*)megagrad<true, kSkyConsume>, 0, n_pix);
+extern "C" int hdr_consume_threads(long long n_items, int n_spheres) {
+  return resident_threads((const void*)mesh_megagrad<kSkyConsume>,
+                          k5_smem_bytes(n_spheres), n_items);
 }
 
 // Launches K4 on `stream` and returns cudaGetLastError(): nonzero when the
@@ -1345,11 +1756,12 @@ extern "C" int sphere_megagrad_variant_launch(
 }
 #endif
 
-// Launches the mesh variant on `stream`, as sphere_megagrad_launch, with
+// Launches K5 (mesh_megagrad) on `stream`, as sphere_megagrad_launch, with
 // the mesh tables of the mesh megakernel (tri, cluster, sub, chunk_box,
 // boxes, group, group_end, tri_major), the mesh's material type, and gtri
-// (10 x t_pad, added to);
-// n_spheres may be 0; rec holds n_threads * max_depth * 12 floats; counts,
+// (10 x t_pad, added to); n_threads from mesh_megagrad_threads;
+// n_spheres may be 0; rec holds n_threads * max_depth * 12 floats, 16-byte
+// aligned; counts,
 // when not null, receives the bounces replayed, the bounces walked back
 // (sphere and triangle bounces, without the sphere variant's one more per
 // sample), the triangle tests of the replay and the triangle bounces
@@ -1399,8 +1811,9 @@ extern "C" int mesh_megagrad_launch(
                     n_boxes, group, group_end, n_groups, tri_major};
   p.mesh_type = mesh_type;
   p.gtri = gtri;
-  megagrad<true, kSkyComputed><<<n_threads / kThreads, kThreads, 0,
-                                 (cudaStream_t)stream>>>(p);
+  mesh_megagrad<kSkyComputed>
+      <<<n_threads / kThreads, kThreads, k5_smem_bytes(n_spheres),
+         (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1485,9 +1898,9 @@ extern "C" int hdr_emit_launch(
 }
 
 // Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks, n_boxes and
-// n_groups may be 0: no triangles), with sky_rows (3 x n_samples x n_pix)
-// the sky
-// value of each sample that missed.
+// n_groups may be 0: no triangles; n_threads from hdr_consume_threads),
+// with sky_rows (3 x n_samples x n_pix) the sky value of each sample that
+// missed.
 extern "C" int hdr_consume_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
@@ -1519,7 +1932,132 @@ extern "C" int hdr_consume_launch(
   p.gtri = gtri;
   p.rec = rec;
   p.n_threads = n_threads;
-  megagrad<true, kSkyConsume><<<n_threads / kThreads, kThreads, 0,
-                                (cudaStream_t)stream>>>(p);
+  mesh_megagrad<kSkyConsume>
+      <<<n_threads / kThreads, kThreads, k5_smem_bytes(n_spheres),
+         (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+#ifdef ORT_K5_VARIANTS
+// The measurement build of K5 and K7: the instances chip_smoke.py's split
+// of their time launches, by index (its K5_VARIANTS names them in this
+// order).  First the earlier design (a pixel per thread, the megagrad
+// template's mesh instances, K5 then K7) and its timing cuts, then the
+// instances of mesh_megagrad: its SIMT counts and its timing cuts.
+namespace {
+struct MeshVariant {
+  void (*fn)(const Params);
+  bool earlier;  // a pixel per thread, static shared memory
+  bool cut;      // held to the blocks an SM of the kernel it is cut from
+  bool consume;  // K7's sky
+};
+#define ORT_EARLIER(sky)                                       \
+  {megagrad<true, sky, kCutNone>, true, false, sky == kSkyConsume},       \
+  {megagrad<true, sky, kCutReplay>, true, true, sky == kSkyConsume},      \
+  {megagrad<true, sky, kCutRecords>, true, true, sky == kSkyConsume},     \
+  {megagrad<true, sky, kCutAtomics>, true, true, sky == kSkyConsume},     \
+  {megagrad<true, sky, kCutTriAtomics>, true, true, sky == kSkyConsume},  \
+  {megagrad<true, sky, kCutSimt>, true, true, sky == kSkyConsume}
+const MeshVariant kMeshVariants[] = {
+    ORT_EARLIER(kSkyComputed),
+    ORT_EARLIER(kSkyConsume),
+    {mesh_megagrad<kSkyComputed, kTimeSimt>, false, true, false},
+    {mesh_megagrad<kSkyConsume, kTimeSimt>, false, true, true},
+    {mesh_megagrad<kSkyComputed, kTimeNoAtomics>, false, true, false},
+    {mesh_megagrad<kSkyComputed, kTimeNoTriAtomics>, false, true, false},
+    {mesh_megagrad<kSkyComputed, kTimeReplay>, false, true, false},
+};
+#undef ORT_EARLIER
+constexpr int kNumMeshVariants =
+    sizeof(kMeshVariants) / sizeof(kMeshVariants[0]);
+
+// The kernel that variant v is cut from or stands beside: the earlier
+// design or mesh_megagrad, of its sky.
+const void* mesh_base(const MeshVariant& mv) {
+  if (mv.earlier)
+    return mv.consume ? (const void*)megagrad<true, kSkyConsume>
+                      : (const void*)megagrad<true, kSkyComputed>;
+  return mv.consume ? (const void*)mesh_megagrad<kSkyConsume>
+                    : (const void*)mesh_megagrad<kSkyComputed>;
+}
+
+// The dynamic shared memory of variant v: mesh_megagrad's, and for a cut
+// as much more as holds it to its base kernel's blocks an SM (a cut needs
+// fewer registers, and would otherwise differ in occupancy as well as in
+// work); -1 when an occupancy query fails.
+long long mesh_variant_smem(const MeshVariant& mv, int n_spheres) {
+  size_t smem = mv.earlier ? 0 : k5_smem_bytes(n_spheres);
+  if (!mv.cut) return (long long)smem;
+  int base = 0, own = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&base, mesh_base(mv),
+                                                    kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  while (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &own, (const void*)mv.fn, kThreads, smem) == cudaSuccess &&
+         own > base && smem < 48 * 1024)
+    smem += 1024;
+  return (long long)smem;
+}
+}  // namespace
+
+// Threads variant v launches for n_pix pixels of n_samples samples: those
+// of the kernel it is cut from (per pixel for the earlier design, per
+// pixel sample for mesh_megagrad), or its own for an option; -1 for an
+// unknown variant.
+extern "C" int mesh_megagrad_variant_threads(int v, int n_pix, int n_samples,
+                                             int n_spheres) {
+  if (v < 0 || v >= kNumMeshVariants) return -1;
+  const MeshVariant& mv = kMeshVariants[v];
+  if (mv.earlier) return resident_threads(mesh_base(mv), 0, n_pix);
+  return resident_threads(mv.cut ? mesh_base(mv) : (const void*)mv.fn,
+                          k5_smem_bytes(n_spheres),
+                          (long long)n_pix * n_samples);
+}
+
+// Launches variant v with hdr_consume_launch's arguments (sky_rows is read
+// by K7's instances alone, and may be null for K5's; the scene's sky kind
+// is in flags); counts, when not null, holds 7 counts: K5's four, and the
+// SIMT instances' warp iterations of the replay, lane steps of the walk
+// back and its warp iterations.
+extern "C" int mesh_megagrad_variant_launch(
+    int v, const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* tri, int t_pad, const float* cluster, const float* sub,
+    const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, const float* g_r,
+    const float* g_g, const float* g_b,
+    const float* sky_rows, float* cam_part, float* gsph, float* gtri,
+    float* rec, int n_threads, unsigned long long* counts, int n_pix,
+    int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  if (v < 0 || v >= kNumMeshVariants ||
+      !hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_groups,
+                   n_pix, width, height, n_samples, max_depth) ||
+      n_threads < kThreads || n_threads % kThreads != 0 ||
+      (kMeshVariants[v].consume && sky_rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  const MeshVariant& mv = kMeshVariants[v];
+  const long long smem = mesh_variant_smem(mv, n_spheres);
+  if (smem < 0) return (int)cudaErrorInvalidConfiguration;
+  Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
+                        chunk_box, n_chunks, boxes, n_boxes, group,
+                        group_end, n_groups, tri_major, mesh_type,
+                        counts, n_pix, pix_offset, seed, sample_base,
+                        n_samples, width, height, max_depth, t_min, flags);
+  p.g_r = g_r;
+  p.g_g = g_g;
+  p.g_b = g_b;
+  p.sky_rows = sky_rows;
+  p.cam_part = cam_part;
+  p.gsph = gsph;
+  p.gtri = gtri;
+  p.rec = rec;
+  p.n_threads = n_threads;
+  mv.fn<<<n_threads / kThreads, kThreads, (size_t)smem,
+          (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif

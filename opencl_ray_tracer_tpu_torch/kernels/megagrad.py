@@ -16,14 +16,15 @@ else.  The plain version reads the radius from the ``F_R`` row and the ior
 from ``F_IOR`` alone, so the two agree on the scene's leaves
 (``render_grad_scene``), and row by row only on the rows both read.
 
-``render_grad_mesh_tables`` is the wrapper of the mesh variant (K5,
-replacing the mesh variant of the same Pallas function): scenes of the
-mesh megakernel's scope, with 0 to 128 spheres.  Besides the camera and
-sphere table cotangents it returns ``gtri`` (10, T_pad) in the tables'
-plan order: the cotangents of each triangle's raw normal n = (p1 - p0) x
-(p2 - p0) and plane constant c = n . p0 (rows 0-3), and of its albedo,
-fuzz, ior and 1/ior (rows 4-9).  ``tri_grads_to_scene`` chains them to
-the triangles' vertices and materials.  Its plain version
+``render_grad_mesh_tables`` is the wrapper of the mesh backward (K5,
+``csrc/megagrad.cu::mesh_megagrad``, K4's flat loop per lane with the
+mesh's replay; replacing the mesh variant of the same Pallas function):
+scenes of the mesh megakernel's scope, with 0 to 128 spheres.  Besides
+the camera and sphere table cotangents it returns ``gtri`` (10, T_pad) in
+the tables' plan order: the cotangents of each triangle's raw normal
+n = (p1 - p0) x (p2 - p0) and plane constant c = n . p0 (rows 0-3), and of
+its albedo, fuzz, ior and 1/ior (rows 4-9).  ``tri_grads_to_scene``
+chains them to the triangles' vertices and materials.  Its plain version
 ``render_grad_mesh_tables_plain`` is autograd of the plain wavefront with
 a winner hit in plane form on the tables; its row 8 carries the whole ior
 cotangent (1/ior included) and row 9 stays 0, so the two agree on the
@@ -38,9 +39,10 @@ the contributions that are not sky; ``hdr_lookup`` reads the texels of
 those directions, ``hdr_image`` rebuilds the image from them, and
 ``hdr_sky_cot`` scatters the image cotangent onto the texels (torch ops,
 as the JAX package keeps them in XLA).  ``hdr_consume`` (K7) is K5 with
-each sample's sky value given.  ``HdrRenderFn`` chains them: the image of
-an HDR scene through K6, whose backward is K7 and the texels' scatter, so
-that a forward and backward run no K2 (the JAX package's
+each sample's sky value given (the other instance of ``mesh_megagrad``).
+``HdrRenderFn`` chains them: the image of an HDR scene through K6, whose
+backward is K7 and the texels' scatter, so that a forward and backward
+run no K2 (the JAX package's
 ``render_grad_hdr_fused``).  Their plain versions ``hdr_emit_plain`` and
 ``hdr_consume_plain`` are the plain wavefront recording the misses and
 the autograd of the plain wavefront with the sky values given.
@@ -98,12 +100,11 @@ CAM_SLOTS = (C_OX, C_OY, C_OZ, C_HX, C_HY, C_HZ, C_VX, C_VY, C_VZ,
 # Rows of gtri, the mesh variant's per-triangle cotangents: n (3), c, then
 # albedo (3), fuzz, ior, 1/ior.
 GTRI_ROWS = 10
-# Floats the kernel records per bounce that goes on (K4: 3 float4; the
-# mesh variant); threads per block; camera-table slots the kernel writes
+# Floats the kernels record per bounce that goes on (K4, K5 and K7: 3
+# float4); threads per block; camera-table slots the kernel writes
 # (C_OX .. C_SKY2); rows of K6's per-sample output (the miss direction and
 # throughput).
 _REC = 12
-_REC_MESH = 12
 EMIT_ROWS = 6
 _THREADS = 128
 _CAM_USED = C_SKY2 + 1
@@ -129,7 +130,7 @@ _SYMBOLS = {
         [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P,
          _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I,
          _I, _I, _I, ctypes.c_float, _I, _P], _I),
-    "mesh_megagrad_threads": ([_I], _I),
+    "mesh_megagrad_threads": ([ctypes.c_longlong, _I], _I),
     "hdr_emit_launch": (
         [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _I,
          _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
@@ -138,7 +139,7 @@ _SYMBOLS = {
         [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P,
          _P, _P, _P, _P, _I, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32,
          _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
-    "hdr_consume_threads": ([_I], _I),
+    "hdr_consume_threads": ([ctypes.c_longlong, _I], _I),
 }
 
 
@@ -398,10 +399,11 @@ def render_grad_mesh_tables(cam, sph, n_spheres: int, tab: MeshTables,
     gtri = torch.zeros((GTRI_ROWS, t_pad), dtype=torch.float32,
                        device=cam.device)
     with torch.cuda.device(cam.device):
-        n_threads = lib.mesh_megagrad_threads(max(n_pix, 1))
+        n_threads = lib.mesh_megagrad_threads(max(n_pix * n_samples, 1),
+                                              n_spheres)
         if n_threads <= 0:
             raise RuntimeError("mesh megagrad: occupancy query failed")
-        rec = torch.empty(n_threads * cfg.max_depth * _REC_MESH,
+        rec = torch.empty(n_threads * cfg.max_depth * _REC,
                           dtype=torch.float32, device=cam.device)
         cam_part = torch.zeros((n_threads // _THREADS, _CAM_USED),
                                dtype=torch.float32, device=cam.device)
@@ -919,10 +921,11 @@ def hdr_consume(cam, sph, n_spheres: int, tab: MeshTables,
     gtri = torch.zeros((GTRI_ROWS, t_pad), dtype=torch.float32,
                        device=cam.device)
     with torch.cuda.device(cam.device):
-        n_threads = lib.hdr_consume_threads(max(n_pix, 1))
+        n_threads = lib.hdr_consume_threads(max(n_pix * n_samples, 1),
+                                            n_spheres)
         if n_threads <= 0:
             raise RuntimeError("HDR consume: occupancy query failed")
-        rec = torch.empty(n_threads * cfg.max_depth * _REC_MESH,
+        rec = torch.empty(n_threads * cfg.max_depth * _REC,
                           dtype=torch.float32, device=cam.device)
         cam_part = torch.zeros((n_threads // _THREADS, _CAM_USED),
                                dtype=torch.float32, device=cam.device)

@@ -533,7 +533,7 @@ def test_mesh_grad_plain_route_launches_closest_tri(cuda):
 @pytest.mark.gpu
 def test_failing_mesh_grad_launch_raises(cuda, monkeypatch):
     class Failing:
-        def mesh_megagrad_threads(self, n_pix):
+        def mesh_megagrad_threads(self, n_items, n_spheres):
             return 128
 
         def mesh_megagrad_launch(self, *args):
@@ -545,6 +545,135 @@ def test_failing_mesh_grad_launch_raises(cuda, monkeypatch):
                                ot.RenderConfig(width=8, height=4, spp=1,
                                                max_depth=2),
                                lambda im: im.mean())
+
+
+def _k5_k7_inputs(cuda, kernel, cfg, seed):
+    """K5's (the mesh scene under its gradient sky) or K7's (the same under
+    the HDR sky of hdr_scenes) inputs on the card: the scene, its tables,
+    the cotangent planes of mean(img^2) of the mesh megakernel's image,
+    K7's sky values (None for K5), and the wrapper and its plain version as
+    functions of counts."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    scene = (mesh_scenes()["mesh"] if kernel == "k5"
+             else hdr_scenes()["mesh"]).to(cuda)
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, cuda)
+    n_pix = cfg.width * cfg.height
+    img = torch.stack(mm.render_mesh(cam, sph, n, tab, cfg, scene.sky.kind,
+                                     flags, seed, n_pix, sky_image=image))
+    g = ((2.0 / img.numel() / cfg.spp) * img).contiguous()
+    if kernel == "k5":
+        sky = None
+        args = (cam, sph, n, tab, cfg, scene.sky.kind, flags, g[0], g[1],
+                g[2], seed, n_pix)
+        fns = (mg.render_grad_mesh_tables, mg.render_grad_mesh_tables_plain)
+    else:
+        emit, _ = mg.hdr_emit(cam, sph, n, tab, cfg, flags, seed, n_pix)
+        sky, _ = mg.hdr_lookup(image, emit)
+        args = (cam, sph, n, tab, cfg, flags, g[0], g[1], g[2], sky, seed,
+                n_pix)
+        fns = (mg.hdr_consume, mg.hdr_consume_plain)
+    return (scene, (cam, sph, n, tab, flags), g, sky,
+            *(lambda c=None, f=f: f(*args, counts=c) for f in fns))
+
+
+# Per-leaf tolerances of K5 (the mesh case of _mesh_grad_scenes) and K7
+# (chip_smoke.py phase 19's, for the leaves K7 writes).
+_K5_K7_TOL = {"k5": {**{k: 5e-4 for k in MESH_GRAD_LEAVES},
+                     "camera.focus_dist": 5e-3},
+              "k7": {"spheres.albedo": 5e-3, "triangles.p0": 5e-4,
+                     "triangles.p1": 5e-4, "triangles.p2": 5e-4,
+                     "triangles.albedo": 5e-3}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k5", "k7"])
+def test_mesh_grad_kernels_stride_over_items(cuda, kernel):
+    """More work items (pixel samples) than K5's and K7's resident threads:
+    each thread takes several items of several pixels, reusing its records
+    and carrying its camera cotangents from one to the next; the result
+    matches the plain version's on the scene's leaves."""
+    cfg = ot.RenderConfig(width=400, height=200, spp=4, max_depth=6,
+                          nan_policy="zero")
+    scene, (cam, sph, n, tab, flags), g, sky, kern, plain = _k5_k7_inputs(
+        cuda, kernel, cfg, 3)
+    lib = mg._library()
+    threads = (lib.mesh_megagrad_threads if kernel == "k5"
+               else lib.hdr_consume_threads)(g.shape[1] * cfg.spp, n)
+    assert 0 < threads < g.shape[1] * cfg.spp
+    leaves = []
+    for gcam, gsph, gtri in (kern(), plain()):
+        leaves.append(scene_to_numpy(mg.tri_grads_to_scene(
+            scene, tab.plan, gtri,
+            mg.table_grads_to_scene(scene, gcam, gsph))))
+    a, b = leaves
+    tol = _K5_K7_TOL[kernel]
+    errs = {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k]).max()), 1e-6) for k in tol}
+    assert all(errs[k] < tol[k] for k in tol), errs
+    # K7's camera and vertex cotangents are zero: the nearest texel and an
+    # emitter's radiance do not move with the path's geometry
+    assert np.abs(b["triangles.p0" if kernel == "k5"
+                    else "triangles.albedo"]).max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k5", "k7"])
+def test_mesh_grad_kernels_camera_cotangents_repeat(cuda, kernel):
+    """Two launches of K5 (K7) on the same inputs give equal camera
+    cotangents, at depth 32 with several items per thread (K7's are zero,
+    as its vertex cotangents)."""
+    cfg = ot.RenderConfig(width=400, height=200, spp=4, max_depth=32,
+                          nan_policy="zero")
+    *_, kern, _ = _k5_k7_inputs(cuda, kernel, cfg, 3)
+    first, second = kern()[0], kern()[0]
+    assert torch.equal(first, second)
+    assert (first.abs().max() > 0) == (kernel == "k5")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k5", "k7"])
+def test_mesh_grad_kernels_count_as_the_earlier_design(cuda, kernel):
+    """K5 (K7) and its earlier design (a pixel per thread, from the
+    measurement build ORT_K5_VARIANTS) on the same tables: the same
+    bounces replayed and walked back, triangle tests and triangle bounces
+    walked back, and cotangents within 1e-4 of each block's scale (their
+    atomics add in other orders)."""
+    import chip_smoke
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    cfg = ot.RenderConfig(width=160, height=90, spp=3, max_depth=8,
+                          nan_policy="zero")
+    scene, (cam, sph, n, tab, flags), g, sky, kern, _ = _k5_k7_inputs(
+        cuda, kernel, cfg, 5)
+    lib = _build.load("megagrad", {}, ("ORT_K5_VARIANTS",))
+    earlier, _ = chip_smoke.k5_variant(
+        lib, chip_smoke.K5_VARIANTS.index(f"earlier_{kernel}"), cam, sph, n,
+        tab, cfg, scene.sky.kind, flags, g, 5, sky)
+    kc = torch.zeros(4, dtype=torch.int64, device=cuda)
+    ec = torch.zeros(7, dtype=torch.int64, device=cuda)
+    got, want = kern(kc), earlier(ec)
+    torch.cuda.synchronize()
+    assert kc.tolist() == ec[:4].tolist() and kc[3] > 0
+    assert chip_smoke.rel_blocks(got, want) < 1e-4
+
+
+@pytest.mark.gpu
+def test_failing_hdr_consume_launch_raises(cuda, monkeypatch):
+    cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2,
+                          nan_policy="zero")
+    _, (cam, sph, n, tab, flags), g, sky, _, _ = _k5_k7_inputs(
+        cuda, "k7", cfg, 0)
+
+    class Failing:
+        def hdr_consume_threads(self, n_items, n_spheres):
+            return 128
+
+        def hdr_consume_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(mg, "_library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        mg.hdr_consume(cam, sph, n, tab, cfg, flags, g[0], g[1], g[2], sky,
+                       0, g.shape[1])
 
 
 def hdr_scenes():

@@ -6,9 +6,11 @@ as ``static``, atomics as plain adds, the warp intrinsics as a group of
 one lane (sums and shuffles the lane's own value, votes and matches its
 own bit), and the launchers cut off.
 It then runs the kernel as one thread per block over the pixels of a small
-image, and holds the cotangents it returns against the plain version's
-(``render_grad_mesh_tables_plain`` for the mesh variant, K5;
-``render_grad_tables_plain`` for the sphere variant, K4;
+image (K4, K5 and K7, which take work items (pixel, sample) in a flat loop
+per lane: a third as many threads as items, so that each takes several),
+and holds the cotangents it returns against the plain version's
+(``render_grad_mesh_tables_plain`` for the mesh backward, K5;
+``render_grad_tables_plain`` for the sphere backward, K4;
 ``hdr_consume_plain`` for the HDR consume pass, K7), per table block and
 per scene leaf after the chain to the scene, as max|a - b| / max|b|; the
 HDR emit pass (K6) against ``hdr_emit_plain``, as the share of samples
@@ -19,9 +21,12 @@ are chip_smoke.py's mesh cases on a 192-triangle torus (the reference
 mesh material, a Lambertian mesh, a metal mesh under a constant sky, no
 spheres, a dielectric, an emitter, 40 gating boxes), two sphere scenes,
 and under an HDR sky the reference mesh, the README spheres and an
-emissive sphere.
+emissive sphere.  With --earlier, K5 and K7 run as their earlier design
+(the megagrad template's mesh instances, a pixel per thread), which must
+count the same bounces and triangle tests.
 
-    python tools/host_megagrad_check.py [--size 48x27x2/d6] [case ...]
+    python tools/host_megagrad_check.py [--size 48x27x2/d6] [--earlier]
+        [case ...]
 """
 
 from __future__ import annotations
@@ -94,13 +99,19 @@ inline unsigned __float_as_uint(float x) {
 inline float __uint_as_float(unsigned u) {
   float x; memcpy(&x, &u, 4); return x; }
 '''
-# Reads the tables from the working directory, runs every pixel as its own
-# block of one thread (K4: a third as many threads as pixels, so that each
-# takes several work items of several pixels), and writes gcam (22), gsph
-# (16 x tab_w), gtri
-# (10 x t_pad) and the four counts; in the emit mode (K6) the emit rows
-# (6 x spp x n_pix), the non-sky sums (3 x n_pix) and the four counts.
+# The kernels of the host program (DRIVER below), by mode: K4, K5, K6,
+# K7, and K5 and K7 as their earlier design.
+MODES = {"k4": 0, "k5": 1, "k6": 2, "k7": 3, "k5_earlier": 4,
+         "k7_earlier": 5}
+# Reads the tables from the working directory, runs each thread as its own
+# block of one (K4: a third as many threads as pixels, so that each takes
+# several work items of several pixels; K5 and K7: a third as many as
+# items; the rest a thread per pixel), and writes gcam (22), gsph
+# (16 x tab_w), gtri (10 x t_pad) and the four counts; in the emit mode
+# (K6) the emit rows (6 x spp x n_pix), the non-sky sums (3 x n_pix) and
+# the four counts.
 DRIVER = r'''
+#include <algorithm>
 #include <vector>
 static std::vector<char> rd(const char* f) {
   FILE* fp = fopen(f, "rb"); fseek(fp, 0, SEEK_END); long n = ftell(fp);
@@ -110,7 +121,7 @@ static std::vector<char> rd(const char* f) {
 int main(int argc, char** argv) {
   if (argc != 17) return 2;
   int a = 1;
-  // mesh: 0 sphere variant (K4), 1 mesh variant, 2 K6, 3 K7
+  // mesh: the mode (MODES)
   const int mesh = atoi(argv[a++]), ns = atoi(argv[a++]);
   const int tab_w = atoi(argv[a++]), t_pad = atoi(argv[a++]);
   const int n_chunks = atoi(argv[a++]), n_boxes = atoi(argv[a++]);
@@ -128,20 +139,24 @@ int main(int argc, char** argv) {
     cb = rd("chunk_box.bin"); bx = rd("boxes.bin"); gr = rd("group.bin");
     ge = rd("group_end.bin"); tm = rd("tri_major.bin"); }
   std::vector<char> sky_rows;
-  if (mesh == 3) sky_rows = rd("sky_rows.bin");
+  if (mesh == 3 || mesh == 5) sky_rows = rd("sky_rows.bin");
   std::vector<float> emit((size_t)6 * n_samples * n_pix, -7.f);
   std::vector<float> emis((size_t)3 * n_pix, -7.f);
   const float* gp = (const float*)g.data();
-  std::vector<float> cam_part((size_t)n_pix * 22, 0.f), gsph(16 * tab_w, 0.f);
+  const long long items = (long long)n_pix * n_samples;
+  const int threads = mesh == 0 ? (n_pix + 2) / 3
+                      : (mesh == 1 || mesh == 3) ? (int)((items + 2) / 3)
+                                                 : n_pix;
+  const size_t rows = (size_t)std::max(threads, n_pix);
+  std::vector<float> cam_part(rows * 22, 0.f), gsph(16 * tab_w, 0.f);
   std::vector<float> gtri(10 * (t_pad > 0 ? t_pad : 1), 0.f);
-  std::vector<float> rec((size_t)n_pix * max_depth * kRecMesh);
+  std::vector<float> rec(rows * max_depth * kRecMesh);
   unsigned long long counts[4] = {0, 0, 0, 0};
   Params p{};
   p.cam = (const float*)cam.data(); p.sph = (const float*)sph.data();
   p.g_r = gp; p.g_g = gp + n_pix; p.g_b = gp + 2 * n_pix;
   p.cam_part = cam_part.data(); p.gsph = gsph.data(); p.rec = rec.data();
   p.counts = counts; p.tab_w = tab_w; p.n_spheres = ns; p.n_pix = n_pix;
-  const int threads = mesh == 0 ? (n_pix + 2) / 3 : n_pix;
   p.pix_offset = 0; p.n_threads = threads; p.seed = seed; p.sample_base = 0;
   p.n_samples = n_samples; p.width = width; p.height = height;
   p.max_depth = max_depth; p.t_min = t_min; p.flags = flags;
@@ -155,12 +170,14 @@ int main(int argc, char** argv) {
     p.mesh_type = mesh_type; p.gtri = gtri.data();
   }
   p.emit = emit.data(); p.emis = emis.data();
-  p.sky_rows = mesh == 3 ? (const float*)sky_rows.data() : nullptr;
+  p.sky_rows = sky_rows.empty() ? nullptr : (const float*)sky_rows.data();
   for (int b = 0; b < threads; ++b) {
     blockIdx.x = b;
     if (mesh == 0) sphere_megagrad<>(p);
-    else if (mesh == 1) megagrad<true, kSkyComputed>(p);
+    else if (mesh == 1) mesh_megagrad<kSkyComputed>(p);
     else if (mesh == 2) megagrad<true, kSkyEmit>(p);
+    else if (mesh == 3) mesh_megagrad<kSkyConsume>(p);
+    else if (mesh == 4) megagrad<true, kSkyComputed>(p);
     else megagrad<true, kSkyConsume>(p);
   }
   if (mesh == 2) {
@@ -171,7 +188,7 @@ int main(int argc, char** argv) {
     return 0;
   }
   std::vector<float> gcam(22, 0.f);
-  for (int b = 0; b < n_pix; ++b)
+  for (size_t b = 0; b < rows; ++b)
     for (int k = 0; k < 22; ++k) gcam[k] += cam_part[b * 22 + k];
   FILE* fp = fopen("out.bin", "wb");
   fwrite(gcam.data(), 4, 22, fp); fwrite(gsph.data(), 4, gsph.size(), fp);
@@ -263,9 +280,10 @@ def _run(exe, work, mode, n, sph, dims, n_pix, seed, cfg, bits):
     return np.fromfile(work / "out.bin", dtype=np.float32)
 
 
-def check_hdr(exe, work, scene, cfg, seed=7):
-    """K6 and K7 as host code against their plain versions: (emit
-    agreement, per-block errors, per-leaf errors, K7's counts)."""
+def check_hdr(exe, work, scene, cfg, seed=7, earlier=False):
+    """K6 and K7 (with ``earlier``, K7's earlier design) as host code
+    against their plain versions: (emit agreement, per-block errors,
+    per-leaf errors, K7's counts)."""
     n, n_pix, spp = scene.spheres.count, cfg.width * cfg.height, cfg.spp
     cam, sph, _, tab, flags, image = mm.mesh_inputs(scene, "cpu")
     arrays = {"cam": cam, "sph": sph}
@@ -296,7 +314,8 @@ def check_hdr(exe, work, scene, cfg, seed=7):
     img = mg.hdr_image(p_emit, p_emis, sky, cfg)
     g = ((2.0 / img.numel() / spp) * img).contiguous()
     _write(work, {**arrays, "g": g, "sky_rows": sky})
-    out = _run(exe, work, 3, n, sph, dims, n_pix, seed, cfg, bits)
+    out = _run(exe, work, MODES["k7_earlier" if earlier else "k7"], n, sph,
+               dims, n_pix, seed, cfg, bits)
     return emit, *_compare_mesh(out, cam, sph, n, tab, scene, g, sky, cfg,
                                 flags, seed, n_pix)
 
@@ -339,8 +358,9 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-12))
 
 
-def check(exe, work, scene, cfg, seed=7):
-    """(per-block errors, per-leaf errors, the kernel's counts)."""
+def check(exe, work, scene, cfg, seed=7, earlier=False):
+    """(per-block errors, per-leaf errors, the kernel's counts) of K4 or K5
+    (with ``earlier``, K5's earlier design)."""
     mesh = scene.triangles.count > 0
     n, n_pix = scene.spheres.count, cfg.width * cfg.height
     sph = mk.sphere_table(scene)
@@ -365,7 +385,8 @@ def check(exe, work, scene, cfg, seed=7):
     for name, arr in {"cam": cam, "sph": sph, "g": g, **arrays}.items():
         arr.contiguous().numpy().tofile(work / f"{name}.bin")
     bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
-    subprocess.run([str(exe), str(int(mesh)), str(n), str(sph.shape[1]),
+    mode = MODES[("k5_earlier" if earlier else "k5") if mesh else "k4"]
+    subprocess.run([str(exe), str(mode), str(n), str(sph.shape[1]),
                     *map(str, dims), str(n_pix), str(seed), str(cfg.spp),
                     str(cfg.width), str(cfg.height), str(cfg.max_depth),
                     str(cfg.t_min), str(bits)], check=True, cwd=work)
@@ -413,6 +434,8 @@ def check(exe, work, scene, cfg, seed=7):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", default="48x27x2/d6")
+    ap.add_argument("--earlier", action="store_true",
+                    help="K5 and K7 as their earlier design")
     ap.add_argument("case", nargs="*")
     args = ap.parse_args()
     dims, depth = args.size.split("/d")
@@ -426,11 +449,12 @@ def main() -> None:
             if args.case and name not in args.case:
                 continue
             if scene.sky.kind == ot.scene.sky.KIND_HDR:
-                emit, blocks, leaves, counts = check_hdr(exe, work, scene,
-                                                         cfg)
+                emit, blocks, leaves, counts = check_hdr(
+                    exe, work, scene, cfg, earlier=args.earlier)
                 print(name, "emit", emit)
             else:
-                blocks, leaves, counts = check(exe, work, scene, cfg)
+                blocks, leaves, counts = check(exe, work, scene, cfg,
+                                               earlier=args.earlier)
             print(name, "counts", counts)
             print("  blocks", {k: f"{v:.1e}" for k, v in blocks.items()})
             print("  leaves", {k: f"{v:.1e}" for k, v in leaves.items()})
