@@ -867,43 +867,178 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
   }
 }
 
-// ---- K4: the sphere backward, one flat loop per lane ----
+// ---- What K4, K5 and K7 share: a flat loop per lane ----
 //
-// The earlier design (the megagrad template's sphere instance, kept for
+// The earlier design (the megagrad template's instances, kept for
 // chip_smoke.py's measurements only) ran, per pixel and sample, the replay
 // to the path's end and then the walk back over the same depth, so a warp
-// waited for its deepest lane twice per sample.  Here each lane takes work
-// items (pixel, sample) from a static map (item i = sample * n_pix +
-// pixel, thread t takes t, t + n_threads, ...) and runs one flat loop over
-// (item, phase, bounce), in the manner of the forward kernel's loop: a
-// lane whose sample ends black, whose cotangent is zero, or whose walk
-// back reaches the camera takes its next item at once.  Each iteration
-// steps every live lane by one replay bounce or one bounce walked back.
-// The camera cotangents of a thread are summed in the order of its items,
-// in shared memory (a column per thread), so two launches give equal
-// camera cotangents.  A bounce's sphere cotangents are summed over the
-// warp's lanes that hit the same sphere before the shared atomic
+// waited for its deepest lane twice per sample.  K4, K5 and K7 instead let
+// each lane take work items (pixel, sample) from a static map (item i =
+// sample * n_pix + pixel, thread t takes t, t + n_threads, ...; Items) and
+// run one flat loop over (item, phase, bounce), in the manner of the
+// forward kernel's loop: a lane whose sample ends black, whose cotangent is
+// zero, or whose walk back reaches the camera takes its next item at once.
+// Each iteration steps every live lane by one replay bounce or one bounce
+// walked back.  The camera cotangents of a thread are summed in the order
+// of its items, in shared memory (a column per thread), so two launches
+// give equal camera cotangents.  A bounce's sphere cotangents are summed
+// over the warp's lanes that hit the same sphere before the shared atomic
 // (add_rows_aggregated).  Records are 12 floats (3 float4) at (depth *
 // n_threads + thread), so a lane's record is two sectors whatever depth
-// its neighbours are at.  The register budget is set for 6 blocks an SM
-// (80 registers, no spill).
+// its neighbours are at.
 //
-// Timing-only cuts (kTime bits), which only chip_smoke.py's split of K4's
-// time launches (the measurement build, ORT_K4_VARIANTS): plain adds into
-// a lane-private sum instead of the shared atomics (wrong on purpose), the
-// replay alone (no record, no walk back), and the SIMT counts (counts[2..4]:
-// the warp iterations of the replay, the lane steps of the walk back and
-// its warp iterations).
-enum K4Time { kTimeNoAtomics = 1, kTimeReplay = 2, kTimeSimt = 4 };
+// Timing-only cuts (kTime bits), which only chip_smoke.py's splits launch
+// (the measurement builds ORT_K4_VARIANTS and ORT_K5_VARIANTS): plain adds
+// into a lane-private sum instead of the shared atomics (wrong on purpose),
+// the replay alone (no record, no walk back), and the SIMT counts (the
+// warp iterations of the replay, the lane steps of the walk back and its
+// warp iterations).
+enum FlatTime { kTimeNoAtomics = 1, kTimeReplay = 2, kTimeSimt = 4 };
 constexpr int kRecAoS = 12;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Dynamic shared memory of K4 for n spheres: the sphere table and the
-// accumulator (kFields and kGradRows rows of n), the camera slots, and
-// each thread's camera cotangents (kCamSlots rows of kThreads).
-static size_t k4_smem_bytes(int n) {
-  return sizeof(float) * ((size_t)(kFields + kGradRows) * n + kCamSlots +
+// Dynamic shared memory of K4, K5 and K7 for n spheres and a camera table
+// of cam_slots: the sphere table and the accumulator (kFields and kGradRows
+// rows of n), the camera table, and each thread's camera cotangents
+// (kCamSlots rows of kThreads).
+static size_t flat_smem_bytes(int n, int cam_slots) {
+  return sizeof(float) * ((size_t)(kFields + kGradRows) * n + cam_slots +
                           (size_t)kCamSlots * kThreads);
+}
+
+// That shared memory, laid out.
+struct FlatShared {
+  float* sph;   // kFields rows of n
+  float* acc;   // kGradRows rows of n
+  float* cam;   // the camera table
+  float* gcam;  // kCamSlots rows of kThreads
+};
+
+// Loads the sphere and camera tables into s and zeroes its sums.  Each
+// kernel lays s out itself: with the pointers worked out in here, nvcc
+// vectorized K4's camera-table reads and allocated its registers
+// otherwise, 3% slower on the book cover (PERF.md).
+__device__ __forceinline__ void load_flat_shared(const Params& p,
+                                                 const FlatShared& s,
+                                                 int cam_slots) {
+  const int n = p.n_spheres;
+  for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
+    s.sph[k] = p.sph[(k / n) * p.tab_w + k % n];
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
+    s.acc[k] = 0.f;
+  for (int k = threadIdx.x; k < cam_slots; k += blockDim.x)
+    s.cam[k] = p.cam[k];
+  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
+    s.gcam[k] = 0.f;
+  __syncthreads();
+}
+
+// A lane's work item: sample s_item of pixel `local` of the window; the
+// thread's first is item tid, and each next n_threads = step_s samples and
+// step_pix pixels further.  The sample's counters (pix, sid) are worked out
+// from the item where they are used: kept in registers, they spill.
+struct Items {
+  int step_s, step_pix, s_item, local;
+
+  __device__ __forceinline__ Items(const Params& p, int tid)
+      : step_s(p.n_threads / p.n_pix),
+        step_pix(p.n_threads % p.n_pix),
+        s_item(tid / p.n_pix),
+        local(tid % p.n_pix) {}
+
+  __device__ __forceinline__ uint32_t pix(const Params& p) const {
+    return (uint32_t)(p.pix_offset + local);
+  }
+  __device__ __forceinline__ uint32_t sid(const Params& p) const {
+    return p.sample_base + (uint32_t)s_item;
+  }
+  __device__ __forceinline__ void advance(const Params& p) {
+    s_item += step_s;
+    local += step_pix;
+    if (local >= p.n_pix) {
+      local -= p.n_pix;
+      ++s_item;
+    }
+  }
+  // The item's camera ray (o, d) and the draws it depends on.
+  __device__ __forceinline__ CamDraw ray(const Params& p, const float* s_cam,
+                                         float (&o)[3], float (&d)[3]) const {
+    const int lin = p.pix_offset + local;
+    return camera_ray(s_cam, p.seed, p.width, p.height, p.flags, pix(p),
+                      sid(p), (float)(lin % p.width), (float)(lin / p.width),
+                      o, d);
+  }
+  // Takes the current item, or the first after it whose pixel has a
+  // nonzero cotangent, and casts its camera ray (T = 1); false when none
+  // is left.
+  __device__ __forceinline__ bool start(const Params& p, const float* s_cam,
+                                        float (&o)[3], float (&d)[3],
+                                        float (&T)[3]) {
+    for (; s_item < p.n_samples; advance(p)) {
+      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
+        continue;
+      ray(p, s_cam, o, d);
+      for (int k = 0; k < 3; ++k) T[k] = 1.f;
+      return true;
+    }
+    return false;
+  }
+};
+
+// The adjoint of the item's camera ray, d0 = L + H uu + V vv - o0,
+// o0 = O (+ DU lx + DV ly), into the thread's camera cotangents (slot k
+// at gcam[k * kThreads]).
+__device__ __forceinline__ void camera_adjoint(const Items& it,
+                                               const Params& p,
+                                               const float* s_cam, bool lens,
+                                               const float (&go)[3],
+                                               const float (&gd)[3],
+                                               float* gcam) {
+  float o0[3], d0[3];
+  const CamDraw cd = it.ray(p, s_cam, o0, d0);
+  for (int k = 0; k < 3; ++k) {
+    const float gok = go[k] - gd[k];
+    gcam[(C_L + k) * kThreads] += gd[k];
+    gcam[(C_H + k) * kThreads] += cd.uu * gd[k];
+    gcam[(C_V + k) * kThreads] += cd.vv * gd[k];
+    gcam[(C_O + k) * kThreads] += gok;
+    if (lens) {
+      gcam[(C_DU + k) * kThreads] += cd.lx * gok;
+      gcam[(C_DV + k) * kThreads] += cd.ly * gok;
+    }
+  }
+}
+
+// Record k of thread tid: three float4 at (k * n_threads + tid).
+__device__ __forceinline__ float4* flat_record(const Params& p, int k,
+                                               int tid) {
+  return reinterpret_cast<float4*>(p.rec +
+                                   ((size_t)k * p.n_threads + tid) * kRecAoS);
+}
+
+// Adds v, summed over the warp, to *c: one atomic a warp.
+__device__ __forceinline__ void count_warp(unsigned long long* c,
+                                           unsigned int v) {
+  const unsigned int w = __reduce_add_sync(kFullMask, v);
+  if ((threadIdx.x & 31) == 0) atomicAdd(c, (unsigned long long)w);
+}
+
+// The end of K4, K5 and K7: the block's sphere cotangents into gsph (one
+// global atomic per nonzero entry), and its camera cotangents, summed over
+// its threads in a fixed order, into the block's row of cam_part.
+__device__ __forceinline__ void flush_flat(const Params& p,
+                                           const FlatShared& s) {
+  const int n = p.n_spheres;
+  __syncthreads();
+  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
+    const float v = s.acc[k];
+    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
+  }
+  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
+    float v = 0.f;
+    for (int t = 0; t < kThreads; ++t) v += s.gcam[k * kThreads + t];
+    p.cam_part[blockIdx.x * kCamSlots + k] = v;
+  }
 }
 
 // Adds each lane's rows v to column bi of the accumulator acc (rows of
@@ -938,6 +1073,11 @@ __device__ __forceinline__ void add_rows_aggregated(unsigned lanes, int bi,
       if (v[r] != 0.f) atomicAdd(&acc[r * stride + bi], v[r]);
 }
 
+// ---- K4: the sphere backward ----
+//
+// The flat loop above with the sphere replay.  The register budget is set
+// for 6 blocks an SM (80 registers, no spill).  Its SIMT counts go to
+// counts[2..4].
 template <int kTime = 0>
 __global__ void __launch_bounds__(kThreads, 6)
     sphere_megagrad(const Params p) {
@@ -946,99 +1086,32 @@ __global__ void __launch_bounds__(kThreads, 6)
   constexpr bool kSimt = (kTime & kTimeSimt) != 0;
   extern __shared__ float smem[];
   const int n = p.n_spheres;
-  float* const s_sph = smem;                   // kFields rows of n
-  float* const s_acc = s_sph + kFields * n;    // kGradRows rows of n
-  float* const s_cam = s_acc + kGradRows * n;  // kCamSlots
-  float* const s_gcam = s_cam + kCamSlots;     // kCamSlots rows of kThreads
-  for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
-    s_sph[k] = p.sph[(k / n) * p.tab_w + k % n];
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
-    s_acc[k] = 0.f;
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x)
-    s_cam[k] = p.cam[k];
-  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
-    s_gcam[k] = 0.f;
-  __syncthreads();
+  float* const s_acc = smem + kFields * n;
+  float* const s_tab = s_acc + kGradRows * n;  // the camera table
+  const FlatShared sh{smem, s_acc, s_tab, s_tab + kCamSlots};
+  load_flat_shared(p, sh, kCamSlots);
+  const float* const s_sph = sh.sph;
   // this thread's camera cotangents: slot k at gcam[k * kThreads]
-  float* const gcam = s_gcam + threadIdx.x;
+  float* const gcam = sh.gcam + threadIdx.x;
 
   const int flags = p.flags;
-  const bool lens = (flags & HAS_APERTURE) && s_cam[C_APERTURE] > 0.f;
+  const bool lens = (flags & HAS_APERTURE) && sh.cam[C_APERTURE] > 0.f;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const int nt = p.n_threads;
   unsigned int n_replay = 0, n_reverse = 0;
   unsigned int w_replay = 0, n_back = 0, w_back = 0;  // kTimeSimt
   LaneSink lane_sink{0.f};                           // the timing cuts' sink
 
-  // the lane's item (sample s_item, pixel local; the thread's first is
-  // item tid, and each next n_threads = step_s samples and step_pix pixels
-  // further)
-  // and state: the ray (o, d) and throughput T of the replay, or the
-  // record being walked back and the adjoints (go, gd, gT); depth counts
-  // the records.  The sample's counters (pix, sid) are worked out from
-  // the item where they are used: kept in registers, they spill.
-  const int step_s = nt / p.n_pix, step_pix = nt % p.n_pix;
-  int s_item = tid / p.n_pix, local = tid % p.n_pix, depth = 0;
+  // the lane's item and state: the ray (o, d) and throughput T of the
+  // replay, or the record being walked back and the adjoints (go, gd, gT);
+  // depth counts the records
+  Items it(p, tid);
+  int depth = 0;
   bool back = false;
   float o[3], d[3], T[3], go[3], gd[3], gT[3];
   for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
 
-  auto advance = [&]() {
-    s_item += step_s;
-    local += step_pix;
-    if (local >= p.n_pix) {
-      local -= p.n_pix;
-      ++s_item;
-    }
-  };
-  // Takes the item at (s_item, local), or the first after it whose pixel
-  // has a nonzero cotangent, and casts its camera ray; false when none is
-  // left.
-  auto next_item = [&]() -> bool {
-    for (; s_item < p.n_samples; advance()) {
-      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
-        continue;
-      const int lin = p.pix_offset + local;
-      const uint32_t pix = (uint32_t)lin,
-                     sid = p.sample_base + (uint32_t)s_item;
-      camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
-                 (float)(lin % p.width), (float)(lin / p.width), o, d);
-      for (int k = 0; k < 3; ++k) T[k] = 1.f;
-      depth = 0;
-      back = false;
-      return true;
-    }
-    return false;
-  };
-  // The adjoint of the camera ray, d0 = L + H uu + V vv - o0,
-  // o0 = O (+ DU lx + DV ly), into the thread's camera cotangents.
-  auto camera_adjoint = [&]() {
-    const int lin = p.pix_offset + local;
-    const uint32_t pix = (uint32_t)lin,
-                   sid = p.sample_base + (uint32_t)s_item;
-    float o0[3], d0[3];
-    const CamDraw cd =
-        camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
-                   (float)(lin % p.width), (float)(lin / p.width), o0, d0);
-    for (int k = 0; k < 3; ++k) {
-      const float gok = go[k] - gd[k];
-      gcam[(C_L + k) * kThreads] += gd[k];
-      gcam[(C_H + k) * kThreads] += cd.uu * gd[k];
-      gcam[(C_V + k) * kThreads] += cd.vv * gd[k];
-      gcam[(C_O + k) * kThreads] += gok;
-      if (lens) {
-        gcam[(C_DU + k) * kThreads] += cd.lx * gok;
-        gcam[(C_DV + k) * kThreads] += cd.ly * gok;
-      }
-    }
-  };
-  auto rec_at = [&](int k) -> float4* {
-    return reinterpret_cast<float4*>(p.rec +
-                                      ((size_t)k * nt + tid) * kRecAoS);
-  };
-
-  bool live = next_item();
+  bool live = it.start(p, sh.cam, o, d, T);
   while (__any_sync(kFullMask, live)) {
     const bool replay = live && !back;
     const bool reverse = live && back;
@@ -1052,8 +1125,7 @@ __global__ void __launch_bounds__(kThreads, 6)
     }
     bool done = false;       // the item ends in this iteration
     bool at_camera = false;  // its walk back reaches the camera
-    const uint32_t pix = (uint32_t)(p.pix_offset + local),
-                   sid = p.sample_base + (uint32_t)s_item;
+    const uint32_t pix = it.pix(p), sid = it.sid(p);
 
     if (replay) {
       // ---- one bounce of the replay (the forward's device code) ----
@@ -1081,7 +1153,7 @@ __global__ void __launch_bounds__(kThreads, 6)
           done = true;  // black
         } else {
           if constexpr (!kReplayOnly) {
-            float4* r4 = rec_at(depth);
+            float4* r4 = flat_record(p, depth, tid);
             r4[0] = make_float4(o[0], o[1], o[2], d[0]);
             r4[1] = make_float4(d[1], d[2], T[0], T[1]);
             r4[2] = make_float4(T[2], (float)bi, 0.f, 0.f);
@@ -1099,10 +1171,11 @@ __global__ void __launch_bounds__(kThreads, 6)
         done = true;
       } else if (ending != END_BLACK) {
         // ---- the seed: c = T * src, clamped, NaN -> 0 ----
+        const int local = it.local;
         const float g[3] = {p.g_r[local], p.g_g[local], p.g_b[local]};
         float src[3];
         if (ending == END_MISS)
-          sky_colour(s_cam, flags, d, dot3(d, d), src);
+          sky_colour(sh.cam, flags, d, dot3(d, d), src);
         else
           for (int k = 0; k < 3; ++k) src[k] = s_sph[(F_ALR + k) * n + bi];
         float gcv[3];
@@ -1128,7 +1201,7 @@ __global__ void __launch_bounds__(kThreads, 6)
               if constexpr (kNoAtomics)
                 lane_sink.add(0, gcv[k] * T[k]);
               else
-                atomicAdd(&s_acc[(G_ALR + k) * n + bi], gcv[k] * T[k]);
+                atomicAdd(&sh.acc[(G_ALR + k) * n + bi], gcv[k] * T[k]);
             }
           } else if (flags & SKY_CONST) {
             for (int k = 0; k < 3; ++k)
@@ -1153,7 +1226,7 @@ __global__ void __launch_bounds__(kThreads, 6)
       // ---- one bounce walked back, from its record ----
       --depth;
       if constexpr (kSimt) ++n_back;
-      const float4* r4 = rec_at(depth);
+      const float4* r4 = flat_record(p, depth, tid);
       const float4 a = r4[0], b = r4[1], c = r4[2];
       o[0] = a.x; o[1] = a.y; o[2] = a.z;
       d[0] = a.w; d[1] = b.x; d[2] = b.y;
@@ -1166,101 +1239,69 @@ __global__ void __launch_bounds__(kThreads, 6)
         RowSink rows{};
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, bi, go, gd, gT, rows);
-        add_rows_aggregated(rev_lanes, bi, rows.v, s_acc, n, flags);
+        add_rows_aggregated(rev_lanes, bi, rows.v, sh.acc, n, flags);
       }
       at_camera = depth == 0;
     }
     if (at_camera) {
-      camera_adjoint();
+      camera_adjoint(it, p, sh.cam, lens, go, gd, gcam);
       done = true;
     }
     if (done) {
-      advance();
-      live = next_item();
+      it.advance(p);
+      live = it.start(p, sh.cam, o, d, T);
+      depth = 0;
+      back = false;
     }
   }
 
-  // ---- flush: the counts, the block's sphere cotangents (one global
-  // atomic per entry) and its camera cotangents, summed over the threads
-  // in a fixed order into the block's row of cam_part ----
+  // ---- flush: the counts, then the block's sums ----
   if constexpr (kNoAtomics || kReplayOnly) gcam[0] += lane_sink.sum;
   if (p.counts != nullptr) {
-    const unsigned int w0 = __reduce_add_sync(kFullMask, n_replay);
-    const unsigned int w1 = __reduce_add_sync(kFullMask, n_reverse);
-    if (lane == 0) {
-      atomicAdd(&p.counts[0], (unsigned long long)w0);
-      atomicAdd(&p.counts[1], (unsigned long long)w1);
-    }
+    count_warp(&p.counts[0], n_replay);
+    count_warp(&p.counts[1], n_reverse);
     if constexpr (kSimt) {
-      const unsigned int w3 = __reduce_add_sync(kFullMask, n_back);
+      count_warp(&p.counts[3], n_back);
       if (lane == 0) {
         atomicAdd(&p.counts[2], (unsigned long long)w_replay);
-        atomicAdd(&p.counts[3], (unsigned long long)w3);
         atomicAdd(&p.counts[4], (unsigned long long)w_back);
       }
     }
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
-    const float v = s_acc[k];
-    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
-  }
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
-    float v = 0.f;
-    for (int t = 0; t < kThreads; ++t) v += s_gcam[k * kThreads + t];
-    p.cam_part[blockIdx.x * kCamSlots + k] = v;
-  }
+  flush_flat(p, sh);
 }
 
-// ---- K5 and K7: the mesh backward, one flat loop per lane ----
+// ---- K5 and K7: the mesh backward ----
 //
-// K4's schedule with the mesh's replay and the triangle bounces: each lane
-// takes work items (pixel, sample) from K4's static map (item i = sample *
-// n_pix + pixel; thread t takes t, t + n_threads, ...), so that
-// neighbouring lanes hold neighbouring pixels of one sample and K7's reads
-// of sky_rows are neighbouring words, and runs one flat loop over (item,
-// phase, bounce): each iteration steps every live lane by one replay
-// bounce or one bounce walked back.  The replay is the forward's device
-// code (closest_sphere, mesh.cuh's closest_triangle, scatter_material,
-// camera_ray), the same as K6's, so K7 takes K6's discrete decisions bit
-// for bit.  Records are three float4 at (depth * n_threads + thread): the
-// origin, direction, throughput, winner code, hit t and plan-order
-// triangle id.  A sphere bounce walked back sums its cotangents over the
-// warp's lanes that hit the same sphere before the shared atomic
-// (add_rows_aggregated); a triangle bounce adds its cotangents to gtri
-// with a global atomic per row, as the earlier design did (summing them
-// over the lanes that hit the same triangle first was 2-3% slower: they
-// are few, and the neighbours' triangles differ).  Camera cotangents as
-// K4's: each thread's in the order of its items, in its shared column,
-// then the columns in order into the block's row of cam_part.  What the
-// measurements chose (chip_smoke.py phase 6g, PERF.md): the flat
-// loop halves the replay's warp iterations (its SIMT efficiency 29% ->
-// 52%), which is most of K5 and K7 at 15,360 triangles, and 7 blocks an
-// SM hide the walk's dependent loads (1.5x faster than 5 spill-free
-// blocks); a walk back run to the camera in the iteration its sample's
-// replay ends, the triangle-major table in the replay, and 5, 6 or 8
-// blocks an SM were slower.
+// The flat loop above with the mesh's replay and the triangle bounces.  As
+// items map neighbouring lanes to neighbouring pixels of one sample, K7's
+// reads of sky_rows are neighbouring words.  The replay is the forward's
+// device code (closest_sphere, mesh.cuh's closest_triangle,
+// scatter_material, camera_ray), the same as K6's, so K7 takes K6's
+// discrete decisions bit for bit.  Records hold the origin, direction,
+// throughput, winner code, hit t and plan-order triangle id.  A triangle
+// bounce adds its cotangents to gtri with a global atomic per row, as the
+// earlier design did (summing them over the lanes that hit the same
+// triangle first was 2-3% slower: they are few, and the neighbours'
+// triangles differ).  What the measurements chose (chip_smoke.py phase 6g,
+// PERF.md): the flat loop halves the replay's warp iterations (its SIMT
+// efficiency 29% -> 52%), which is most of K5 and K7 at 15,360 triangles,
+// and 7 blocks an SM hide the walk's dependent loads (1.5x faster than 5
+// spill-free blocks); a walk back run to the camera in the iteration its
+// sample's replay ends, the triangle-major table in the replay, and 5, 6
+// or 8 blocks an SM were slower.
 //
-// Timing-only instances (kTime bits), which only chip_smoke.py's split of
-// K5's and K7's time launches (the measurement build ORT_K5_VARIANTS): the
-// sphere atomics, or the triangle atomics, as plain adds into a
-// lane-private sum (wrong on purpose), the replay alone, and the SIMT
-// counts (counts[4..6], as the earlier design's).
+// Timing-only instances besides those above: the triangle atomics as
+// plain adds into a lane-private sum (wrong on purpose).  The SIMT counts
+// go to counts[4..6], as the earlier design's.
 enum MeshTime { kTimeNoTriAtomics = 8 };
-// The blocks an SM the register budget is set for: 72 registers, 82 and
-// 92 bytes spilled (K7, K5), faster than the 88 spill-free registers of 5
-// blocks an SM (PERF.md).
+// The blocks an SM the register budget is set for: 72 registers, with 58
+// bytes spilled (K5 and K7 alike), faster than the 88 spill-free
+// registers of 5 blocks an SM (PERF.md).
 constexpr int kMeshBlocks = 7;
 
-// Dynamic shared memory of K5 and K7 for n spheres: K4's, with the mesh
-// camera table's slots.
-static size_t k5_smem_bytes(int n) {
-  return sizeof(float) * ((size_t)(kFields + kGradRows) * n + kMeshCamSlots +
-                          (size_t)kCamSlots * kThreads);
-}
-
-template <int kSky, int kTime = 0, int kMinBlocks = kMeshBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int kSky, int kTime = 0>
+__global__ void __launch_bounds__(kThreads, kMeshBlocks)
     mesh_megagrad(const Params p) {
   constexpr bool kNoAtomics = (kTime & kTimeNoAtomics) != 0;
   constexpr bool kNoTriAtomics = (kTime & kTimeNoTriAtomics) != 0;
@@ -1268,94 +1309,34 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr bool kSimt = (kTime & kTimeSimt) != 0;
   extern __shared__ float smem[];
   const int n = p.n_spheres;
-  float* const s_sph = smem;                    // kFields rows of n
-  float* const s_acc = s_sph + kFields * n;     // kGradRows rows of n
-  float* const s_cam = s_acc + kGradRows * n;   // kMeshCamSlots
-  float* const s_gcam = s_cam + kMeshCamSlots;  // kCamSlots rows of kThreads
-  for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
-    s_sph[k] = p.sph[(k / n) * p.tab_w + k % n];
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
-    s_acc[k] = 0.f;
-  for (int k = threadIdx.x; k < kMeshCamSlots; k += blockDim.x)
-    s_cam[k] = p.cam[k];
-  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
-    s_gcam[k] = 0.f;
-  __syncthreads();
+  float* const s_acc = smem + kFields * n;
+  float* const s_tab = s_acc + kGradRows * n;  // the camera table
+  const FlatShared sh{smem, s_acc, s_tab, s_tab + kMeshCamSlots};
+  load_flat_shared(p, sh, kMeshCamSlots);
+  const float* const s_sph = sh.sph;
+  // read through a const pointer from here: through a float*, nvcc
+  // spills K5 more
+  const float* const s_cam = sh.cam;
   // this thread's camera cotangents: slot k at gcam[k * kThreads]
-  float* const gcam = s_gcam + threadIdx.x;
+  float* const gcam = sh.gcam + threadIdx.x;
 
   const int flags = p.flags;
   const bool lens = (flags & HAS_APERTURE) && s_cam[C_APERTURE] > 0.f;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const int nt = p.n_threads;
   const int tp = p.mt.t_pad;
   unsigned int n_replay = 0, n_reverse = 0, n_tests = 0, n_reverse_tri = 0;
   unsigned int w_replay = 0, n_back = 0, w_back = 0;  // kTimeSimt
   LaneSink lane_sink{0.f};                           // the timing cuts' sink
 
-  // the lane's item (sample s_item, pixel local), as K4's, and state: the
-  // ray (o, d) and throughput T of the replay, or the record being walked
-  // back and the adjoints (go, gd, gT); depth counts the records
-  const int step_s = nt / p.n_pix, step_pix = nt % p.n_pix;
-  int s_item = tid / p.n_pix, local = tid % p.n_pix, depth = 0;
+  // the lane's item and state, as K4's
+  Items it(p, tid);
+  int depth = 0;
   bool back = false;
   float o[3], d[3], T[3], go[3], gd[3], gT[3];
   for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
 
-  auto advance = [&]() {
-    s_item += step_s;
-    local += step_pix;
-    if (local >= p.n_pix) {
-      local -= p.n_pix;
-      ++s_item;
-    }
-  };
-  // Takes the item at (s_item, local), or the first after it whose pixel
-  // has a nonzero cotangent, and casts its camera ray; false when none is
-  // left.
-  auto next_item = [&]() -> bool {
-    for (; s_item < p.n_samples; advance()) {
-      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
-        continue;
-      const int lin = p.pix_offset + local;
-      const uint32_t pix = (uint32_t)lin,
-                     sid = p.sample_base + (uint32_t)s_item;
-      camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
-                 (float)(lin % p.width), (float)(lin / p.width), o, d);
-      for (int k = 0; k < 3; ++k) T[k] = 1.f;
-      depth = 0;
-      back = false;
-      return true;
-    }
-    return false;
-  };
-  // The adjoint of the camera ray into the thread's camera cotangents.
-  auto camera_adjoint = [&]() {
-    const int lin = p.pix_offset + local;
-    const uint32_t pix = (uint32_t)lin,
-                   sid = p.sample_base + (uint32_t)s_item;
-    float o0[3], d0[3];
-    const CamDraw cd =
-        camera_ray(s_cam, p.seed, p.width, p.height, flags, pix, sid,
-                   (float)(lin % p.width), (float)(lin / p.width), o0, d0);
-    for (int k = 0; k < 3; ++k) {
-      const float gok = go[k] - gd[k];
-      gcam[(C_L + k) * kThreads] += gd[k];
-      gcam[(C_H + k) * kThreads] += cd.uu * gd[k];
-      gcam[(C_V + k) * kThreads] += cd.vv * gd[k];
-      gcam[(C_O + k) * kThreads] += gok;
-      if (lens) {
-        gcam[(C_DU + k) * kThreads] += cd.lx * gok;
-        gcam[(C_DV + k) * kThreads] += cd.ly * gok;
-      }
-    }
-  };
-  auto rec_at = [&](int k) -> float4* {
-    return reinterpret_cast<float4*>(p.rec +
-                                      ((size_t)k * nt + tid) * kRecAoS);
-  };
-  bool live = next_item();
+  bool live = it.start(p, s_cam, o, d, T);
   while (__any_sync(kFullMask, live)) {
     const bool replay = live && !back;
     const bool reverse = live && back;
@@ -1369,8 +1350,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     bool done = false;       // the item ends in this iteration
     bool at_camera = false;  // its walk back reaches the camera
-    const uint32_t pix = (uint32_t)(p.pix_offset + local),
-                   sid = p.sample_base + (uint32_t)s_item;
+    const uint32_t pix = it.pix(p), sid = it.sid(p);
 
     if (replay) {
       // ---- one bounce of the replay (the forward's device code) ----
@@ -1411,7 +1391,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           done = true;  // black
         } else {
           if constexpr (!kReplayOnly) {
-            float4* r4 = rec_at(depth);
+            float4* r4 = flat_record(p, depth, tid);
             r4[0] = make_float4(o[0], o[1], o[2], d[0]);
             r4[1] = make_float4(d[1], d[2], T[0], T[1]);
             r4[2] = make_float4(T[2], (float)(tri_win ? n : bi), best_t,
@@ -1430,13 +1410,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         done = true;
       } else if (ending != END_BLACK) {
         // ---- the seed: c = T * src, clamped, NaN -> 0 ----
+        const int local = it.local;
         const float g[3] = {p.g_r[local], p.g_g[local], p.g_b[local]};
         float src[3];
         if (ending == END_MISS) {
           if constexpr (kSky == kSkyConsume) {
             // the sky value K6's lookup gave this sample
             for (int k = 0; k < 3; ++k)
-              src[k] = p.sky_rows[((size_t)k * p.n_samples + s_item) *
+              src[k] = p.sky_rows[((size_t)k * p.n_samples + it.s_item) *
                                       p.n_pix + local];
           } else {
             sky_colour(s_cam, flags, d, dot3(d, d), src);
@@ -1476,7 +1457,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                 if constexpr (kNoAtomics)
                   lane_sink.add(0, v);
                 else
-                  atomicAdd(&s_acc[(G_ALR + k) * n + bi], v);
+                  atomicAdd(&sh.acc[(G_ALR + k) * n + bi], v);
               }
             }
           } else if constexpr (kSky == kSkyConsume) {
@@ -1508,7 +1489,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (reverse) {
       --depth;
       if constexpr (kSimt) ++n_back;
-      const float4* r4 = rec_at(depth);
+      const float4* r4 = flat_record(p, depth, tid);
       const float4 a = r4[0], b = r4[1], c = r4[2];
       o[0] = a.x; o[1] = a.y; o[2] = a.z;
       d[0] = a.w; d[1] = b.x; d[2] = b.y;
@@ -1537,55 +1518,39 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         RowSink rows{};
         bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
                        d, T, code, go, gd, gT, rows);
-        add_rows_aggregated(sph_lanes, code, rows.v, s_acc, n, flags);
+        add_rows_aggregated(sph_lanes, code, rows.v, sh.acc, n, flags);
       }
     }
     if (reverse && depth == 0) at_camera = true;
     if (at_camera) {
-      camera_adjoint();
+      camera_adjoint(it, p, s_cam, lens, go, gd, gcam);
       done = true;
     }
     if (done) {
-      advance();
-      live = next_item();
+      it.advance(p);
+      live = it.start(p, s_cam, o, d, T);
+      depth = 0;
+      back = false;
     }
   }
 
-  // ---- flush: the counts, the block's sphere cotangents (one global
-  // atomic per entry) and its camera cotangents, summed over the threads
-  // in a fixed order into the block's row of cam_part ----
+  // ---- flush: the counts, then the block's sums ----
   if constexpr (kNoAtomics || kNoTriAtomics || kReplayOnly)
     gcam[0] += lane_sink.sum;
   if (p.counts != nullptr) {
-    const unsigned int w0 = __reduce_add_sync(kFullMask, n_replay);
-    const unsigned int w1 = __reduce_add_sync(kFullMask, n_reverse);
-    const unsigned int w2 = __reduce_add_sync(kFullMask, n_tests);
-    const unsigned int w3 = __reduce_add_sync(kFullMask, n_reverse_tri);
-    if (lane == 0) {
-      atomicAdd(&p.counts[0], (unsigned long long)w0);
-      atomicAdd(&p.counts[1], (unsigned long long)w1);
-      atomicAdd(&p.counts[2], (unsigned long long)w2);
-      atomicAdd(&p.counts[3], (unsigned long long)w3);
-    }
+    count_warp(&p.counts[0], n_replay);
+    count_warp(&p.counts[1], n_reverse);
+    count_warp(&p.counts[2], n_tests);
+    count_warp(&p.counts[3], n_reverse_tri);
     if constexpr (kSimt) {
-      const unsigned int w5 = __reduce_add_sync(kFullMask, n_back);
+      count_warp(&p.counts[5], n_back);
       if (lane == 0) {
         atomicAdd(&p.counts[4], (unsigned long long)w_replay);
-        atomicAdd(&p.counts[5], (unsigned long long)w5);
         atomicAdd(&p.counts[6], (unsigned long long)w_back);
       }
     }
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x) {
-    const float v = s_acc[k];
-    if (v != 0.f) atomicAdd(&p.gsph[kGradField[k / n] * p.tab_w + k % n], v);
-  }
-  for (int k = threadIdx.x; k < kCamSlots; k += blockDim.x) {
-    float v = 0.f;
-    for (int t = 0; t < kThreads; ++t) v += s_gcam[k * kThreads + t];
-    p.cam_part[blockIdx.x * kCamSlots + k] = v;
-  }
+  flush_flat(p, sh);
 }
 
 // Threads to launch for n_work items (pixels, or the pixel samples of K4,
@@ -1654,19 +1619,19 @@ static bool sphere_params(Params& p, const float* cam, const float* sph,
 extern "C" int sphere_megagrad_threads(long long n_items, int n_spheres) {
   return resident_threads(
       (const void*)sphere_megagrad<>,
-      k4_smem_bytes(n_spheres), n_items);
+      flat_smem_bytes(n_spheres, kCamSlots), n_items);
 }
 
 // Threads K5 and K7 launch for n_items = pixels x samples with n_spheres
 // spheres.
 extern "C" int mesh_megagrad_threads(long long n_items, int n_spheres) {
   return resident_threads((const void*)mesh_megagrad<kSkyComputed>,
-                          k5_smem_bytes(n_spheres), n_items);
+                          flat_smem_bytes(n_spheres, kMeshCamSlots), n_items);
 }
 
 extern "C" int hdr_consume_threads(long long n_items, int n_spheres) {
   return resident_threads((const void*)mesh_megagrad<kSkyConsume>,
-                          k5_smem_bytes(n_spheres), n_items);
+                          flat_smem_bytes(n_spheres, kMeshCamSlots), n_items);
 }
 
 // Launches K4 on `stream` and returns cudaGetLastError(): nonzero when the
@@ -1691,7 +1656,7 @@ extern "C" int sphere_megagrad_launch(
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
   sphere_megagrad<>
-      <<<n_threads / kThreads, kThreads, k4_smem_bytes(n_spheres),
+      <<<n_threads / kThreads, kThreads, flat_smem_bytes(n_spheres, kCamSlots),
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1727,7 +1692,7 @@ extern "C" int sphere_megagrad_variant_threads(int v, int n_pix,
   if (v < kOldVariants)
     return resident_threads((const void*)kVariants[0], 0, n_pix);
   return resident_threads((const void*)sphere_megagrad<>,
-                          k4_smem_bytes(n_spheres),
+                          flat_smem_bytes(n_spheres, kCamSlots),
                           (long long)n_pix * n_samples);
 }
 
@@ -1749,7 +1714,7 @@ extern "C" int sphere_megagrad_variant_launch(
                      flags))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0 || n_samples == 0) return 0;
-  const size_t smem = v < kOldVariants ? 0 : k4_smem_bytes(n_spheres);
+  const size_t smem = v < kOldVariants ? 0 : flat_smem_bytes(n_spheres, kCamSlots);
   kVariants[v]<<<n_threads / kThreads, kThreads, smem,
                  (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
@@ -1812,7 +1777,7 @@ extern "C" int mesh_megagrad_launch(
   p.mesh_type = mesh_type;
   p.gtri = gtri;
   mesh_megagrad<kSkyComputed>
-      <<<n_threads / kThreads, kThreads, k5_smem_bytes(n_spheres),
+      <<<n_threads / kThreads, kThreads, flat_smem_bytes(n_spheres, kMeshCamSlots),
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1933,7 +1898,7 @@ extern "C" int hdr_consume_launch(
   p.rec = rec;
   p.n_threads = n_threads;
   mesh_megagrad<kSkyConsume>
-      <<<n_threads / kThreads, kThreads, k5_smem_bytes(n_spheres),
+      <<<n_threads / kThreads, kThreads, flat_smem_bytes(n_spheres, kMeshCamSlots),
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1986,7 +1951,7 @@ const void* mesh_base(const MeshVariant& mv) {
 // fewer registers, and would otherwise differ in occupancy as well as in
 // work); -1 when an occupancy query fails.
 long long mesh_variant_smem(const MeshVariant& mv, int n_spheres) {
-  size_t smem = mv.earlier ? 0 : k5_smem_bytes(n_spheres);
+  size_t smem = mv.earlier ? 0 : flat_smem_bytes(n_spheres, kMeshCamSlots);
   if (!mv.cut) return (long long)smem;
   int base = 0, own = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&base, mesh_base(mv),
@@ -2011,7 +1976,7 @@ extern "C" int mesh_megagrad_variant_threads(int v, int n_pix, int n_samples,
   const MeshVariant& mv = kMeshVariants[v];
   if (mv.earlier) return resident_threads(mesh_base(mv), 0, n_pix);
   return resident_threads(mv.cut ? mesh_base(mv) : (const void*)mv.fn,
-                          k5_smem_bytes(n_spheres),
+                          flat_smem_bytes(n_spheres, kMeshCamSlots),
                           (long long)n_pix * n_samples);
 }
 
