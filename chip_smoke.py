@@ -81,7 +81,17 @@ Phases, each printing JSON lines on standard output:
    efficiency of replay and walk back of both designs; every instance
    that is not a cut counts K5's (K7's) bounces, triangle tests and
    triangle bounces and agrees with it within 1e-4, and two launches of
-   K5 (K7) give equal camera cotangents.
+   K5 (K7) give equal camera cotangents.  6h: K6's split at
+   REFERENCE_DEFAULTS on both flagship scenes, from the measurement build
+   ORT_K6_VARIANTS (K6_VARIANTS): the median of 5 CUDA-event times after a
+   warm-up, in turns, of K6, the earlier design (a thread per pixel, the
+   megagrad template's emit instance) and its timing cuts (the replay
+   alone, the replay with its emit rows) and K6's replay alone; K6's
+   second pass (the sums in sample order) as the difference of K6's
+   counting instance with and without it; the SIMT
+   efficiency of both designs' replay; every instance
+   that is not a cut gives K6's records and non-sky sums bit for bit and
+   its bounces and triangle tests, and two launches of K6 give equal ones.
 7. fit: 5 Adam steps of ``fit_scene`` on the README scene's albedo at the
    main path's configuration, after one throwaway Adam step that takes
    torch's one-time optimizer set-up; the loss must fall.
@@ -93,8 +103,10 @@ Phases, each printing JSON lines on standard output:
    tolerance above.  Then the closest-triangle kernel against its plain
    version on 2^20 rays aimed into the box of the 15,360-triangle torus,
    and on 2^16 rays into a 2,304-triangle torus split over 40 boxes:
-   indices equal on at least 99.99% of the rays, t within 1e-6 relative
-   where they agree.
+   t and indices equal to the plain version's bit for bit (both take the
+   same fma chains; so also indices equal on at least 99.99% of the rays
+   and t within 1e-6 relative), and t, indices and triangle tests equal to
+   the earlier design's (the measurement build ORT_K3_VARIANTS).
 9. the mesh main path: ``render(reference_scene(16/9, mesh_tris=tris,
    mesh_aabb=aabb), REFERENCE_DEFAULTS)`` (1280x720, 5 spp, depth 32) with
    the bundled 576-triangle torus and with the 15,360-triangle procedural
@@ -111,7 +123,17 @@ Phases, each printing JSON lines on standard output:
    events); its image against the mesh megakernel's under the forward
    tolerance.  Then the closest-triangle kernel against its plain version
    on the ray batch of that path that ran the most triangle tests, under
-   the tolerance of phase 8.
+   the tolerance of phase 8.  10b: K3's split on that batch and the two
+   of phase 8, from the measurement build ORT_K3_VARIANTS (K3_VARIANTS):
+   the median of 5 CUDA-event times after a warm-up, in turns, of K3, the
+   earlier design (a block-wide vote per chunk, the chunks staged in
+   shared memory) and its cuts (no staging; no vote and no staging; the
+   chunk gates twice; the triangle tests twice) and K3 with its tests
+   twice, and the launches of the plain route and of phase 16's plain
+   gradient route, each launch timed with K3 and with the earlier design
+   (route_launch_ms); the SIMT
+   efficiency of both designs' slabs and runs; every instance gives the
+   earlier design's t and indices bit for bit and its triangle tests.
 12. mesh gradient parity: the mesh backward kernel (K5) against its plain
    version (autograd of the plain wavefront with the winner hit in plane
    form) on the same tables and image cotangent, at 160x90, 4 spp, depth
@@ -163,8 +185,9 @@ Phases, each printing JSON lines on standard output:
    of 3 each, counts set to 0 just before and read just after (the
    forward runs K2 alone, the gradient K6 and K7 alone); the image of
    render() bit-identical to K2's, the fused route's image within the
-   forward tolerance of it; K2, K6 and K7 alone by CUDA events, with
-   their counts and bounds, and the fwd+bwd's host remainder; then a
+   forward tolerance of it; two launches of K6 give equal records and
+   non-sky sums; K2, K6 and K7 alone by CUDA events, with their counts
+   and bounds, and the fwd+bwd's host remainder; then a
    5-step ``fit_scene`` of ``sky.image`` from a sky scaled by 0.85
    towards the true sky's image, whose loss must fall.
 21. hdr_scene_json: ``scene_from_json`` with ``assets/sky.hdr`` rendered
@@ -197,7 +220,7 @@ Phases, each printing JSON lines on standard output:
    1280x720x5/d32) in a subprocess on the card; ``read_bmp`` of its output
    equal to ``tonemap_u8(render())`` of the same scene.
 27. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
-   window-mode keys and K4's, K5's and K7's the earlier design's time, and
+   window-mode keys and K3's to K7's the earlier design's time, and
    the result line.  Each of phases 12 to 16, 21 and
    22 to 23 prints its seconds.
 
@@ -269,8 +292,9 @@ FIT_LR = 1e-3
 # and options (K1_VARIANTS), the mesh forward with the walk's counting and
 # timing instances (K2_VARIANTS), and the mesh forward and the backward
 # with the earlier walk over every chunk (ORT_FLAT_WALK: K2, K5, K6 and K7
-# with the walk as it was before the grouped walk), and the backward with
-# the instances of K5's and K7's split (K5_VARIANTS).
+# with the walk as it was before the grouped walk), the backward with the
+# instances of K5's and K7's split (K5_VARIANTS) and of K6's (K6_VARIANTS),
+# and the closest-triangle kernel with the instances of K3's (K3_VARIANTS).
 KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad": ("megagrad", ()),
            "megamesh": ("megamesh", ()),
@@ -281,7 +305,10 @@ KERNELS = {"megakernel": ("megakernel", ()),
            "megamesh_k2_variants": ("megamesh", ("ORT_K2_VARIANTS",)),
            "megamesh_flat_walk": ("megamesh", ("ORT_FLAT_WALK",)),
            "megagrad_flat_walk": ("megagrad", ("ORT_FLAT_WALK",)),
-           "megagrad_k5_variants": ("megagrad", ("ORT_K5_VARIANTS",))}
+           "megagrad_k5_variants": ("megagrad", ("ORT_K5_VARIANTS",)),
+           "megagrad_k6_variants": ("megagrad", ("ORT_K6_VARIANTS",)),
+           "intersect_mm_k3_variants": ("intersect_mm",
+                                        ("ORT_K3_VARIANTS",))}
 # The instances of K1's measurement build (csrc/megakernel.cu kVariants),
 # in order: the earlier design (a pixel per thread, each branch drawing on
 # its own), its SIMT-counting instance and its timing cuts (each runs one
@@ -349,6 +376,32 @@ K5_CUTS = tuple(v for v in K5_VARIANTS if "replay" in v or "no_" in v)
 # against K5's or K7's: the atomics add in another order from run to run
 # (the two walks' K5 and K7 agreed within 2.7e-7 of each other).
 K5_AGREE = 1e-4
+# The instances of K6's measurement build (csrc/megagrad.cu
+# kEmitVariants), in order: the earlier design (a thread per pixel, the
+# megagrad template's emit instance, each pixel's non-sky sum its own), its
+# timing cuts (the replay alone, the replay with its emit rows written)
+# and its SIMT counts; K6's SIMT counts and its replay alone.  Each cut
+# runs at the threads and blocks an SM of the kernel it is cut from; the
+# cuts write no sums (K6_CUTS).  Every other instance gives K6's records
+# and sums bit for bit and counts its bounces and triangle tests.
+K6_VARIANTS = ("earlier_k6", "earlier_k6_replay_only",
+               "earlier_k6_replay_emit", "earlier_k6_simt", "k6_simt",
+               "k6_replay_only")
+K6_CUTS = ("earlier_k6_replay_only", "earlier_k6_replay_emit",
+           "k6_replay_only")
+# The instances of K3's measurement build (csrc/intersect_mm.cu
+# kVariants), in order: the earlier design (a thread per ray over every
+# chunk, a block-wide vote per chunk, the chunks some ray of the block
+# needs staged in shared memory) and its cuts (the runs read from device
+# memory, no vote and no staging, the chunk gates twice, the triangle
+# tests twice) and counts; then K3's walk counts and K3 with its triangle
+# tests twice.
+# Every instance gives the earlier design's t and index bit for bit and its
+# triangle tests (the "twice" cuts repeat them from the same ray and keep
+# the result apart).
+K3_VARIANTS = ("earlier_k3", "earlier_k3_no_stage", "earlier_k3_no_vote",
+               "earlier_k3_twice_gates", "earlier_k3_twice_tests",
+               "earlier_k3_count", "k3_count", "k3_twice_tests")
 # max|a - b| / max|b| of the sphere-table and camera cotangents against
 # K4's: the earlier design adds each lane's values straight into a block's
 # shared cell, 10^5 to 10^6 terms a cell in float32, and parts from K4 by
@@ -1214,11 +1267,406 @@ def k5_split(dev, built=None, time_new: bool = True) -> dict:
     return out
 
 
+def k6_variant(lib, v: int, cam, sph, n: int, tab, cfg, flags,
+               seed: int = 0, sums: bool = True):
+    """A launcher of instance v of K6's measurement build (K6_VARIANTS):
+    counts (3 int64) or None -> (emit, emis), as kernels/megagrad.py's
+    hdr_emit returns them (K6's instances' per-sample rows summed by its
+    second pass; with sums False, and for the cuts, that pass is not
+    launched and emis holds the rows)."""
+    import ctypes
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels.intersect_mm import table_args
+    from opencl_ray_tracer_tpu_torch.scene.sky import KIND_HDR
+    lib.hdr_emit_variant_launch.argtypes = [
+        ctypes.c_int, *mg._SYMBOLS["hdr_emit_launch"][0]]
+    lib.hdr_emit_variant_launch.restype = ctypes.c_int
+    n_pix = cfg.width * cfg.height
+    rows = not K6_VARIANTS[v].startswith("earlier")
+    sums = sums and rows and K6_VARIANTS[v] not in K6_CUTS
+    emit = torch.empty((mg.EMIT_ROWS, cfg.spp, n_pix), dtype=torch.float32,
+                       device=cam.device)
+    emis = torch.empty((3, cfg.spp, n_pix) if rows else (3, n_pix),
+                       dtype=torch.float32, device=cam.device)
+    out = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
+    bits = mk._flag_bits(cfg.replace(nan_policy="zero"), KIND_HDR, flags[:5])
+
+    def launch(counts=None):
+        rc = lib.hdr_emit_variant_launch(
+            v, cam.data_ptr(), sph.data_ptr(), sph.shape[1], n,
+            *table_args(tab), int(flags[5]), emit.data_ptr(),
+            emis.data_ptr(), out.data_ptr() if sums else None,
+            counts.data_ptr() if counts is not None else None, n_pix, 0,
+            seed, 0, cfg.spp, cfg.width, cfg.height, cfg.max_depth,
+            cfg.t_min, bits, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"K6 variant {K6_VARIANTS[v]}: CUDA error {rc}")
+        return emit, (out if sums else emis)
+
+    return launch
+
+
+def k6_split(dev, built=None, time_new: bool = True) -> dict:
+    """K6's split at REFERENCE_DEFAULTS (1280x720x5/d32) on both flagship
+    scenes (576 and 15,360 triangles under the tone-mapped HDR sky): K6 as
+    launched and every instance of its measurement build (K6_VARIANTS),
+    the median of 5 CUDA-event times after a warm-up (the launch that reads
+    the counts), in turns in one process.  The earlier design's time by
+    part (the replay, the emit rows, the non-sky sums), the SIMT efficiency
+    of both designs' replay (lane steps over warp iterations x 32), the
+    bound, and every instance that is not a cut against K6: equal records
+    and sums bit for bit, equal bounces and triangle tests; two launches of
+    K6 give equal records and sums.  With time_new False only the earlier
+    design's instances are timed."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    lib = _build.load(*KERNELS["megagrad_k6_variants"][:1], {},
+                      KERNELS["megagrad_k6_variants"][1])
+    cfg = ot.REFERENCE_DEFAULTS
+    n_pix = cfg.width * cfg.height
+    flagship = flagship_scenes()
+    out = {}
+    for case, key in (("hdr_576", "torus_576"), ("hdr_15360", "torus_15360")):
+        cam, sph, n, tab, flags, _ = mm.mesh_inputs(flagship[key], dev)
+
+        def kernel(c=None):
+            return mg.hdr_emit(cam, sph, n, tab, cfg, flags, 0, n_pix,
+                               counts=c)
+
+        fns = {"K6": kernel}
+        for i, name in enumerate(K6_VARIANTS):
+            fns[name] = k6_variant(lib, i, cam, sph, n, tab, cfg, flags)
+        counts, results = {}, {}
+        for name, fn in fns.items():
+            c = torch.zeros(3, dtype=torch.int64, device=dev)
+            res = fn(c[:2] if name == "K6" else c)
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            if name not in K6_CUTS:
+                results[name] = tuple(x.clone() for x in res)
+        base = results["K6"]
+        repeat = kernel()
+        torch.cuda.synchronize()
+        if not (torch.equal(repeat[0], base[0])
+                and torch.equal(repeat[1], base[1])):
+            fail(f"K6 split {case}: two launches of K6 differ")
+        for name in K6_VARIANTS:
+            if name in K6_CUTS:
+                continue
+            a = results[name]
+            if (not torch.equal(a[0], base[0])
+                    or not torch.equal(a[1], base[1])
+                    or counts[name][:2] != counts["K6"][:2]):
+                fail(f"K6 split {case}: {name} differs from K6 (counts "
+                     f"{counts[name][:2]} against {counts['K6'][:2]}, "
+                     f"largest sum difference "
+                     f"{float((a[1] - base[1]).abs().max())})")
+        ms = median_ms({k: f for k, f in fns.items()
+                        if not k.endswith("simt")
+                        and (time_new or k.startswith("earlier"))})
+        split = {"replay_ms": ms["earlier_k6_replay_only"],
+                 "emit_rows_ms": ms["earlier_k6_replay_emit"]
+                 - ms["earlier_k6_replay_only"],
+                 "nonsky_sums_ms": ms["earlier_k6"]
+                 - ms["earlier_k6_replay_emit"]}
+        if time_new:
+            # the second pass: K6's counting instance with and without it
+            v = K6_VARIANTS.index("k6_simt")
+            passes = median_ms({
+                s: k6_variant(lib, v, cam, sph, n, tab, cfg, flags, sums=s)
+                for s in (True, False)})
+            split.update(speedup=ms["earlier_k6"] / ms["K6"],
+                         new_replay_ms=ms["k6_replay_only"],
+                         new_outputs_ms=ms["K6"] - ms["k6_replay_only"],
+                         sample_sums_ms=passes[True] - passes[False])
+        simt = {}
+        for name in ("earlier_k6_simt", "k6_simt"):
+            c = counts[name]
+            simt[name] = {"replay": c[0] / (32 * c[2]) if c[2] else None,
+                          "replay_lane_steps": c[0],
+                          "replay_warp_iterations": c[2]}
+        replay, tests = counts["K6"][:2]
+        bound = bound_of(replay * n * FLOPS_PER_SPHERE_TEST
+                         + tests * FLOPS_PER_TRI_TEST,
+                         (cam.numel() + sph.numel()
+                          + base[0].numel() + base[1].numel()) * 4
+                         + walk_table_bytes(tab))
+        if time_new:
+            bound["share_of_bound"] = bound["bound_ms"] / ms["K6"]
+        out[case] = dict(ms=ms, split=split, simt=simt, bound=bound)
+        emit({"phase": "k6_split", "case": case, "size": "1280x720x5/d32",
+              **out[case], "counts": counts,
+              "ptxas": [ln for ln in ptxas_of(built, "megagrad")
+                        if "mesh_megagrad" in ln]
+              + ptxas_of(built, "megagrad_k6_variants")})
+        del results, base, repeat
+    return out
+
+
+def k3_random_batches(dev) -> dict:
+    """The closest-triangle kernel's random batches, (tables, o, d): 2^20
+    rays from around the camera into the box of the 15,360-triangle torus,
+    and 2^16 into the kept boxes of a 2,304-triangle torus split over 40
+    gating boxes (split_boxes)."""
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    big = torus_scene(128, 60).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lo, hi = big.boxes.box_min[0], big.boxes.box_max[0]
+    target = lo + (hi - lo) * torch.rand((2**20, 3), generator=gen,
+                                         device=dev)
+    o = (big.camera.look_from + 0.5 * torch.randn(
+        (2**20, 3), generator=gen, device=dev)).contiguous()
+    out = {"random_2^20": (im.mesh_tables(big), o,
+                           (target - o).contiguous())}
+    boxed = split_boxes(torus_scene(48, 24, (0.3, 0.0, -1.6))).to(dev)
+    kept = torch.arange(40, device=dev) % 3 != 0
+    lo = boxed.boxes.box_min[kept].amin(0)
+    hi = boxed.boxes.box_max[kept].amax(0)
+    target = lo + (hi - lo) * torch.rand((2**16, 3), generator=gen,
+                                         device=dev)
+    o = (boxed.camera.look_from + 0.5 * torch.randn(
+        (2**16, 3), generator=gen, device=dev)).contiguous()
+    out["40_boxes_2^16"] = (im.mesh_tables(boxed), o,
+                            (target - o).contiguous())
+    return out
+
+
+def k3_calls(dev, fn) -> tuple:
+    """fn() with each closest-triangle launch timed by CUDA events and
+    counting its triangle tests, the launch counts set to 0 just before and
+    read just after: (seconds, fn's result, the closest-triangle launches,
+    the mesh megakernel launches, and each launch's (start event, end
+    event, triangle tests, tables, o, d))."""
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    launch_k3 = im.closest_tri
+    calls = []
+
+    def closest_tri_timed(tab_, o, d, t_min, tests=None):
+        n_tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch_k3(tab_, o, d, t_min, n_tests)
+        end.record()
+        if tests is not None:
+            tests += n_tests
+        calls.append((start, end, n_tests, tab_, o.clone(), d.clone()))
+        return out
+
+    im.closest_tri = closest_tri_timed
+    try:
+        im.LAUNCHES = mm.LAUNCHES = 0
+        secs, out = timed(fn, reps=1)
+        return secs, out, im.LAUNCHES, mm.LAUNCHES, calls
+    finally:
+        im.closest_tri = launch_k3
+
+
+def plain_route_k3_calls(dev, scene, cfg) -> tuple:
+    """k3_calls of ``render()`` of scene with backend "jnp" (the plain
+    tracer on the card, whose triangle hit is the closest-triangle
+    kernel), seed 0."""
+    import opencl_ray_tracer_tpu_torch as ot
+    return k3_calls(dev, lambda: ot.render(
+        scene, cfg.replace(backend="jnp"), seed=0))
+
+
+def plain_grad_k3_calls(dev, scene, cfg) -> tuple:
+    """k3_calls of ``render_grad_sampled(grad_backend="plain")`` of scene
+    (autograd of the plain wavefront, whose winner search is the
+    closest-triangle kernel, as in the plain fits), loss mean(img^2),
+    seed 0: phase 16's route."""
+    import opencl_ray_tracer_tpu_torch as ot
+    return k3_calls(dev, lambda: ot.render_grad_sampled(
+        scene, cfg, lambda img: torch.mean(img ** 2), seed=0,
+        grad_backend="plain"))
+
+
+def k3_variant(lib, v: int, tab, o, d, t_min: float = 1e-3):
+    """A launcher of instance v of K3's measurement build (K3_VARIANTS) on
+    the rays (o, d): counts (15 int64: the triangle tests first) or None ->
+    (t, index int32)."""
+    import ctypes
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels.intersect_mm import table_args
+    lib.closest_tri_variant_launch.argtypes = [
+        ctypes.c_int, *im._SYMBOLS["closest_tri_launch"][0]]
+    lib.closest_tri_variant_launch.restype = ctypes.c_int
+    r = o.shape[0]
+    out_t = torch.empty((r,), dtype=torch.float32, device=o.device)
+    out_i = torch.empty((r,), dtype=torch.int32, device=o.device)
+    persistent = not K3_VARIANTS[v].startswith("earlier")
+
+    def launch(counts=None):
+        work = (torch.zeros(1, dtype=torch.int32, device=o.device)
+                if persistent else None)
+        rc = lib.closest_tri_variant_launch(
+            v, *table_args(tab), o.data_ptr(), d.data_ptr(), r, t_min,
+            out_t.data_ptr(), out_i.data_ptr(),
+            counts.data_ptr() if counts is not None else None,
+            work.data_ptr() if work is not None else None,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"K3 variant {K3_VARIANTS[v]}: CUDA error {rc}")
+        return out_t, out_i
+
+    return launch
+
+
+def k3_split(dev, built=None, time_new: bool = True, calls=None) -> dict:
+    """K3's split on three batches: the 2^20 random rays into the
+    15,360-triangle torus, the plain route's busiest batch (the plain
+    tracer's render of that scene at REFERENCE_DEFAULTS, the launch that
+    ran the most triangle tests; ``calls``: that render's launches, as
+    plain_route_k3_calls gives them, when the caller has them) and the
+    2^16 rays into the 40-box torus; and each design's time of all that
+    render's launches and of all the launches of phase 16's plain gradient
+    route (route_launch_ms).  K3 as launched and
+    every instance of its measurement build (K3_VARIANTS), the median of 5
+    CUDA-event times after a warm-up, in turns: the earlier design's time
+    by part (the votes with their staging, the staging alone, the chunk
+    gates, the triangle tests), the SIMT efficiency of the walk's slabs and
+    runs in both designs, the earlier design's staged chunks and the warps
+    idle in them, the bound; every instance gives the earlier design's t
+    and index bit for bit and its triangle tests.  With time_new False only
+    the earlier design's instances are timed."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    lib = _build.load(*KERNELS["intersect_mm_k3_variants"][:1], {},
+                      KERNELS["intersect_mm_k3_variants"][1])
+    batches = k3_random_batches(dev)
+    if calls is None:
+        *_, calls = plain_route_k3_calls(dev, torus_scene(128, 60),
+                                         ot.REFERENCE_DEFAULTS)
+    batches = {"random_2^20": batches["random_2^20"],
+               "plain_route_busiest": max(
+                   calls, key=lambda c: int(c[2].item()))[3:],
+               "40_boxes_2^16": batches["40_boxes_2^16"]}
+    n_kinds = len(K2_WALK_KINDS)
+    out = {}
+    for case, (tab, o, d) in batches.items():
+        fns = {"K3": lambda c=None, tab=tab, o=o, d=d: im.closest_tri(
+            tab, o, d, 1e-3, tests=c)}
+        for i, name in enumerate(K3_VARIANTS):
+            fns[name] = k3_variant(lib, i, tab, o, d)
+        counts, results = {}, {}
+        for name, fn in fns.items():
+            c = torch.zeros(15, dtype=torch.int64, device=dev)
+            t, idx = fn(c[:1] if name == "K3" else c)
+            torch.cuda.synchronize()
+            counts[name] = c.tolist()
+            results[name] = (t.clone(), idx.int().clone())
+        base = results["earlier_k3"]
+        for name, (t, idx) in results.items():
+            if (not torch.equal(t, base[0]) or not torch.equal(idx, base[1])
+                    or counts[name][0] != counts["earlier_k3"][0]):
+                fail(f"K3 split {case}: {name} differs from the earlier "
+                     f"design (tests {counts[name][0]} against "
+                     f"{counts['earlier_k3'][0]}, indices equal on "
+                     f"{float((idx == base[1]).float().mean())})")
+        ms = median_ms({k: f for k, f in fns.items()
+                        if not k.endswith("count")
+                        and (time_new or k.startswith("earlier"))})
+        e = "earlier_k3"
+        split = {"votes_and_staging_ms": ms[e] - ms[f"{e}_no_vote"],
+                 "staging_ms": ms[e] - ms[f"{e}_no_stage"],
+                 "gates_ms": ms[f"{e}_twice_gates"] - ms[e],
+                 "tests_ms": ms[f"{e}_twice_tests"] - ms[e]}
+        if time_new:
+            split.update(speedup=ms[e] / ms["K3"],
+                         new_tests_ms=ms["k3_twice_tests"] - ms["K3"])
+        simt = {}
+        for name in (f"{e}_count", "k3_count"):
+            c = counts[name]
+            simt[name] = {
+                k: (c[1 + i] / (32 * c[1 + n_kinds + i])
+                    if c[1 + n_kinds + i] else None)
+                for i, k in enumerate(K2_WALK_KINDS[:5])}
+            simt[name]["per_ray"] = {k: c[1 + i] / o.shape[0]
+                                     for i, k in enumerate(K2_WALK_KINDS[:5])}
+        c = counts[f"{e}_count"]
+        blocks = (o.shape[0] + 127) // 128
+        staged = c[1 + 2 * n_kinds]
+        simt[f"{e}_count"].update(
+            chunks_staged=staged,
+            staged_share=staged / (blocks * tab.chunk_box.shape[0]),
+            idle_warp_share_in_staged=(
+                1 - c[2 + 2 * n_kinds] / (4 * staged) if staged else None))
+        tests = counts["K3"][0]
+        bound = bound_of(tests * FLOPS_PER_TRI_TEST,
+                         walk_table_bytes(tab) + 8 * 4 * o.shape[0])
+        if time_new:
+            bound["share_of_bound"] = bound["bound_ms"] / ms["K3"]
+        out[case] = dict(ms=ms, split=split, simt=simt, bound=bound,
+                         n_rays=o.shape[0], tri_tests=tests,
+                         n_triangles=tab.plan.n_tris)
+        emit({"phase": "k3_split", "case": case, **out[case],
+              "counts": counts,
+              "ptxas": ptxas_of(built, "intersect_mm")
+              + ptxas_of(built, "intersect_mm_k3_variants")})
+        del results, base
+    # the two routes' launches, each design over all of them as its wrapper
+    # launched it (the earlier design's with the indices' conversion to
+    # int64, K3's with its work counter's zeroing too)
+    def earlier(tab, o, d):
+        fn = k3_variant(lib, K3_VARIANTS.index("earlier_k3"), tab, o, d)
+        return lambda: fn()[1].long()
+
+    designs = {"earlier_k3": earlier}
+    if time_new:
+        designs["K3"] = lambda tab, o, d: (
+            lambda: im.closest_tri(tab, o, d, 1e-3))
+    grad_cfg = ot.RenderConfig(width=160, height=90, spp=2, max_depth=8)
+    *_, grad_calls = plain_grad_k3_calls(dev, torus_scene(128, 60),
+                                         grad_cfg)
+    for case, route_calls in (("plain_route_launches", calls),
+                              ("plain_grad_route_launches", grad_calls)):
+        out[case] = route_launch_ms(designs, route_calls)
+        emit({"phase": "k3_split", "case": case, **out[case]})
+    return out
+
+
+def route_launch_ms(designs: dict, calls) -> dict:
+    """Each design's CUDA-event time of each of a route's closest-triangle
+    launches (calls, as k3_calls records them), the launches queued behind
+    a sleep on the card so that no host time falls between their events:
+    per launch its rays and the median of 3 times, and each design's sum
+    of those medians."""
+    launchers = {k: [make(*c[3:]) for c in calls]
+                 for k, make in designs.items()}
+    times = {k: [[] for _ in calls] for k in launchers}
+    for _ in range(3):
+        for k, fns in launchers.items():
+            events = []
+            torch.cuda._sleep(100_000_000)
+            for fn in fns:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(events):
+                times[k][i].append(a.elapsed_time(b))
+    per_launch = {k: [sorted(v)[1] for v in t] for k, t in times.items()}
+    return {"launches": len(calls),
+            "rays": sum(c[4].shape[0] for c in calls),
+            "ms": {k: sum(v) for k, v in per_launch.items()},
+            "per_launch_rays": [c[4].shape[0] for c in calls],
+            "per_launch_ms": per_launch}
+
+
 def split_only(*splits, time_new: bool = True) -> None:
     """The device line, the build and the splits alone (K1's, K2's walk,
-    K4's and K5's and K7's, or those named: "k1", "k2", "k4", "k5"), with
-    time_new False timing only the earlier designs:
-    python3 -c 'import chip_smoke; chip_smoke.split_only("k5")'."""
+    K4's, K5's and K7's, K6's and K3's, or those named: "k1", "k2", "k4",
+    "k5", "k6", "k3"), with time_new False timing only the earlier designs:
+    python3 -c 'import chip_smoke; chip_smoke.split_only("k6", "k3")'."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -1233,17 +1681,20 @@ def split_only(*splits, time_new: bool = True) -> None:
                              "ptxas": ptxas}
                       for name, (lib, secs, ptxas) in built.items()}})
     dev = torch.device("cuda")
-    for name in splits or ("k1", "k2", "k4", "k5"):
+    for name in splits or ("k1", "k2", "k4", "k5", "k6", "k3"):
         {"k1": lambda: k1_split(dev, built, time_new),
          "k2": lambda: k2_split(dev, built, time_new),
          "k4": lambda: k4_split(dev),
-         "k5": lambda: k5_split(dev, built, time_new)}[name]()
+         "k5": lambda: k5_split(dev, built, time_new),
+         "k6": lambda: k6_split(dev, built, time_new),
+         "k3": lambda: k3_split(dev, built, time_new)}[name]()
 
 
-def mesh_phases(dev) -> tuple:
-    """Phases 8 to 10 (see the module docstring): the kernels-line entries
-    of the mesh megakernel and the closest-triangle kernel."""
+def mesh_phases(dev, built) -> tuple:
+    """Phases 8 to 10b (see the module docstring): the kernels-line
+    entries of the mesh megakernel and the closest-triangle kernel."""
     import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import _build
     from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
     from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
     from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
@@ -1305,13 +1756,23 @@ def mesh_phases(dev) -> tuple:
         check_close(name, stats)
         mesh_parity_max = max(mesh_parity_max, stats["max_abs_diff"])
 
+    k3_var = _build.load(*KERNELS["intersect_mm_k3_variants"][:1], {},
+                         KERNELS["intersect_mm_k3_variants"][1])
+
     def k3_check(name, tab, o, d):
-        """The closest-triangle kernel against its plain version on the
-        rays (o, d): agreement, CUDA-event and plain times, the tests run
-        and the bound."""
+        """The closest-triangle kernel against its plain version and its
+        earlier design on the rays (o, d): agreement (t and index bit for
+        bit with both, equal triangle tests with the earlier design),
+        CUDA-event and plain times, the tests run and the bound."""
         tests = torch.zeros(1, dtype=torch.int64, device=dev)
         t_k, i_k = im.closest_tri(tab, o, d, 1e-3, tests=tests)
+        e_tests = torch.zeros(15, dtype=torch.int64, device=dev)
+        t_e, i_e = k3_variant(k3_var, K3_VARIANTS.index("earlier_k3"), tab,
+                              o, d)(e_tests)
         torch.cuda.synchronize()
+        earlier_equal = (torch.equal(t_k, t_e)
+                         and torch.equal(i_k, i_e.long())
+                         and tests.item() == e_tests[0].item())
         k_ms = kernel_ms(lambda: im.closest_tri(tab, o, d, 1e-3))
         t_plain, (t_p, i_p) = timed(
             lambda: im.closest_tri_plain(tab, o, d, 1e-3), reps=1)
@@ -1321,49 +1782,35 @@ def mesh_phases(dev) -> tuple:
         n = o.shape[0]
         out = dict(n_rays=n, hit_share=float(hit.float().mean()),
                    index_agree=float(same.float().mean()),
+                   bit_equal_plain=float(((t_k == t_p) & same)
+                                         .float().mean()),
+                   earlier_design_equal=earlier_equal,
                    max_rel_t=float(rel.max()) if rel.numel() else 0.0,
                    max_abs_t=float((t_k - t_p)[same & hit].abs().max())
                    if rel.numel() else 0.0,
                    kernel_ms=k_ms, plain_ms=1e3 * t_plain,
                    tri_tests=tests.item(),
                    **bound_of(tests.item() * FLOPS_PER_TRI_TEST,
-                              (tab.tri.numel() + tab.cluster.numel()
-                               + tab.sub.numel() + tab.boxes.numel()
-                               + tab.chunk_box.numel() + 8 * n) * 4))
+                              walk_table_bytes(tab) + 8 * 4 * n))
         emit({"phase": "closest_tri_parity", "case": name, **out})
-        if out["index_agree"] < 0.9999 or out["max_rel_t"] > 1e-6:
+        if (out["index_agree"] < 0.9999 or out["max_rel_t"] > 1e-6
+                or out["bit_equal_plain"] < 1.0 or not earlier_equal):
             fail(f"{name}: closest-triangle kernel and plain version "
                  f"disagree: {out}")
         return out
 
     # the closest-triangle kernel on 2^20 rays into the 15,360-triangle box
-    big = torus_scene(128, 60).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    n_rays = 2**20
-    lo, hi = big.boxes.box_min[0], big.boxes.box_max[0]
-    target = lo + (hi - lo) * torch.rand((n_rays, 3), generator=gen,
-                                         device=dev)
-    o = (big.camera.look_from + 0.5 * torch.randn(
-        (n_rays, 3), generator=gen, device=dev)).contiguous()
-    d = (target - o).contiguous()
-    k3_random = k3_check("torus_15360_random_2^20", im.mesh_tables(big), o, d)
+    # and on 2^16 rays into the 40 boxes of a split torus
+    batches = k3_random_batches(dev)
+    k3_random = k3_check("torus_15360_random_2^20",
+                         *batches["random_2^20"])
     if k3_random["hit_share"] < 0.1:
         fail(f"the random rays miss the mesh: {k3_random}")
-    # and on 2^16 rays into the 40 boxes of a split torus
-    boxed = split_boxes(torus_scene(48, 24, near)).to(dev)
-    kept = torch.arange(40, device=dev) % 3 != 0
-    lo = boxed.boxes.box_min[kept].amin(0)
-    hi = boxed.boxes.box_max[kept].amax(0)
-    target = lo + (hi - lo) * torch.rand((2**16, 3), generator=gen,
-                                         device=dev)
-    o = (boxed.camera.look_from + 0.5 * torch.randn(
-        (2**16, 3), generator=gen, device=dev)).contiguous()
-    d = (target - o).contiguous()
-    k3_boxes = k3_check("torus_2304_40_boxes_2^16", im.mesh_tables(boxed),
-                        o, d)
+    k3_boxes = k3_check("torus_2304_40_boxes_2^16",
+                        *batches["40_boxes_2^16"])
     if k3_boxes["hit_share"] < 0.01:
         fail(f"the random rays miss the split mesh: {k3_boxes}")
-    del o, d, target
+    del batches
 
     # ---- 9. the mesh main path ----
     ref = ot.REFERENCE_DEFAULTS
@@ -1451,30 +1898,8 @@ def mesh_phases(dev) -> tuple:
     # kernel as its triangle hit; each of its launches timed by CUDA events
     # and counting its triangle tests, and each ray batch kept for the
     # kernel's check at the shapes this path gives it ----
-    scene = meshes["torus_15360"]
-    jnp_cfg = ref.replace(backend="jnp")
-    launch_k3 = im.closest_tri
-    calls = []
-
-    def closest_tri_timed(tab_, o, d, t_min, tests=None):
-        n_tests = torch.zeros(1, dtype=torch.int64, device=dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = launch_k3(tab_, o, d, t_min, n_tests)
-        end.record()
-        if tests is not None:
-            tests += n_tests
-        calls.append((start, end, n_tests, tab_, o.clone(), d.clone()))
-        return out
-
-    im.closest_tri = closest_tri_timed
-    try:
-        im.LAUNCHES = mm.LAUNCHES = 0
-        secs, img = timed(lambda: ot.render(scene, jnp_cfg, seed=0), reps=1)
-        k3_launches, k2_after = im.LAUNCHES, mm.LAUNCHES
-    finally:
-        im.closest_tri = launch_k3
+    secs, img, k3_launches, k2_after, calls = plain_route_k3_calls(
+        dev, meshes["torus_15360"], ref)
     k3_in_route_ms = sum(c[0].elapsed_time(c[1]) for c in calls)
     call_tests = [int(c[2].item()) for c in calls]
     stats = compare(img, full["torus_15360"]["image"])
@@ -1492,11 +1917,15 @@ def mesh_phases(dev) -> tuple:
     # the kernel against its plain version on the batch of that path that
     # ran the most triangle tests
     busiest = calls[max(range(len(calls)), key=call_tests.__getitem__)]
-    del calls
     k3 = k3_check("torus_15360_plain_route_busiest_batch", *busiest[3:])
     if k3["tri_tests"] < 1:
         fail(f"the plain route's busiest batch ran no triangle test: {k3}")
     del busiest
+
+    # ---- 10b. K3's split on the three batches, and the route's launches
+    # with each design ----
+    k3s = k3_split(dev, built, calls=calls)
+    del calls
 
     r = full["torus_576"]
     f = full["torus_15360"]
@@ -1547,6 +1976,9 @@ def mesh_phases(dev) -> tuple:
         "random_2^20_index_agree": k3_random["index_agree"],
         "40_boxes_2^16_index_agree": k3_boxes["index_agree"],
         "40_boxes_2^16_ms": k3_boxes["kernel_ms"],
+        "redesign_median_ms": {c: k3s[c]["ms"]["K3"] for c in k3s},
+        "earlier_design_median_ms": {c: k3s[c]["ms"]["earlier_k3"]
+                                     for c in k3s},
     })
 
 
@@ -2159,6 +2591,11 @@ def hdr_phases(dev) -> list:
         c6 = torch.zeros(2, dtype=torch.int64, device=dev)
         emit_, emis = mg.hdr_emit(cam, sph, n, tab, ref, flags, 0, n_pix,
                                   counts=c6)
+        # the non-sky sums keep one order: two launches give them equal
+        emit2, emis2 = mg.hdr_emit(cam, sph, n, tab, ref, flags, 0, n_pix)
+        if not (torch.equal(emis, emis2) and torch.equal(emit_, emit2)):
+            fail(f"HDR main path {name}: two launches of K6 differ")
+        del emit2, emis2
         k6_ms = kernel_ms(lambda: mg.hdr_emit(cam, sph, n, tab, ref, flags, 0,
                                               n_pix))
         sky, flat = mg.hdr_lookup(image, emit_)
@@ -2914,6 +3351,10 @@ def main() -> None:
     # and K7 against it, the SIMT efficiencies ----
     k5s = k5_split(dev, built)
 
+    # ---- 6h. K6's split: the earlier design's time by part, K6 against
+    # it, the SIMT efficiencies ----
+    k6s = k6_split(dev, built)
+
     # ---- 7. fit: 5 Adam steps on the README scene's albedo ----
     true = ot.readme_scene(16 / 9)
     target = ot.render(true, bench, seed=0)
@@ -2949,7 +3390,7 @@ def main() -> None:
     if not losses[-1] < losses[0] or mg.LAUNCHES < 5:
         fail(f"fit: loss did not fall or skipped the kernels: {losses}")
 
-    mesh_entries = mesh_phases(dev)
+    mesh_entries = mesh_phases(dev, built)
     mesh_grad_entry = mesh_grad_phases(dev, mesh_entries[0])
     hdr_entries = hdr_phases(dev)
     windows = window_phases(dev, main_runs["readme"][1],
@@ -3031,6 +3472,11 @@ def main() -> None:
                 c: k5s[c]["ms"][k.upper()] for c in cases}
             entry["earlier_design_median_ms"] = {
                 c: k5s[c]["ms"][f"earlier_{k}"] for c in cases}
+        if entry["name"] == "hdr_emit":
+            entry["redesign_median_ms"] = {c: k6s[c]["ms"]["K6"]
+                                           for c in k6s}
+            entry["earlier_design_median_ms"] = {
+                c: k6s[c]["ms"]["earlier_k6"] for c in k6s}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -9,16 +9,16 @@
 //   triangle mesh in gating boxes (mesh=(n_chunks, chunk, chunk_box_ids,
 //   n_boxes, m_type), through _grad_tables_mesh_inner and its ladder), a
 //   kernel of its own with K4's flat loop (see the note above it).
-// - hdr_emit (K6): the HDR backward's first pass (hdr_mode="emit", through
-//   _hdr_emit_window and its ladder), on the scenes of the mesh megakernel's
-//   HDR scope, with or without triangles: the megagrad template's mesh
-//   replay alone (one thread per pixel), which writes each sample's miss
+// - mesh_megagrad<kSkyEmit> (K6): the HDR backward's first pass
+//   (hdr_mode="emit", through _hdr_emit_window and its ladder), on the
+//   scenes of the mesh megakernel's HDR scope, with or without triangles:
+//   K5's flat loop with the replay alone, which writes each sample's miss
 //   direction and throughput ((0, 0, 1) and 0 for a sample that did not
-//   miss) and each pixel's sum of the sample contributions that are not sky
-//   (emitters, clamped, NaN as 0).  The caller looks the texels up and
-//   rebuilds the image from these; the lookup stays a torch op, as it
-//   stays an XLA op in the JAX package, since the image's cotangent is a
-//   scatter over the same texels.
+//   miss) and its contribution that is not sky (an emitter's, clamped, NaN
+//   as 0), which a second pass launched with it sums per pixel.  The caller looks the texels
+//   up and rebuilds the image from these; the lookup stays a torch op, as
+//   it stays an XLA op in the JAX package, since the image's cotangent is
+//   a scatter over the same texels.
 // - mesh_megagrad<kSkyConsume> (K7): the second pass (hdr_mode="consume",
 //   through _hdr_consume_window and its ladder): K5 with each miss's sky
 //   value read from the caller's (3, n_samples, n_pix) rows instead of
@@ -28,10 +28,10 @@
 //   without triangles runs with no chunk and no gating box: no triangle is
 //   tested.
 //
-// The megagrad template, one thread per pixel, is also the earlier design
-// of K4, K5 and K7, which the measurement builds (ORT_K4_VARIANTS,
-// ORT_K5_VARIANTS) keep beside their timing cuts for chip_smoke.py's
-// splits; no entry point launches it but as K6.
+// The megagrad template, one thread per pixel, is the earlier design of
+// K4 to K7.  Only the measurement builds (ORT_K4_VARIANTS, ORT_K5_VARIANTS,
+// ORT_K6_VARIANTS) compile it, beside its timing cuts, for chip_smoke.py's
+// splits; no entry point launches it.
 //
 // The Pallas TPU kernels replay paths into a VMEM record ring and walk it
 // back with adjoints that jax.vjp derived at trace time.  Here the adjoints
@@ -57,8 +57,8 @@
 // are the triangles' own.  The chain to the scene's radius, camera and
 // vertices happens outside, in kernels/megagrad.py.
 //
-// Design, per pixel sample (K4, K5 and K7 take these steps in a flat loop
-// per lane, the megagrad template in a loop per pixel):
+// Design, per pixel sample (K4 to K7 take these steps in a flat loop per
+// lane, K6 the first alone; the megagrad template in a loop per pixel):
 // 1. Forward replay with the forward kernels' own device code (common.cuh,
 //    and mesh.cuh's culled triangle hit for the mesh), so every discrete
 //    decision is the forward's, but for the fuzz radius, which follows the
@@ -118,6 +118,13 @@
 #define ORT_FUZZ_POWF
 #include "common.cuh"
 #include "mesh.cuh"
+
+// The measurement builds that time the earlier design (the megagrad
+// template below) compile it; no other build does.
+#if defined(ORT_K4_VARIANTS) || defined(ORT_K5_VARIANTS) || \
+    defined(ORT_K6_VARIANTS)
+#define ORT_EARLIER_DESIGN
+#endif
 
 namespace {
 
@@ -182,7 +189,8 @@ struct Params {
   MeshTables mt;
   int mesh_type;
   float* gtri;
-  // HDR passes: K6's outputs, (kEmitRows, n_samples, n_pix) and (3, n_pix);
+  // HDR passes: K6's outputs, (kEmitRows, n_samples, n_pix) and
+  // (3, n_samples, n_pix) (the earlier design's (3, n_pix));
   // K7's sky values, (3, n_samples, n_pix)
   float* emit;
   float* emis;
@@ -204,17 +212,6 @@ struct AdjMat {
   bool is_diel;
   float ior;
   float inv_ior;
-};
-
-// Cotangents of sphere bi: the shared accumulator acc (rows of `stride`),
-// column bi.
-struct SphereSink {
-  float* acc;
-  int stride;
-  int bi;
-  __device__ __forceinline__ void add(int row, float v) {
-    atomicAdd(&acc[row * stride + bi], v);
-  }
 };
 
 // One bounce's sphere cotangents, row by row, in registers (every row
@@ -514,17 +511,30 @@ __device__ __forceinline__ void add_tri_rows(float* gtri, int tp, int j,
     if (r < GT_MAT || gt[r] != 0.f) atomicAdd(&gtri[r * tp + j], gt[r]);
 }
 
+#ifdef ORT_EARLIER_DESIGN
+// Cotangents of sphere bi: the shared accumulator acc (rows of `stride`),
+// column bi.
+struct SphereSink {
+  float* acc;
+  int stride;
+  int bi;
+  __device__ __forceinline__ void add(int row, float v) {
+    atomicAdd(&acc[row * stride + bi], v);
+  }
+};
+
 // Timing-only cuts of the earlier design, which chip_smoke.py's splits of
-// K4's and of K5's and K7's time launch (the measurement builds
-// ORT_K4_VARIANTS and ORT_K5_VARIANTS; no entry point launches them): the
-// replay alone (no record written, no walk back), the replay with its
-// record writes, the whole kernel with plain adds into a lane-private sum
-// instead of the shared atomics of the sphere cotangents, or (the mesh
-// variant) instead of the global atomics of the triangle cotangents (the
-// results of both are wrong on purpose), and the whole kernel counting its
-// SIMT efficiency (counts[2..4], the mesh variant's counts[4..6]: the warp
+// K4's, of K5's and K7's and of K6's time launch (the measurement builds
+// ORT_K4_VARIANTS, ORT_K5_VARIANTS and ORT_K6_VARIANTS): the replay alone
+// (no record written, no walk back; K6: no output written), the replay
+// with its record writes (K6: with its emit rows, without the non-sky
+// sums), the whole kernel with plain adds into a lane-private sum instead
+// of the shared atomics of the sphere cotangents, or (the mesh variant)
+// instead of the global atomics of the triangle cotangents (the results of
+// both are wrong on purpose), and the whole kernel counting its SIMT
+// efficiency (counts[2..4], the mesh variant's counts[4..6]: the warp
 // iterations of the replay, the lane steps of the walk back and its warp
-// iterations).
+// iterations; K6's counts[2]: the replay's warp iterations).
 enum Cut {
   kCutNone, kCutReplay, kCutRecords, kCutAtomics, kCutTriAtomics, kCutSimt
 };
@@ -661,6 +671,10 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
       }
       if constexpr (kEmit) {
         // ---- K6: the miss record, and an emitter's contribution ----
+        if constexpr (kCut == kCutReplay) {
+          lane_sink.add(0, T[0] + d[0]);
+          continue;
+        }
         const bool miss = ending == END_MISS;
         const size_t plane = (size_t)p.n_samples * p.n_pix;
         float* e = p.emit + (size_t)s * p.n_pix + local;
@@ -670,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         e[E_TR * plane] = miss ? T[0] : 0.f;
         e[E_TG * plane] = miss ? T[1] : 0.f;
         e[E_TB * plane] = miss ? T[2] : 0.f;
-        if (ending == END_EMIT) {
+        if (kCut != kCutRecords && ending == END_EMIT) {
           for (int k = 0; k < 3; ++k) {
             const float alb = win_tri
                                   ? s_cam[C_MA + k]
@@ -801,19 +815,25 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
         }
       }
     }
-    if constexpr (kEmit)
+    if constexpr (kEmit && kCut != kCutReplay && kCut != kCutRecords)
       for (int k = 0; k < 3; ++k)
         p.emis[(size_t)k * p.n_pix + local] = emis[k];
   }
 
   if constexpr (kEmit) {
+    // the cuts' sink, one word a thread
+    if constexpr (kCut == kCutReplay || kCut == kCutRecords)
+      if (tid < p.n_pix) p.emis[tid] = lane_sink.sum;
     // K6 counts the bounces replayed and the triangle tests
     if (p.counts != nullptr) {
       const unsigned int w0 = __reduce_add_sync(0xffffffffu, n_replay);
       const unsigned int w1 = __reduce_add_sync(0xffffffffu, n_tests);
+      const unsigned int w2 = __reduce_add_sync(0xffffffffu, w_replay);
       if ((threadIdx.x & 31) == 0) {
         atomicAdd(&p.counts[0], (unsigned long long)w0);
         atomicAdd(&p.counts[1], (unsigned long long)w1);
+        if constexpr (kCut == kCutSimt)
+          atomicAdd(&p.counts[2], (unsigned long long)w2);
       }
     }
   } else {
@@ -866,8 +886,9 @@ __global__ void __launch_bounds__(kThreads) megagrad(const Params p) {
     }
   }
 }
+#endif  // ORT_EARLIER_DESIGN
 
-// ---- What K4, K5 and K7 share: a flat loop per lane ----
+// ---- What K4 to K7 share: a flat loop per lane ----
 //
 // The earlier design (the megagrad template's instances, kept for
 // chip_smoke.py's measurements only) ran, per pixel and sample, the replay
@@ -918,18 +939,22 @@ struct FlatShared {
 // kernel lays s out itself: with the pointers worked out in here, nvcc
 // vectorized K4's camera-table reads and allocated its registers
 // otherwise, 3% slower on the book cover (PERF.md).
+// kSums false (K6): the tables alone, no sums.
+template <bool kSums = true>
 __device__ __forceinline__ void load_flat_shared(const Params& p,
                                                  const FlatShared& s,
                                                  int cam_slots) {
   const int n = p.n_spheres;
   for (int k = threadIdx.x; k < kFields * n; k += blockDim.x)
     s.sph[k] = p.sph[(k / n) * p.tab_w + k % n];
-  for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
-    s.acc[k] = 0.f;
+  if constexpr (kSums)
+    for (int k = threadIdx.x; k < kGradRows * n; k += blockDim.x)
+      s.acc[k] = 0.f;
   for (int k = threadIdx.x; k < cam_slots; k += blockDim.x)
     s.cam[k] = p.cam[k];
-  for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
-    s.gcam[k] = 0.f;
+  if constexpr (kSums)
+    for (int k = threadIdx.x; k < kCamSlots * kThreads; k += blockDim.x)
+      s.gcam[k] = 0.f;
   __syncthreads();
 }
 
@@ -969,13 +994,15 @@ struct Items {
                       o, d);
   }
   // Takes the current item, or the first after it whose pixel has a
-  // nonzero cotangent, and casts its camera ray (T = 1); false when none
-  // is left.
+  // nonzero cotangent (kAll: the current item), and casts its camera ray
+  // (T = 1); false when none is left.
+  template <bool kAll = false>
   __device__ __forceinline__ bool start(const Params& p, const float* s_cam,
                                         float (&o)[3], float (&d)[3],
                                         float (&T)[3]) {
     for (; s_item < p.n_samples; advance(p)) {
-      if (p.g_r[local] == 0.f && p.g_g[local] == 0.f && p.g_b[local] == 0.f)
+      if (!kAll && p.g_r[local] == 0.f && p.g_g[local] == 0.f &&
+          p.g_b[local] == 0.f)
         continue;
       ray(p, s_cam, o, d);
       for (int k = 0; k < 3; ++k) T[k] = 1.f;
@@ -1271,7 +1298,7 @@ __global__ void __launch_bounds__(kThreads, 6)
   flush_flat(p, sh);
 }
 
-// ---- K5 and K7: the mesh backward ----
+// ---- K5 and K7: the mesh backward; K6: its replay alone ----
 //
 // The flat loop above with the mesh's replay and the triangle bounces.  As
 // items map neighbouring lanes to neighbouring pixels of one sample, K7's
@@ -1291,10 +1318,80 @@ __global__ void __launch_bounds__(kThreads, 6)
 // sample's replay ends, the triangle-major table in the replay, and 5, 6
 // or 8 blocks an SM were slower.
 //
+// K6 (kSkyEmit) is the replay of K7 alone, on K5's items: each sample's
+// end writes its emit rows and its non-sky values, each to a row of their
+// own ((3, n_samples, n_pix) at emis; 0 where the sample did not end on
+// an emitter), which a second pass (sample_sum_kernel, launched with it)
+// adds per pixel in sample order, so the sums come out the same in every
+// run.  It keeps no record and no sums in shared memory.
+// What the measurements chose (chip_smoke.py phase 6h, PERF.md): the
+// replay was K6's time, at 45% SIMT in the earlier design; the flat loop
+// takes it to 77%.  A pixel's samples kept in one lane, summed there, ran
+// 1.2x (576 triangles) to 2.7x (15,360) slower than these items.
+//
 // Timing-only instances besides those above: the triangle atomics as
 // plain adds into a lane-private sum (wrong on purpose).  The SIMT counts
-// go to counts[4..6], as the earlier design's.
+// go to counts[4..6], as the earlier design's (K6's: the replay's warp
+// iterations at counts[2]).
 enum MeshTime { kTimeNoTriAtomics = 8 };
+
+// K6 at the end of item (s_item, local) of the flat loop: its emit rows
+// (the miss direction and throughput, or (0, 0, 1) and 0), and its
+// non-sky rows: an emitter's value T * albedo (clamped, NaN as 0;
+// alb[k * stride]), or 0.  kCut: the timing cut without outputs (the
+// values into sink).
+template <bool kCut>
+__device__ __forceinline__ void emit_sample(const Params& p, int s_item,
+                                            int local, int ending,
+                                            const float (&d)[3],
+                                            const float (&T)[3],
+                                            const float* alb, int stride,
+                                            LaneSink& sink) {
+  if constexpr (kCut) {
+    sink.add(0, T[0] + d[0]);
+    return;
+  }
+  const bool miss = ending == END_MISS;
+  const size_t plane = (size_t)p.n_samples * p.n_pix;
+  const size_t at = (size_t)s_item * p.n_pix + local;
+  float* const e = p.emit + at;
+  e[E_DX * plane] = miss ? d[0] : 0.f;
+  e[E_DY * plane] = miss ? d[1] : 0.f;
+  e[E_DZ * plane] = miss ? d[2] : 1.f;
+  e[E_TR * plane] = miss ? T[0] : 0.f;
+  e[E_TG * plane] = miss ? T[1] : 0.f;
+  e[E_TB * plane] = miss ? T[2] : 0.f;
+  for (int k = 0; k < 3; ++k) {
+    float v = 0.f;
+    if (ending == END_EMIT) {
+      v = T[k] * alb[k * stride];
+      if (p.flags & CLAMP) v = clamp01(v);
+      if (isnan(v)) v = 0.f;
+    }
+    p.emis[k * plane + at] = v;
+  }
+}
+
+// Entry i of K6's (3 x n_pix) non-sky sums: row k = i / n_pix of the
+// (3 x n_samples x n_pix) per-sample rows, its pixel's samples added in
+// sample order, so the sums come out the same in every run.
+__device__ __forceinline__ float sample_sum(const float* rows, int n_samples,
+                                            int n_pix, int i) {
+  const int k = i / n_pix, pix = i - k * n_pix;
+  const float* r = rows + (size_t)k * n_samples * n_pix + pix;
+  float t = r[0];
+  for (int s = 1; s < n_samples; ++s) t += r[(size_t)s * n_pix];
+  return t;
+}
+
+// K6's second pass: a thread per entry of the sums.
+__global__ void __launch_bounds__(kThreads)
+    sample_sum_kernel(const float* rows, float* sums, int n_samples,
+                      int n_pix) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 3 * n_pix) sums[i] = sample_sum(rows, n_samples, n_pix, i);
+}
+
 // The blocks an SM the register budget is set for: 72 registers, with 58
 // bytes spilled (K5 and K7 alike), faster than the 88 spill-free
 // registers of 5 blocks an SM (PERF.md).
@@ -1307,12 +1404,14 @@ __global__ void __launch_bounds__(kThreads, kMeshBlocks)
   constexpr bool kNoTriAtomics = (kTime & kTimeNoTriAtomics) != 0;
   constexpr bool kReplayOnly = (kTime & kTimeReplay) != 0;
   constexpr bool kSimt = (kTime & kTimeSimt) != 0;
+  constexpr bool kEmit = kSky == kSkyEmit;
   extern __shared__ float smem[];
   const int n = p.n_spheres;
   float* const s_acc = smem + kFields * n;
-  float* const s_tab = s_acc + kGradRows * n;  // the camera table
+  // the camera table (K6 keeps no sums)
+  float* const s_tab = kEmit ? s_acc : s_acc + kGradRows * n;
   const FlatShared sh{smem, s_acc, s_tab, s_tab + kMeshCamSlots};
-  load_flat_shared(p, sh, kMeshCamSlots);
+  load_flat_shared<!kEmit>(p, sh, kMeshCamSlots);
   const float* const s_sph = sh.sph;
   // read through a const pointer from here: through a float*, nvcc
   // spills K5 more
@@ -1336,7 +1435,7 @@ __global__ void __launch_bounds__(kThreads, kMeshBlocks)
   float o[3], d[3], T[3], go[3], gd[3], gT[3];
   for (int k = 0; k < 3; ++k) go[k] = gd[k] = gT[k] = 0.f;
 
-  bool live = it.start(p, s_cam, o, d, T);
+  bool live = it.start<kEmit>(p, s_cam, o, d, T);
   while (__any_sync(kFullMask, live)) {
     const bool replay = live && !back;
     const bool reverse = live && back;
@@ -1390,7 +1489,7 @@ __global__ void __launch_bounds__(kThreads, kMeshBlocks)
         } else if (sc.absorbed || depth + 1 >= p.max_depth) {
           done = true;  // black
         } else {
-          if constexpr (!kReplayOnly) {
+          if constexpr (!kReplayOnly && !kEmit) {
             float4* r4 = flat_record(p, depth, tid);
             r4[0] = make_float4(o[0], o[1], o[2], d[0]);
             r4[1] = make_float4(d[1], d[2], T[0], T[1]);
@@ -1405,7 +1504,15 @@ __global__ void __launch_bounds__(kThreads, kMeshBlocks)
           ++depth;
         }
       }
-      if (ending != END_BLACK && kReplayOnly) {
+      if constexpr (kEmit) {
+        if (ending != END_BLACK || done) {
+          emit_sample<kReplayOnly>(
+              p, it.s_item, it.local, ending, d, T,
+              tri_win ? s_cam + C_MA : s_sph + F_ALR * n + bi,
+              tri_win ? 1 : n, lane_sink);
+          done = true;
+        }
+      } else if (ending != END_BLACK && kReplayOnly) {
         lane_sink.add(0, T[0] + d[0]);
         done = true;
       } else if (ending != END_BLACK) {
@@ -1484,56 +1591,71 @@ __global__ void __launch_bounds__(kThreads, kMeshBlocks)
 
     // ---- one bounce walked back, from its record (the ballot of the
     // sphere bounces runs on all 32 lanes) ----
-    int code = 0, j = 0;
-    float t_rec = 0.f;
-    if (reverse) {
-      --depth;
-      if constexpr (kSimt) ++n_back;
-      const float4* r4 = flat_record(p, depth, tid);
-      const float4 a = r4[0], b = r4[1], c = r4[2];
-      o[0] = a.x; o[1] = a.y; o[2] = a.z;
-      d[0] = a.w; d[1] = b.x; d[2] = b.y;
-      T[0] = b.z; T[1] = b.w; T[2] = c.x;
-      code = (int)c.y;
-      t_rec = c.z;
-      j = (int)c.w;
-    }
-    const bool tri = reverse && code == n;
-    const unsigned sph_lanes = __ballot_sync(kFullMask, reverse && !tri);
-    if (tri) {
-      ++n_reverse_tri;
-      float gt[kGtriRows];
-      tri_adjoint(p.mt, s_cam, p.mesh_type, flags, p.seed, pix, sid, depth,
-                  o, d, T, j, t_rec, go, gd, gT, gt);
-      if constexpr (kNoTriAtomics) {
-        for (int r = 0; r < kGtriRows; ++r) lane_sink.add(0, gt[r]);
-      } else {
-        add_tri_rows(p.gtri, tp, j, gt);
+    if constexpr (!kEmit) {
+      int code = 0, j = 0;
+      float t_rec = 0.f;
+      if (reverse) {
+        --depth;
+        if constexpr (kSimt) ++n_back;
+        const float4* r4 = flat_record(p, depth, tid);
+        const float4 a = r4[0], b = r4[1], c = r4[2];
+        o[0] = a.x; o[1] = a.y; o[2] = a.z;
+        d[0] = a.w; d[1] = b.x; d[2] = b.y;
+        T[0] = b.z; T[1] = b.w; T[2] = c.x;
+        code = (int)c.y;
+        t_rec = c.z;
+        j = (int)c.w;
       }
-    } else if (reverse) {
-      if constexpr (kNoAtomics) {
-        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
-                       d, T, code, go, gd, gT, lane_sink);
-      } else {
-        RowSink rows{};
-        bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
-                       d, T, code, go, gd, gT, rows);
-        add_rows_aggregated(sph_lanes, code, rows.v, sh.acc, n, flags);
+      const bool tri = reverse && code == n;
+      const unsigned sph_lanes = __ballot_sync(kFullMask, reverse && !tri);
+      if (tri) {
+        ++n_reverse_tri;
+        float gt[kGtriRows];
+        tri_adjoint(p.mt, s_cam, p.mesh_type, flags, p.seed, pix, sid, depth,
+                    o, d, T, j, t_rec, go, gd, gT, gt);
+        if constexpr (kNoTriAtomics) {
+          for (int r = 0; r < kGtriRows; ++r) lane_sink.add(0, gt[r]);
+        } else {
+          add_tri_rows(p.gtri, tp, j, gt);
+        }
+      } else if (reverse) {
+        if constexpr (kNoAtomics) {
+          bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                         d, T, code, go, gd, gT, lane_sink);
+        } else {
+          RowSink rows{};
+          bounce_adjoint(s_sph, n, flags, p.t_min, p.seed, pix, sid, depth, o,
+                         d, T, code, go, gd, gT, rows);
+          add_rows_aggregated(sph_lanes, code, rows.v, sh.acc, n, flags);
+        }
       }
-    }
-    if (reverse && depth == 0) at_camera = true;
-    if (at_camera) {
-      camera_adjoint(it, p, s_cam, lens, go, gd, gcam);
-      done = true;
+      if (reverse && depth == 0) at_camera = true;
+      if (at_camera) {
+        camera_adjoint(it, p, s_cam, lens, go, gd, gcam);
+        done = true;
+      }
     }
     if (done) {
       it.advance(p);
-      live = it.start(p, s_cam, o, d, T);
+      live = it.start<kEmit>(p, s_cam, o, d, T);
       depth = 0;
       back = false;
     }
   }
 
+  if constexpr (kEmit) {
+    // K6: the timing cut's sink, one word a thread; the bounces replayed,
+    // the triangle tests and (kTimeSimt) the replay's warp iterations
+    if constexpr (kReplayOnly)
+      if (tid < p.n_pix) p.emis[tid] = lane_sink.sum;
+    if (p.counts != nullptr) {
+      count_warp(&p.counts[0], n_replay);
+      count_warp(&p.counts[1], n_tests);
+      if constexpr (kSimt)
+        if (lane == 0) atomicAdd(&p.counts[2], (unsigned long long)w_replay);
+    }
+    return;
+  }
   // ---- flush: the counts, then the block's sums ----
   if constexpr (kNoAtomics || kNoTriAtomics || kReplayOnly)
     gcam[0] += lane_sink.sum;
@@ -1829,19 +1951,37 @@ static Params hdr_params(const float* cam, const float* sph, int tab_w,
   return p;
 }
 
-// Launches K6 on `stream`, one thread per pixel, and returns
-// cudaGetLastError().  Tables as mesh_megagrad_launch's
-// (n_chunks, n_boxes and n_groups may be 0: no triangles); emit
-// (6 x n_samples x n_pix) receives each sample's miss direction and
-// throughput, emis (3 x n_pix) each pixel's non-sky sum; counts, when not
-// null, receives the bounces replayed and the triangle tests.
+// K6's dynamic shared memory for n spheres: the sphere and camera tables.
+static size_t emit_smem_bytes(int n) {
+  return sizeof(float) * ((size_t)kFields * n + kMeshCamSlots);
+}
+
+// Launches K6's second pass on `stream`: sums (3 x n_pix) of the
+// per-sample rows (3 x n_samples x n_pix), each pixel's in sample order.
+static cudaError_t launch_sample_sums(const float* rows, float* sums,
+                                      int n_samples, int n_pix,
+                                      cudaStream_t stream) {
+  const int blocks = (3 * n_pix + kThreads - 1) / kThreads;
+  sample_sum_kernel<<<blocks, kThreads, 0, stream>>>(rows, sums, n_samples,
+                                                     n_pix);
+  return cudaGetLastError();
+}
+
+// Launches K6 on `stream`, as many threads as can be resident (at most one
+// a pixel sample), then its second pass, and returns cudaGetLastError().
+// Tables as mesh_megagrad_launch's (n_chunks, n_boxes and n_groups may be
+// 0: no triangles); emit (6 x n_samples x n_pix) receives each sample's
+// miss direction and throughput, emis (3 x n_samples x n_pix) each
+// sample's non-sky values and sums (3 x n_pix) their sum over the samples,
+// added in sample order; counts, when not null, receives the bounces
+// replayed and the triangle tests.
 extern "C" int hdr_emit_launch(
     const float* cam, const float* sph, int tab_w, int n_spheres,
     const float* tri, int t_pad, const float* cluster, const float* sub,
     const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
     const float* group, const int* group_end, int n_groups,
     const float* tri_major, int mesh_type, float* emit, float* emis,
-    unsigned long long* counts,
+    float* sums, unsigned long long* counts,
     int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
     int n_samples, int width, int height, int max_depth, float t_min,
     int flags, void* stream) {
@@ -1854,12 +1994,18 @@ extern "C" int hdr_emit_launch(
                         group_end, n_groups, tri_major, mesh_type,
                         counts, n_pix, pix_offset, seed, sample_base,
                         n_samples, width, height, max_depth, t_min, flags);
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  p.n_threads = blocks * kThreads;
+  const size_t smem = emit_smem_bytes(n_spheres);
+  p.n_threads = resident_threads((const void*)mesh_megagrad<kSkyEmit>, smem,
+                                 (long long)n_pix * n_samples);
+  if (p.n_threads <= 0) return (int)cudaErrorInvalidConfiguration;
   p.emit = emit;
   p.emis = emis;
-  megagrad<true, kSkyEmit><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  mesh_megagrad<kSkyEmit><<<p.n_threads / kThreads, kThreads, smem,
+                            (cudaStream_t)stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_sample_sums(emis, sums, n_samples, n_pix,
+                                 (cudaStream_t)stream);
 }
 
 // Launches K7 on `stream`, as mesh_megagrad_launch (n_chunks, n_boxes and
@@ -1902,6 +2048,29 @@ extern "C" int hdr_consume_launch(
          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+#if defined(ORT_K5_VARIANTS) || defined(ORT_K6_VARIANTS)
+namespace {
+// The dynamic shared memory that holds `fn`, a measurement instance cut
+// from `base`, to base's blocks an SM with smem bytes: smem, and as much
+// more as it takes (a cut needs fewer registers, and would otherwise
+// differ in occupancy as well as in work); -1 when an occupancy query
+// fails.
+long long held_smem(const void* base, const void* fn, size_t smem) {
+  int base_blocks = 0, own = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&base_blocks, base,
+                                                    kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  while (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&own, fn, kThreads,
+                                                       smem) ==
+             cudaSuccess &&
+         own > base_blocks && smem < 48 * 1024)
+    smem += 1024;
+  return (long long)smem;
+}
+}  // namespace
+#endif
 
 #ifdef ORT_K5_VARIANTS
 // The measurement build of K5 and K7: the instances chip_smoke.py's split
@@ -1946,23 +2115,13 @@ const void* mesh_base(const MeshVariant& mv) {
                     : (const void*)mesh_megagrad<kSkyComputed>;
 }
 
-// The dynamic shared memory of variant v: mesh_megagrad's, and for a cut
-// as much more as holds it to its base kernel's blocks an SM (a cut needs
-// fewer registers, and would otherwise differ in occupancy as well as in
-// work); -1 when an occupancy query fails.
+// The dynamic shared memory of variant v: mesh_megagrad's, held for a
+// cut to its base kernel's blocks an SM (held_smem).
 long long mesh_variant_smem(const MeshVariant& mv, int n_spheres) {
-  size_t smem = mv.earlier ? 0 : flat_smem_bytes(n_spheres, kMeshCamSlots);
+  const size_t smem =
+      mv.earlier ? 0 : flat_smem_bytes(n_spheres, kMeshCamSlots);
   if (!mv.cut) return (long long)smem;
-  int base = 0, own = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&base, mesh_base(mv),
-                                                    kThreads, smem) !=
-      cudaSuccess)
-    return -1;
-  while (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &own, (const void*)mv.fn, kThreads, smem) == cudaSuccess &&
-         own > base && smem < 48 * 1024)
-    smem += 1024;
-  return (long long)smem;
+  return held_smem(mesh_base(mv), (const void*)mv.fn, smem);
 }
 }  // namespace
 
@@ -2024,5 +2183,78 @@ extern "C" int mesh_megagrad_variant_launch(
   mv.fn<<<n_threads / kThreads, kThreads, (size_t)smem,
           (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+#endif
+
+#ifdef ORT_K6_VARIANTS
+// The measurement build of K6: the instances chip_smoke.py's split of its
+// time launches, by index (its K6_VARIANTS names them in this order).
+// First the earlier design (a thread per pixel, the megagrad template's
+// emit instance; emis (3 x n_pix) the pixels' sums) and its timing cuts
+// (the replay alone, the replay with its emit rows, the SIMT counts),
+// then K6's SIMT counts and its replay alone.
+namespace {
+struct EmitVariant {
+  void (*fn)(const Params);
+  bool earlier;  // a thread per pixel, static shared memory
+};
+const EmitVariant kEmitVariants[] = {
+    {megagrad<true, kSkyEmit, kCutNone>, true},
+    {megagrad<true, kSkyEmit, kCutReplay>, true},
+    {megagrad<true, kSkyEmit, kCutRecords>, true},
+    {megagrad<true, kSkyEmit, kCutSimt>, true},
+    {mesh_megagrad<kSkyEmit, kTimeSimt>, false},
+    {mesh_megagrad<kSkyEmit, kTimeReplay>, false},
+};
+constexpr int kNumEmitVariants =
+    sizeof(kEmitVariants) / sizeof(kEmitVariants[0]);
+}  // namespace
+
+// Launches variant v with hdr_emit_launch's arguments (emis: the earlier
+// design's (3 x n_pix) sums, or K6's rows, which K6's instances then add
+// into sums when it is not null); counts, when not null, holds 3
+// counts (the SIMT instances' replay warp iterations third).  The earlier
+// design takes a thread per pixel, K6's instances as many threads as can
+// be resident; every instance but the first is a cut, held to its base
+// kernel's blocks an SM.
+extern "C" int hdr_emit_variant_launch(
+    int v, const float* cam, const float* sph, int tab_w, int n_spheres,
+    const float* tri, int t_pad, const float* cluster, const float* sub,
+    const int* chunk_box, int n_chunks, const float* boxes, int n_boxes,
+    const float* group, const int* group_end, int n_groups,
+    const float* tri_major, int mesh_type, float* emit, float* emis,
+    float* sums, unsigned long long* counts,
+    int n_pix, int pix_offset, unsigned int seed, unsigned int sample_base,
+    int n_samples, int width, int height, int max_depth, float t_min,
+    int flags, void* stream) {
+  if (v < 0 || v >= kNumEmitVariants ||
+      !hdr_args_ok(tab_w, n_spheres, t_pad, n_chunks, n_boxes, n_groups,
+                   n_pix, width, height, n_samples, max_depth))
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0 || n_samples == 0) return 0;
+  const EmitVariant& ev = kEmitVariants[v];
+  const void* base = ev.earlier ? (const void*)megagrad<true, kSkyEmit>
+                                : (const void*)mesh_megagrad<kSkyEmit>;
+  const size_t base_smem = ev.earlier ? 0 : emit_smem_bytes(n_spheres);
+  const long long smem =
+      v == 0 ? 0 : held_smem(base, (const void*)ev.fn, base_smem);
+  if (smem < 0) return (int)cudaErrorInvalidConfiguration;
+  Params p = hdr_params(cam, sph, tab_w, n_spheres, tri, t_pad, cluster, sub,
+                        chunk_box, n_chunks, boxes, n_boxes, group,
+                        group_end, n_groups, tri_major, mesh_type,
+                        counts, n_pix, pix_offset, seed, sample_base,
+                        n_samples, width, height, max_depth, t_min, flags);
+  p.n_threads = ev.earlier ? (n_pix + kThreads - 1) / kThreads * kThreads
+                           : resident_threads(base, base_smem,
+                                              (long long)n_pix * n_samples);
+  if (p.n_threads <= 0) return (int)cudaErrorInvalidConfiguration;
+  p.emit = emit;
+  p.emis = emis;
+  ev.fn<<<p.n_threads / kThreads, kThreads, (size_t)smem,
+          (cudaStream_t)stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ev.earlier || sums == nullptr) return (int)e;
+  return (int)launch_sample_sums(emis, sums, n_samples, n_pix,
+                                 (cudaStream_t)stream);
 }
 #endif

@@ -108,19 +108,6 @@ constexpr int kOptK2 = kFlatWalk ? 0 : kOptMajor | kOptPersistent;
 enum Variant { kPlain, kCountFlat, kCountGrouped, kTwiceFlat, kTwiceGrouped,
                kTwiceRuns };
 
-// The slabs and runs a walk tested, per lane, and the warp passes at each
-// (the lane that is first in __activemask counts one): SIMT efficiency is
-// lane steps over (warp passes x 32).
-struct WalkCount {
-  static constexpr bool kRunsTwice = false;
-  unsigned int lane[kWalkKinds] = {};
-  unsigned int warp[kWalkKinds] = {};
-  __device__ __forceinline__ void at(int k) {
-    ++lane[k];
-    if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) ++warp[k];
-  }
-};
-
 // kWindow: a sample window (acc0 or RAW_SUM), as in megakernel.cu.
 template <bool kWindow, int kOpt = kOptK2, int kVar = kPlain>
 __global__ void __launch_bounds__(kThreads)

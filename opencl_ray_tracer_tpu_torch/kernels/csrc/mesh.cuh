@@ -79,8 +79,8 @@ inline bool mesh_args_ok(int t_pad, int n_chunks, int n_boxes,
          n_groups >= 1 && n_groups <= n_chunks;
 }
 
-// What a walk tested, for the measurement builds' counts (WalkCount in
-// megamesh.cu); the kernels take NoWalkProbe, which counts nothing.
+// What a walk tested, for the measurement builds' counts (WalkCount); the
+// kernels take NoWalkProbe, which counts nothing.
 // kBounceStep counts the bounce loop's steps (its SIMT efficiency is 1 - the
 // share of lanes whose pixel has ended).
 enum WalkSlab { kSlabBox, kSlabGroup, kSlabChunk, kSlabSub, kRunEntered,
@@ -88,6 +88,19 @@ enum WalkSlab { kSlabBox, kSlabGroup, kSlabChunk, kSlabSub, kRunEntered,
 struct NoWalkProbe {
   static constexpr bool kRunsTwice = false;
   __device__ __forceinline__ void at(int) {}
+};
+
+// A measurement probe: the slabs and runs a walk tested, per lane, and the
+// warp passes at each (the lane that is first in __activemask counts one):
+// SIMT efficiency is lane steps over (warp passes x 32).
+struct WalkCount {
+  static constexpr bool kRunsTwice = false;
+  unsigned int lane[kWalkKinds] = {};
+  unsigned int warp[kWalkKinds] = {};
+  __device__ __forceinline__ void at(int k) {
+    ++lane[k];
+    if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) ++warp[k];
+  }
 };
 
 // A measurement probe: each run's triangle tests run a second time, from

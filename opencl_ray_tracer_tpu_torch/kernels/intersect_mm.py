@@ -2,9 +2,9 @@
 ray of a batch, on the card.
 
 ``closest_tri`` is the wrapper of the CUDA kernel in
-``csrc/intersect_mm.cu`` (one thread per ray, the plan's chunks culled per
-ray and staged in shared memory per block; see the note at the top of that
-file).  It replaces the JAX package's Pallas
+``csrc/intersect_mm.cu`` (each ray's own walk of the group tables, the
+walk of the mesh megakernel, on persistent lanes; see the note at the top
+of that file).  It replaces the JAX package's Pallas
 ``kernels/intersect_mm.py::_make_kernel``.  ``closest_tri_plain`` is its
 plain PyTorch version with the same signature: ``mesh_accel``'s matmul-form
 fold over the same tables in the same plan order, so that both return the
@@ -19,8 +19,8 @@ chunks a second level (``group_tables``): groups of up to ``MESH_GROUP``
 consecutive chunks of one gating box, each with the union of its chunks'
 AABBs, which the mesh megakernel's walk and the mesh backward kernels'
 test first; and the triangle table's triangle-major copy (``tri_major``,
-one 96-byte row a triangle) that the mesh megakernel and the HDR emit
-pass read their triangle tests from.  It keeps the
+one 96-byte row a triangle) that the mesh megakernel reads its triangle
+tests from.  It keeps the
 tables of the last few scenes, keyed by a digest of the leaves they are
 built from (``leaves_key``).  Given a plan, it builds them from the
 scene's current vertices in that plan's order: a fit that moves the
@@ -57,16 +57,6 @@ CACHE_ENTRIES = 8
 
 # Launches of the CUDA kernel since the count was last set to 0.
 LAUNCHES = 0
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SYMBOLS = {"closest_tri_launch": (
-    [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, ctypes.c_float, _P, _P, _P,
-     _P], _I)}
-
-
-def _library():
-    return _build.load("intersect_mm", _SYMBOLS)
-
 
 class MeshTables(NamedTuple):
     """The triangles of a scene as the mesh kernels read them."""
@@ -120,6 +110,14 @@ TABLE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"closest_tri_launch": (
+    [*TABLE_ARGTYPES, _P, _P, _I, ctypes.c_float, _P, _P, _P, _P, _P], _I)}
+
+
+def _library():
+    return _build.load("intersect_mm", _SYMBOLS)
 
 
 def leaves_key(leaves: dict, *extra) -> tuple:
@@ -280,15 +278,15 @@ def closest_tri(tab: MeshTables, o, d, t_min: float, tests=None):
     r = o.shape[0]
     out_t = torch.empty((r,), dtype=torch.float32, device=o.device)
     out_i = torch.empty((r,), dtype=torch.int32, device=o.device)
+    # the rays the kernel's persistent lanes take after their first
+    work = torch.zeros(1, dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().closest_tri_launch(
-            tab.tri.data_ptr(), tab.tri.shape[1], tab.cluster.data_ptr(),
-            tab.sub.data_ptr(), tab.chunk_box.data_ptr(),
-            tab.chunk_box.shape[0], tab.boxes.data_ptr(), tab.boxes.shape[0],
-            o.data_ptr(), d.data_ptr(), r, t_min, out_t.data_ptr(),
-            out_i.data_ptr(), tests.data_ptr() if tests is not None else None,
-            stream)
+            *table_args(tab), o.data_ptr(), d.data_ptr(), r, t_min,
+            out_t.data_ptr(), out_i.data_ptr(),
+            tests.data_ptr() if tests is not None else None,
+            work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"closest-triangle launch failed: CUDA error {rc}")
     LAUNCHES += 1

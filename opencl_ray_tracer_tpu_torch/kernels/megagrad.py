@@ -33,9 +33,11 @@ the mesh megakernel (K2), whose backward is K5.
 
 HDR skies take two more instances (the JAX package's ``hdr_mode`` "emit"
 and "consume", K6 and K7), for the scenes of the mesh megakernel's HDR
-scope with or without triangles.  ``hdr_emit`` (K6) replays every sample
+scope with or without triangles.  ``hdr_emit`` (K6, the emit instance of
+``mesh_megagrad``: K7's replay alone, on K5's items) replays every sample
 and returns its miss direction and throughput, and each pixel's sum of
-the contributions that are not sky; ``hdr_lookup`` reads the texels of
+the contributions that are not sky (the kernel's per-sample rows, added
+in sample order by its second pass); ``hdr_lookup`` reads the texels of
 those directions, ``hdr_image`` rebuilds the image from them, and
 ``hdr_sky_cot`` scatters the image cotangent onto the texels (torch ops,
 as the JAX package keeps them in XLA).  ``hdr_consume`` (K7) is K5 with
@@ -132,7 +134,7 @@ _SYMBOLS = {
          _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "mesh_megagrad_threads": ([ctypes.c_longlong, _I], _I),
     "hdr_emit_launch": (
-        [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _I,
+        [_P, _P, _I, _I, *TABLE_ARGTYPES, _I, _P, _P, _P, _P, _I,
          _I, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I,
          ctypes.c_float, _I, _P], _I),
     "hdr_consume_launch": (
@@ -823,13 +825,15 @@ def hdr_emit(cam, sph, n_spheres: int, tab: MeshTables, cfg: RenderConfig,
     bits = _flag_bits(cfg.replace(nan_policy="zero"), KIND_HDR, flags[:5])
     emit = torch.empty((EMIT_ROWS, n_samples, n_pix), dtype=torch.float32,
                        device=cam.device)
+    rows = torch.empty((3, n_samples, n_pix), dtype=torch.float32,
+                       device=cam.device)
     emis = torch.empty((3, n_pix), dtype=torch.float32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().hdr_emit_launch(
             cam.data_ptr(), sph.data_ptr(), sph.shape[1], n_spheres,
             *table_args(tab),
-            int(flags[5]), emit.data_ptr(), emis.data_ptr(),
+            int(flags[5]), emit.data_ptr(), rows.data_ptr(), emis.data_ptr(),
             counts.data_ptr() if counts is not None else None, n_pix,
             pix_offset, seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF,
             n_samples, cfg.width, cfg.height, cfg.max_depth, cfg.t_min,

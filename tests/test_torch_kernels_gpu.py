@@ -415,6 +415,46 @@ def test_closest_tri_many_boxes_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_closest_tri_walks_groups_as_the_earlier_design(cuda):
+    """K3 walks the mesh with the group tables (``table_args``): on the
+    2,304-triangle torus over 40 gating boxes it
+    agrees with its plain version as above, and its t, indices and
+    triangle tests equal the earlier design's (a block-wide vote per chunk,
+    from the measurement build ORT_K3_VARIANTS) bit for bit."""
+    import chip_smoke
+    from opencl_ray_tracer_tpu_torch.io import parse_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import make_torus_obj
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    tris, aabb = parse_obj(make_torus_obj(48, 24))
+    scene = split_boxes(ot.reference_scene(mesh_tris=tris,
+                                           mesh_aabb=aabb)).to(cuda)
+    tab = im.mesh_tables(scene)
+    rng = np.random.default_rng(7)
+    o = torch.tensor(rng.normal(0.0, 2.0, (20000, 3)).astype(np.float32),
+                     device=cuda)
+    target = torch.tensor(rng.uniform(aabb[0], aabb[1], (20000, 3)).astype(
+        np.float32), device=cuda)
+    d = (target - o).contiguous()
+    tests = torch.zeros(1, dtype=torch.int64, device=cuda)
+    t, idx = im.closest_tri(tab, o, d, 1e-3, tests=tests)
+    lib = _build.load("intersect_mm", {}, ("ORT_K3_VARIANTS",))
+    e_tests = torch.zeros(15, dtype=torch.int64, device=cuda)
+    te, ie = chip_smoke.k3_variant(
+        lib, chip_smoke.K3_VARIANTS.index("earlier_k3"), tab, o, d)(e_tests)
+    torch.cuda.synchronize()
+    assert torch.equal(t, te) and torch.equal(idx, ie.long())
+    assert tests.item() == e_tests[0].item() > 0
+    tp, ip = im.closest_tri_plain(tab, o, d, 1e-3)
+    hit = tp < 1e38
+    assert hit.float().mean() > 0.05
+    same = idx == ip
+    assert same.float().mean() >= 0.9999
+    rel = ((t - tp).abs() / tp.abs().clamp(min=1e-30))[same & hit]
+    assert rel.max() <= 1e-6
+
+
+@pytest.mark.gpu
 def test_plain_route_launches_closest_tri(cuda):
     """backend "jnp": the plain tracer on the card, whose triangle hit from
     256 triangles is the closest-triangle kernel; its image agrees with
@@ -761,6 +801,61 @@ def test_hdr_passes_match_plain_on_card(cuda, case):
         assert np.abs(b[key]).max() > 0
         assert (np.abs(a[key] - b[key]).max()
                 <= 5e-3 * np.abs(b[key]).max()), key
+
+
+@pytest.mark.gpu
+def test_hdr_emit_repeats_as_the_earlier_design(cuda):
+    """Two launches of K6 give equal records and non-sky sums (the kernel
+    writes each sample's non-sky row and its second pass adds a pixel's
+    rows in sample order), with more pixel samples than resident lanes, so
+    that each lane takes several; both
+    equal the earlier design's (a thread per pixel, from the measurement
+    build ORT_K6_VARIANTS) bit for bit, with its bounces and triangle
+    tests."""
+    import chip_smoke
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    cfg = ot.RenderConfig(width=640, height=360, spp=3, max_depth=8,
+                          nan_policy="zero")
+    cam, sph, n, tab, flags, _ = mm.mesh_inputs(hdr_scenes()["mesh"], cuda)
+    n_pix = cfg.width * cfg.height
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    first = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 4, n_pix,
+                        counts=counts)
+    first = tuple(x.clone() for x in first)
+    second = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 4, n_pix)
+    lib = _build.load("megagrad", {}, ("ORT_K6_VARIANTS",))
+    e_counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+    earlier = chip_smoke.k6_variant(
+        lib, chip_smoke.K6_VARIANTS.index("earlier_k6"), cam, sph, n, tab,
+        cfg, flags, 4)(e_counts)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, earlier):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(first[1].abs().max()) > 0
+    assert counts.tolist() == e_counts[:2].tolist() and counts[1] > 0
+
+
+@pytest.mark.gpu
+def test_hdr_emit_without_triangles(cuda):
+    """K6 on a scene without triangles (no chunk, gating box or group:
+    ``empty_tables``), with each lane taking several pixels, against its
+    plain version; it runs no triangle test."""
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    cfg = ot.RenderConfig(width=640, height=360, spp=2, max_depth=6,
+                          nan_policy="zero")
+    cam, sph, n, tab, flags, _ = mm.mesh_inputs(hdr_scenes()["readme"],
+                                                cuda)
+    assert tab.chunk_box.shape[0] == tab.group_end.shape[0] == 0
+    n_pix = cfg.width * cfg.height
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    emit, emis = mg.hdr_emit(cam, sph, n, tab, cfg, flags, 3, n_pix,
+                             counts=counts)
+    pemit, pemis = mg.hdr_emit_plain(cam, sph, n, tab, cfg, flags, 3, n_pix)
+    same = ((emit - pemit).abs().amax(0) <= 1e-6).float().mean()
+    assert same >= 0.999
+    assert float((emis - pemis).abs().max()) <= 1e-6
+    assert counts[0] > n_pix * cfg.spp and counts[1] == 0
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """Where the HDR gradient's time goes outside its two kernels, on the card.
 
-    python tools/hdr_host_profile.py [--mesh 576|15360]
+    python tools/hdr_host_profile.py [--mesh 576|15360] [--fit-steps N]
 
 Runs ``render_grad_sampled`` of ``flagship_scene()`` at
 ``REFERENCE_DEFAULTS`` (the fused route: K6, the texels' lookup, the
@@ -13,7 +13,10 @@ image, the loss, K7 and the texels' scatter), once to warm up, then:
    texels' scatter, K7, and the chain of the table and triangle
    cotangents to the scene's leaves;
 2. one call under ``torch.profiler`` (CPU and CUDA), whose ten largest ops
-   by CPU time and by device time it prints.
+   by CPU time and by device time it prints;
+3. with ``--fit-steps``, a ``fit_scene`` of ``sky.image`` (chip_smoke.py's
+   phase 20: from the sky scaled by 0.85 towards the image of the true
+   sky), each step's seconds ended by a synchronize.
 
 Prints one JSON line per stage and per profiler row, then the card's name
 and power limit.  Needs a CUDA device.
@@ -62,6 +65,7 @@ def min_ms(fn, reps: int = 3):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mesh", choices=("576", "15360"), default="576")
+    ap.add_argument("--fit-steps", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -139,6 +143,23 @@ def main() -> None:
                               "cpu_ms": e.cpu_time_total / 1e3,
                               "device_ms": getattr(e, "device_time_total",
                                                    0.0) / 1e3}), flush=True)
+    if args.fit_steps:
+        target = ot.render(scene, cfg, seed=3)
+        init = ot.Scene(scene.camera, scene.spheres, scene.triangles,
+                        scene.boxes, ot.Sky.hdr(scene.sky.image * 0.85))
+        stamps = [time.perf_counter()]
+
+        def on_step(i, loss, s):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        ot.fit_scene(target, init, cfg, param_paths=("sky.image",),
+                     steps=args.fit_steps, seed=3, sample_new_noise=False,
+                     callback=on_step)
+        print(json.dumps({"case": f"flagship_{args.mesh}",
+                          "fit_seconds_per_step": [
+                              b - a for a, b in zip(stamps, stamps[1:])]}),
+              flush=True)
     print(smi, flush=True)
 
 

@@ -6,8 +6,9 @@ as ``static``, atomics as plain adds, the warp intrinsics as a group of
 one lane (sums and shuffles the lane's own value, votes and matches its
 own bit), and the launchers cut off.
 It then runs the kernel as one thread per block over the pixels of a small
-image (K4, K5 and K7, which take work items (pixel, sample) in a flat loop
-per lane: a third as many threads as items, so that each takes several),
+image (K4 to K7, which take work items (pixel, sample) in a flat loop per
+lane: K5 to K7 a third as many threads as items, K4 a third as many as
+pixels, so that each takes several items of several pixels),
 and holds the cotangents it returns against the plain version's
 (``render_grad_mesh_tables_plain`` for the mesh backward, K5;
 ``render_grad_tables_plain`` for the sphere backward, K4;
@@ -21,9 +22,9 @@ are chip_smoke.py's mesh cases on a 192-triangle torus (the reference
 mesh material, a Lambertian mesh, a metal mesh under a constant sky, no
 spheres, a dielectric, an emitter, 40 gating boxes), two sphere scenes,
 and under an HDR sky the reference mesh, the README spheres and an
-emissive sphere.  With --earlier, K5 and K7 run as their earlier design
-(the megagrad template's mesh instances, a pixel per thread), which must
-count the same bounces and triangle tests.
+emissive sphere.  With --earlier, K5, K6 and K7 run as their earlier
+design (the megagrad template's mesh instances, a pixel per thread), which
+must count the same bounces and triangle tests.
 
     python tools/host_megagrad_check.py [--size 48x27x2/d6] [--earlier]
         [case ...]
@@ -100,16 +101,17 @@ inline float __uint_as_float(unsigned u) {
   float x; memcpy(&x, &u, 4); return x; }
 '''
 # The kernels of the host program (DRIVER below), by mode: K4, K5, K6,
-# K7, and K5 and K7 as their earlier design.
+# K7, and K5, K7 and K6 as their earlier design.
 MODES = {"k4": 0, "k5": 1, "k6": 2, "k7": 3, "k5_earlier": 4,
-         "k7_earlier": 5}
+         "k7_earlier": 5, "k6_earlier": 6}
 # Reads the tables from the working directory, runs each thread as its own
 # block of one (K4: a third as many threads as pixels, so that each takes
-# several work items of several pixels; K5 and K7: a third as many as
-# items; the rest a thread per pixel), and writes gcam (22), gsph
+# several work items of several pixels; K5 to K7: a third as many as
+# items; the earlier design a thread per pixel), and writes gcam (22), gsph
 # (16 x tab_w), gtri (10 x t_pad) and the four counts; in the emit mode
-# (K6) the emit rows (6 x spp x n_pix), the non-sky sums (3 x n_pix) and
-# the four counts.
+# (K6) the emit rows (6 x spp x n_pix), the non-sky sums (3 x n_pix; K6's
+# per-sample rows added by its second pass's sample_sum) and the four
+# counts.
 DRIVER = r'''
 #include <algorithm>
 #include <vector>
@@ -141,11 +143,11 @@ int main(int argc, char** argv) {
   std::vector<char> sky_rows;
   if (mesh == 3 || mesh == 5) sky_rows = rd("sky_rows.bin");
   std::vector<float> emit((size_t)6 * n_samples * n_pix, -7.f);
-  std::vector<float> emis((size_t)3 * n_pix, -7.f);
+  std::vector<float> emis((size_t)3 * n_samples * n_pix, -7.f);
   const float* gp = (const float*)g.data();
   const long long items = (long long)n_pix * n_samples;
   const int threads = mesh == 0 ? (n_pix + 2) / 3
-                      : (mesh == 1 || mesh == 3) ? (int)((items + 2) / 3)
+                      : (mesh >= 1 && mesh <= 3) ? (int)((items + 2) / 3)
                                                  : n_pix;
   const size_t rows = (size_t)std::max(threads, n_pix);
   std::vector<float> cam_part(rows * 22, 0.f), gsph(16 * tab_w, 0.f);
@@ -175,15 +177,23 @@ int main(int argc, char** argv) {
     blockIdx.x = b;
     if (mesh == 0) sphere_megagrad<>(p);
     else if (mesh == 1) mesh_megagrad<kSkyComputed>(p);
-    else if (mesh == 2) megagrad<true, kSkyEmit>(p);
+    else if (mesh == 2) mesh_megagrad<kSkyEmit>(p);
     else if (mesh == 3) mesh_megagrad<kSkyConsume>(p);
     else if (mesh == 4) megagrad<true, kSkyComputed>(p);
-    else megagrad<true, kSkyConsume>(p);
+    else if (mesh == 5) megagrad<true, kSkyConsume>(p);
+    else megagrad<true, kSkyEmit>(p);
   }
   if (mesh == 2) {
+    std::vector<float> sums((size_t)3 * n_pix);
+    for (int i = 0; i < 3 * n_pix; ++i)
+      sums[i] = sample_sum(emis.data(), n_samples, n_pix, i);
+    std::copy(sums.begin(), sums.end(), emis.begin());
+  }
+  if (mesh == 2 || mesh == 6) {
     FILE* fp = fopen("out.bin", "wb");
     fwrite(emit.data(), 4, emit.size(), fp);
-    fwrite(emis.data(), 4, emis.size(), fp); fwrite(counts, 8, 4, fp);
+    fwrite(emis.data(), 4, (size_t)3 * n_pix, fp);
+    fwrite(counts, 8, 4, fp);
     fclose(fp);
     return 0;
   }
@@ -210,7 +220,10 @@ def build(work: pathlib.Path) -> pathlib.Path:
     src = src[:src.index("// Threads to launch for")] + "}  // namespace\n"
     (work / "megagrad_host.cpp").write_text(src + DRIVER)
     exe = work / "megagrad_host"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-o",
+    # the measurement builds' macros: the earlier design (the megagrad
+    # template) compiles beside the kernels
+    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-DORT_K5_VARIANTS", "-DORT_K6_VARIANTS", "-o",
                     str(exe), str(work / "megagrad_host.cpp")], check=True)
     return exe
 
@@ -280,12 +293,10 @@ def _run(exe, work, mode, n, sph, dims, n_pix, seed, cfg, bits):
     return np.fromfile(work / "out.bin", dtype=np.float32)
 
 
-def check_hdr(exe, work, scene, cfg, seed=7, earlier=False):
-    """K6 and K7 (with ``earlier``, K7's earlier design) as host code
-    against their plain versions: (emit agreement, per-block errors,
-    per-leaf errors, K7's counts)."""
-    n, n_pix, spp = scene.spheres.count, cfg.width * cfg.height, cfg.spp
-    cam, sph, _, tab, flags, image = mm.mesh_inputs(scene, "cpu")
+def _hdr_inputs(scene, cfg):
+    """The HDR passes' inputs: (cam, sph, n, tab, flags, image, the tables
+    to write, the host program's table arguments, the flag bits)."""
+    cam, sph, n, tab, flags, image = mm.mesh_inputs(scene, "cpu")
     arrays = {"cam": cam, "sph": sph}
     if tab.tri.shape[1]:
         arrays.update(tri=tab.tri, cluster=tab.cluster, sub=tab.sub,
@@ -295,27 +306,56 @@ def check_hdr(exe, work, scene, cfg, seed=7, earlier=False):
     dims = (tab.tri.shape[1], tab.chunk_box.shape[0], tab.boxes.shape[0],
             tab.group_end.shape[0], int(flags[5]))
     bits = mk._flag_bits(cfg, scene.sky.kind, flags[:5])
-    # K6
+    return cam, sph, n, tab, flags, image, arrays, dims, bits
+
+
+def run_k6(exe, work, scene, cfg, seed=7, earlier=False):
+    """K6 (with ``earlier``, its earlier design) as host code: (emit
+    (6, spp, n_pix), emis (3, n_pix), counts: the bounces replayed and the
+    triangle tests)."""
+    n_pix, spp = cfg.width * cfg.height, cfg.spp
+    _, sph, n, _, _, _, arrays, dims, bits = _hdr_inputs(scene, cfg)
     _write(work, {**arrays, "g": torch.zeros(3, n_pix)})
-    out = _run(exe, work, 2, n, sph, dims, n_pix, seed, cfg, bits)
+    out = _run(exe, work, MODES["k6_earlier" if earlier else "k6"], n, sph,
+               dims, n_pix, seed, cfg, bits)
     m = 6 * spp * n_pix
     k_emit = torch.from_numpy(out[:m].reshape(6, spp, n_pix).copy())
     k_emis = torch.from_numpy(out[m:m + 3 * n_pix].reshape(3, n_pix).copy())
+    return k_emit, k_emis, _counts(out)[:2]
+
+
+def _counts(out) -> list:
+    """The four counts at the end of the host program's output."""
+    return np.frombuffer(out[-8:].tobytes(), dtype=np.uint64).tolist()
+
+
+def check_hdr(exe, work, scene, cfg, seed=7, earlier=False,
+              counts_only=False):
+    """K6 and K7 (with ``earlier``, their earlier design) as host code
+    against their plain versions: (emit agreement, per-block errors,
+    per-leaf errors, K7's counts), or with ``counts_only`` K7's counts
+    alone (K7 run on the same inputs, nothing compared)."""
+    n_pix = cfg.width * cfg.height
+    cam, sph, n, tab, flags, image, arrays, dims, bits = _hdr_inputs(scene,
+                                                                     cfg)
     p_emit, p_emis = mg.hdr_emit_plain(cam, sph, n, tab, cfg, flags, seed,
                                        n_pix)
-    same = ((k_emit - p_emit).abs().amax(0) <= 1e-6).float().mean()
-    dev = (k_emit - p_emit).abs().amax(0)
-    emit = {"samples_agree": float(same),
-            "within_1e-4": float((dev <= 1e-4).float().mean()),
-            "max_dev": float(dev.max()),
-            "emis_max_abs": float((k_emis - p_emis).abs().max())}
     # K7 on the plain emit's sky values and the image's cotangent
     sky, _ = mg.hdr_lookup(image, p_emit)
     img = mg.hdr_image(p_emit, p_emis, sky, cfg)
-    g = ((2.0 / img.numel() / spp) * img).contiguous()
+    g = ((2.0 / img.numel() / cfg.spp) * img).contiguous()
     _write(work, {**arrays, "g": g, "sky_rows": sky})
     out = _run(exe, work, MODES["k7_earlier" if earlier else "k7"], n, sph,
                dims, n_pix, seed, cfg, bits)
+    if counts_only:
+        return _counts(out)
+    k_emit, k_emis, k6_counts = run_k6(exe, work, scene, cfg, seed, earlier)
+    dev = (k_emit - p_emit).abs().amax(0)
+    emit = {"samples_agree": float((dev <= 1e-6).float().mean()),
+            "within_1e-4": float((dev <= 1e-4).float().mean()),
+            "max_dev": float(dev.max()),
+            "emis_max_abs": float((k_emis - p_emis).abs().max()),
+            "counts": k6_counts}
     return emit, *_compare_mesh(out, cam, sph, n, tab, scene, g, sky, cfg,
                                 flags, seed, n_pix)
 
@@ -328,7 +368,7 @@ def _compare_mesh(out, cam, sph, n, tab, scene, g, sky, cfg, flags, seed,
     ksph = torch.from_numpy(out[22:22 + 16 * w].reshape(16, w).copy())
     ktri = torch.from_numpy(out[22 + 16 * w:22 + 16 * w + 10 * t_pad]
                             .reshape(10, t_pad).copy())
-    counts = np.frombuffer(out[-8:].tobytes(), dtype=np.uint64).tolist()
+    counts = _counts(out)
     pcam, psph, ptri = mg.hdr_consume_plain(cam, sph, n, tab, cfg, flags,
                                             g[0], g[1], g[2], sky, seed,
                                             n_pix)
@@ -358,9 +398,10 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-12))
 
 
-def check(exe, work, scene, cfg, seed=7, earlier=False):
+def check(exe, work, scene, cfg, seed=7, earlier=False, counts_only=False):
     """(per-block errors, per-leaf errors, the kernel's counts) of K4 or K5
-    (with ``earlier``, K5's earlier design)."""
+    (with ``earlier``, K5's earlier design), or with ``counts_only`` the
+    counts alone (nothing compared)."""
     mesh = scene.triangles.count > 0
     n, n_pix = scene.spheres.count, cfg.width * cfg.height
     sph = mk.sphere_table(scene)
@@ -391,13 +432,15 @@ def check(exe, work, scene, cfg, seed=7, earlier=False):
                     str(cfg.width), str(cfg.height), str(cfg.max_depth),
                     str(cfg.t_min), str(bits)], check=True, cwd=work)
     out = np.fromfile(work / "out.bin", dtype=np.float32)
+    counts = _counts(out)
+    if counts_only:
+        return counts
     w, t_pad = sph.shape[1], max(dims[0], 1)
     kcam = torch.zeros_like(cam)
     kcam[0, :22] = torch.from_numpy(out[:22].copy())
     ksph = torch.from_numpy(out[22:22 + 16 * w].reshape(16, w).copy())
     ktri = torch.from_numpy(out[22 + 16 * w:22 + 16 * w + 10 * t_pad]
                             .reshape(10, t_pad).copy())
-    counts = np.frombuffer(out[-8:].tobytes(), dtype=np.uint64).tolist()
     args = (cam, sph, n) + ((tab,) if mesh else ()) + (
         cfg, scene.sky.kind, flags, g[0], g[1], g[2], seed, n_pix)
     rows = [mk.F_CX, mk.F_CY, mk.F_CZ, mk.F_ALR, mk.F_ALG, mk.F_ALB,
@@ -435,7 +478,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", default="48x27x2/d6")
     ap.add_argument("--earlier", action="store_true",
-                    help="K5 and K7 as their earlier design")
+                    help="K5, K6 and K7 as their earlier design")
     ap.add_argument("case", nargs="*")
     args = ap.parse_args()
     dims, depth = args.size.split("/d")
