@@ -219,10 +219,35 @@ Phases, each printing JSON lines on standard output:
    out.bmp`` at the CLI's defaults (the reference executable's
    1280x720x5/d32) in a subprocess on the card; ``read_bmp`` of its output
    equal to ``tonemap_u8(render())`` of the same scene.
-27. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
+27. soft visibility (``tracer/soft.py``, torch ops, no kernel of its
+   own): a. ``render_soft`` of the README scene at 64x36, 4 spp, depth 4
+   and beta 40 on the card against the same call on the CPU (the forward
+   tolerance above), and at beta 50000 against ``render()`` (K1) as
+   tests/test_soft.py holds soft against hard (isclose at atol 5e-2 on
+   more than 93% of values, means within 0.01).  b. at 48x27x4/d4, sphere
+   1 moved 0.1 in x: the centres' gradient of mean((img - target)^2) on
+   the card against the CPU's (tests/test_megagrad.py's README tolerance:
+   8e-2 and a cosine above 0.9999) and its sign (tests/test_soft.py); the
+   one-triangle scene's apex gradient against central differences of the
+   soft forward (|fd - ad| < 2e-3 + 0.05 |fd|, ad < 0).
+   c. ``examples/inverse_rendering_torch.py`` at its size, 60 steps a
+   stage, counts set to 0 just before and read just after: stage 1 (the
+   albedo, hard) launches K1 and K4 once a step, stage 2 (the masked soft
+   centre fit, beta 40) brings sphere 1's x within 0.4 x 0.15 of the true
+   one and leaves the other spheres where they were; seconds a step.
+   Stage 1 takes sphere 1's albedo at least halfway to the true one.
+   d. one soft fit step under ``utils.profiling.device_trace``: the trace
+   file read back, its kernels' device time, host syncs and ten costliest
+   ops; the example's first stage-1 step through ``fit_scene``'s kernel
+   route (K1 and K4, one launch each) traced the same way, and held
+   against the same step on its plain route (the image under the forward
+   tolerance, the albedo gradient under 6c's); the peak card memory of a
+   soft step whose samples fill one and two groups of ``SHADE_BATCH``
+   candidate rays.
+28. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
    window-mode keys and K3's to K7's the earlier design's time, and
-   the result line.  Each of phases 12 to 16, 21 and
-   22 to 23 prints its seconds.
+   the result line.  Each of phases 12 to 16, 21 to 23 and 27 prints its
+   seconds.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
@@ -2990,6 +3015,297 @@ def window_phases(dev, readme_img, fit) -> dict:
     return out
 
 
+def soft_triangle_scene(ot, shift_x: float = 0.0):
+    """tests/test_soft.py's one-triangle scene: a Lambertian triangle
+    facing the camera in a gating box, under the gradient sky."""
+    tv = [[[-0.6 + shift_x, -0.5, -1.5], [0.6 + shift_x, -0.5, -1.5],
+           [0.0 + shift_x, 0.6, -1.5]]]
+    tris = ot.Triangles.from_vertices(tv, albedo=(0.7, 0.3, 0.2), fuzz=0.0,
+                                      ior=0.0,
+                                      mat_type=ot.materials.LAMBERTIAN)
+    boxes = ot.BoundingBoxes.single((-2.0, -1.0, -1.6), (2.0, 1.0, -1.4))
+    cam = ot.Camera.create((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), vfov_deg=70.0,
+                           aspect_ratio=48.0 / 27.0, focus_dist=1.0,
+                           aperture_deg=0.0)
+    return ot.Scene(cam, ot.Spheres.empty(), tris, boxes, ot.Sky.gradient())
+
+
+def trace_summary(path: str, span: str) -> dict:
+    """A ``device_trace`` file read back: the span's host time, the
+    kernels' summed device time and count, the host syncs (``aten::item``,
+    each waiting for the card), and the ten ops with the largest device
+    time (a kernel is charged to the op whose External id it carries, else
+    to its own name)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_op: dict = {}
+    for k in kernels:
+        name = ops.get(k.get("args", {}).get("External id"), k["name"])
+        by_op[name] = by_op.get(name, 0.0) + k["dur"]
+    span_us = sum(e["dur"] for e in events if e["name"] == span
+                  and e.get("cat") == "user_annotation")
+    busy_us = sum(k["dur"] for k in kernels)
+    items = [e for e in events if e["name"] == "aten::item"]
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+    return dict(span_ms=span_us / 1e3, kernel_ms=busy_us / 1e3,
+                kernels=len(kernels),
+                idle_share=(1.0 - busy_us / span_us) if span_us else None,
+                host_syncs=len(items),
+                host_sync_ms=sum(e["dur"] for e in items) / 1e3,
+                top_ops_cuda_ms=[[n, us / 1e3] for n, us in top])
+
+
+def soft_phases(dev) -> dict:
+    """Phases 27a to 27d (see the module docstring): the soft-visibility
+    path, a chain of torch ops that reaches no kernel of its own, on the
+    card; the example's stage 1 goes through K1 and K4."""
+    import glob
+    import os
+    import tempfile
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.optimize import (_step_renderer,
+                                                      insert_params)
+    from opencl_ray_tracer_tpu_torch.tracer.soft import SHADE_BATCH
+    from opencl_ray_tracer_tpu_torch.utils.profiling import (annotate,
+                                                             device_trace)
+
+    t_all = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+    readme = ot.readme_scene()
+    cfg = ot.RenderConfig(width=64, height=36, spp=4, max_depth=4,
+                          early_stop=False)
+    small = cfg.replace(width=48, height=27)
+
+    # ---- 27a. soft forward: the card against the CPU at beta 40, and at
+    # beta 50000 against render() (K1) ----
+    t0 = time.perf_counter()
+    soft_s, soft = timed(lambda: ot.render_soft(readme, cfg, 0, 40.0))
+    cpu_s, cpu = timed(lambda: ot.render_soft(readme, cfg, 0, 40.0,
+                                              device="cpu"), reps=1)
+    stats = compare(soft.cpu(), cpu)
+    sharp = ot.render_soft(readme, cfg, 0, 50000.0)
+    mk.LAUNCHES = 0
+    hard = ot.render(readme, cfg, 0)
+    k1 = mk.LAUNCHES
+    close = float(torch.isclose(sharp, hard, rtol=1e-5, atol=5e-2)
+                  .float().mean())
+    mean_gap = float((sharp.mean() - hard.mean()).abs())
+    out["forward"] = dict(soft_ms=1e3 * soft_s, cpu_ms=1e3 * cpu_s,
+                          card_vs_cpu=stats, beta_50000_close=close,
+                          beta_50000_mean_gap=mean_gap, k1_launches=k1)
+    emit({"phase": "soft_forward", "size": "64x36x4/d4", **out["forward"],
+          "seconds": time.perf_counter() - t0})
+    check_close("soft forward, card against CPU", stats)
+    if close <= 0.93 or mean_gap >= 0.01 or k1 != 1:
+        fail(f"soft forward at beta 50000 against render(): {close}, "
+             f"{mean_gap}, {k1} launches")
+
+    # ---- 27b. soft gradients: sphere 1 moved 0.1 in x, the centres'
+    # gradient on the card against the CPU's and its sign; the triangle's
+    # apex against central differences of the soft forward ----
+    t0 = time.perf_counter()
+    target = ot.render(readme, small, seed=99)
+    c0 = readme.spheres.center.clone()
+    c0[1, 0] += 0.1
+
+    def center_grad(device):
+        c = c0.to(device).requires_grad_()
+        img = ot.render_soft(insert_params(readme, {"spheres.center": c}),
+                             small, 99, 40.0, device=device)
+        torch.mean((img - target.to(device)) ** 2).backward()
+        return c.grad.cpu()
+
+    grad_s, g = timed(lambda: center_grad(dev), reps=1)
+    g_cpu = center_grad("cpu")
+    rel = float((g - g_cpu).abs().max() / g_cpu.abs().max().clamp(min=1e-6))
+    cos = float((g * g_cpu).sum() / (g.norm() * g_cpu.norm()))
+
+    tri = soft_triangle_scene(ot)
+    tri_target = ot.render(soft_triangle_scene(ot, shift_x=0.15), small,
+                           seed=7)
+    p_all = torch.cat([tri.triangles.p0, tri.triangles.p1,
+                       tri.triangles.p2]).to(dev)
+
+    def loss_of_p(p):
+        s = insert_params(tri, {"triangles.p0": p[0:1],
+                                "triangles.p1": p[1:2],
+                                "triangles.p2": p[2:3]})
+        img = ot.render_soft(s, small, 7, 40.0)
+        return torch.mean((img - tri_target) ** 2)
+
+    p = p_all.clone().requires_grad_()
+    loss_of_p(p).backward()
+    eps = 1e-3
+    e = torch.zeros_like(p_all)
+    e[2, 0] = 1.0
+    with torch.no_grad():
+        fd = float((loss_of_p(p_all + eps * e) - loss_of_p(p_all - eps * e))
+                   / (2 * eps))
+    ad = float(p.grad[2, 0])
+    out["gradient"] = dict(
+        center_grad_ms=1e3 * grad_s, center_rel=rel, center_cos=cos,
+        center_g_x=float(g[1, 0]), center_g_y=float(g[1, 1]),
+        apex_fd=fd, apex_ad=ad, vertex_grad_finite=bool(
+            torch.isfinite(p.grad).all()))
+    emit({"phase": "soft_gradient", "size": "48x27x4/d4",
+          **out["gradient"], "seconds": time.perf_counter() - t0})
+    if rel >= 8e-2 or cos <= 0.9999:
+        fail(f"soft centre gradient, card against CPU: {rel}, cos {cos}")
+    if not (g[1, 0] > 0 and g[1, 0].abs() > g[1, 1].abs()):
+        fail(f"soft centre gradient has the wrong sign: {g[1]}")
+    if not (abs(fd - ad) < 2e-3 + 0.05 * abs(fd) and ad < 0.0
+            and out["gradient"]["vertex_grad_finite"]):
+        fail(f"soft vertex gradient against differences: fd {fd}, ad {ad}")
+
+    # ---- 27c. examples/inverse_rendering_torch.py at its size (64x36x4/d4,
+    # 60 steps a stage): stage 1 through K1 and K4, stage 2 soft; counts
+    # set to 0 just before and read just after ----
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import inverse_rendering_torch as example
+    mk.LAUNCHES = mg.LAUNCHES = 0
+    run = example.main(["--out", os.path.join(tmp.name, "demo")])
+    launches = {"sphere_megakernel": mk.LAUNCHES,
+                "sphere_megagrad": mg.LAUNCHES}
+    steps = len(run["stage2_losses"])
+    x_err = abs(float(run["fitted"].spheres.center[1, 0])
+                - float(run["true"].spheres.center[1, 0]))
+    drift = (run["fitted"].spheres.center.cpu()
+             - run["init"].spheres.center.cpu()).abs()
+    drift[1] = 0.0
+    # stage 1 takes sphere 1's albedo at least halfway to the true one
+    # (stage 2 fits the centres alone)
+    albedo = [run[k].spheres.albedo[1].cpu() for k in ("init", "fitted",
+                                                        "true")]
+    albedo_err = float((albedo[1] - albedo[2]).norm())
+    albedo_err0 = float((albedo[0] - albedo[2]).norm())
+    out["example"] = dict(
+        steps=steps, x_err=x_err, x_err_limit=0.4 * 0.15,
+        masked_drift=float(drift.max()), albedo_fitted=albedo[1].tolist(),
+        albedo_err=albedo_err, albedo_err_limit=0.5 * albedo_err0,
+        stage1_s_per_step=run["stage1_seconds_per_step"],
+        stage2_s_per_step=run["stage2_seconds_per_step"],
+        stage1_losses=run["stage1_losses"][::10] + run["stage1_losses"][-1:],
+        stage2_losses=run["stage2_losses"][::10] + run["stage2_losses"][-1:],
+        launches=launches)
+    emit({"phase": "soft_example", "size": "64x36x4/d4", **out["example"],
+          "seconds": time.perf_counter() - t0})
+    # stage 1: K1 and K4 once a step; the three images: K1
+    if launches != {"sphere_megakernel": steps + 3,
+                    "sphere_megagrad": steps}:
+        fail(f"the example's stage 1 skipped the kernels: {launches}")
+    if not (albedo_err < 0.5 * albedo_err0
+            and run["stage1_losses"][-1] < run["stage1_losses"][0]):
+        fail(f"the example's albedo fit: {albedo[1].tolist()} against "
+             f"{albedo[2].tolist()}, losses {run['stage1_losses'][0]} -> "
+             f"{run['stage1_losses'][-1]}")
+    if x_err >= 0.4 * 0.15 or drift.max() != 0.0:
+        fail(f"the example's soft fit: x off by {x_err}, masked spheres "
+             f"moved by {float(drift.max())}")
+
+    # ---- 27d. one soft fit step under device_trace ----
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(tmp.name, "trace")
+    mask = torch.zeros((5, 3))
+    mask[1] = 1.0
+    init = insert_params(readme, {"spheres.center": c0})
+    target = ot.render(readme, cfg, seed=123)
+    with device_trace(trace_dir):
+        with annotate("soft_fit_step"):
+            ot.fit_scene(target, init, cfg, param_paths=("spheres.center",),
+                         steps=1, learning_rate=4e-3, seed=11, soft=True,
+                         beta=40.0, param_mask={"spheres.center": mask})
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"device_trace wrote {files}")
+    summary = trace_summary(files[0], "soft_fit_step")
+    out["trace"] = summary
+    emit({"phase": "soft_trace", "size": "64x36x4/d4",
+          "trace_bytes": os.path.getsize(files[0]), **summary,
+          "seconds": time.perf_counter() - t0})
+    if not summary["kernels"]:
+        fail("the soft step's trace holds no kernel")
+
+    # the example's first stage-1 step (its init, target and step seed 8)
+    # through fit_scene's kernel route (K1 and K4), traced the same way, and
+    # the same step on its plain route: the image under the forward
+    # tolerance, the albedo's gradient under phase 6c's (target is the
+    # example's: the README scene at seed 123)
+    def stage1_step(backend):
+        render_fn, scene = _step_renderer(run["init"], cfg,
+                                          ("spheres.albedo",), False, 80.0,
+                                          backend, dev)
+        a = scene.spheres.albedo.detach().clone().requires_grad_()
+        img = render_fn(insert_params(scene, {"spheres.albedo": a}), 8)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        return float(loss.detach()), img.detach(), a.grad
+
+    hard_dir = os.path.join(tmp.name, "trace_hard")
+    mk.LAUNCHES = mg.LAUNCHES = 0
+    with device_trace(hard_dir):
+        with annotate("hard_fit_step"):
+            k_loss, k_img, k_grad = stage1_step("kernel")
+            torch.cuda.synchronize()
+    launches = {"sphere_megakernel": mk.LAUNCHES,
+                "sphere_megagrad": mg.LAUNCHES}
+    p_loss, p_img, p_grad = stage1_step("plain")
+    stats = compare(k_img, p_img)
+    rel = float((k_grad - p_grad).abs().max()
+                / p_grad.abs().max().clamp(min=1e-6))
+    cos = float((k_grad * p_grad).sum() / (k_grad.norm() * p_grad.norm()))
+    files = glob.glob(os.path.join(hard_dir, "*.pt.trace.json"))
+    out["hard_trace"] = trace_summary(files[0], "hard_fit_step")
+    emit({"phase": "hard_fit_step", "size": "64x36x4/d4",
+          "launches": launches, "kernel_loss": k_loss, "plain_loss": p_loss,
+          "image": stats, "albedo_grad_rel": rel, "albedo_grad_cos": cos,
+          **out["hard_trace"]})
+    check_close("the example's stage-1 step, kernel route against plain",
+                stats)
+    if rel >= 8e-2 or cos <= 0.9999:
+        fail(f"the example's stage-1 albedo gradient, kernel route against "
+             f"plain: {rel}, cosine {cos}")
+    if launches != {"sphere_megakernel": 1, "sphere_megagrad": 1}:
+        fail(f"the stage-1 step skipped the kernels: {launches}")
+
+    # peak card memory of a soft step (forward and backward) whose samples
+    # fill one group of SHADE_BATCH candidate rays, and two groups
+    memory = {}
+    n_cand = readme.spheres.count + readme.triangles.count
+    full = SHADE_BATCH // (cfg.width * cfg.height * n_cand)
+    for spp in (full, 2 * full):
+        mcfg = cfg.replace(spp=spp)
+        mtarget = ot.render(readme, mcfg, seed=123)
+        c = c0.to(dev).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        img = ot.render_soft(insert_params(readme, {"spheres.center": c}),
+                             mcfg, 11, 40.0)
+        torch.mean((img - mtarget) ** 2).backward()
+        torch.cuda.synchronize()
+        memory[spp] = dict(
+            rays=spp * cfg.width * cfg.height * n_cand,
+            step_s=time.perf_counter() - t1,
+            peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+        del img, c
+    out["memory"] = memory
+    emit({"phase": "soft_step_memory", "size": "64x36xN/d4",
+          "shade_batch": SHADE_BATCH, "by_spp": memory})
+    tmp.cleanup()
+    emit({"phase": "soft_done", "seconds": time.perf_counter() - t_all})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3395,8 +3711,9 @@ def main() -> None:
     hdr_entries = hdr_phases(dev)
     windows = window_phases(dev, main_runs["readme"][1],
                             (target, init, losses))
+    soft_phases(dev)
 
-    # ---- 27. kernels line, result line ----
+    # ---- 28. kernels line, result line ----
     r = full["readme"]
     gr = grad_full["readme"]
     kernels = [{

@@ -8,8 +8,10 @@ This release covers scenes of spheres and triangle meshes under a
 gradient, constant or HDR sky, in the forward render (whole, in row blocks
 with ``render(progress=)``, or checkpointed in sample windows with
 ``render_checkpointed``), the scene gradients (``render_and_grad``,
-``render_grad_sampled``) and fitting (``fit_scene``, which can checkpoint
-and resume), and the command line (``python -m
+``render_grad_sampled``), soft-visibility rendering for geometry gradients
+(``render_soft``), fitting (``fit_scene``, with ``soft=True`` for
+geometry, which can checkpoint and resume), device traces
+(``utils.profiling.device_trace``) and the command line (``python -m
 opencl_ray_tracer_tpu_torch.cli``).
 """
 
@@ -22,7 +24,7 @@ from .scene import (BoundingBoxes, Camera, Scene, Sky, Spheres, Triangles,
 from .optimize import fit_scene
 from .parallel import render_checkpointed
 from .tracer import (render, render_and_grad, render_grad_sampled,
-                     render_rows, render_window)
+                     render_rows, render_soft, render_window)
 
 __version__ = "0.1.0"
 
@@ -34,5 +36,5 @@ __all__ = [
     "scene_from_numpy", "scene_to_numpy", "scene_from_json",
     "scene_to_json", "render", "render_rows", "render_window",
     "render_checkpointed", "render_and_grad", "render_grad_sampled",
-    "fit_scene",
+    "render_soft", "fit_scene",
 ]

@@ -6,7 +6,7 @@ The decoder reads the format of the reference's third-party loader
 RGBE scanlines in both the new-RLE (``decrunch``, ``:118-159``) and old-RLE
 (``oldDecrunch``, ``:161-191``) encodings, and the exponent conversion
 ``c * 2^(e-136)`` (``convertComponent``, ``:99-104``).  ``load_hdr`` is the
-pure-Python path (a native loader is ROADMAP item A15).
+pure-Python path (the native loader, ``io/native.py``, is ROADMAP item A4).
 
 ``tone_map`` is the reference's exposure curve (``ReadHdrImageData``,
 ``utility.cpp:172-190``): ``c' = 1 + 1/(-1-c)^5`` (hdrExposure=2), mapping

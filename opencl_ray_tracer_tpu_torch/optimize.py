@@ -3,8 +3,9 @@
 ``fit_scene`` descends the pixel loss with Adam over the listed scene
 leaves (``"spheres.center"``, ``"spheres.albedo"``, ...).  Hard visibility
 gives interior gradients only, so material and shading parameters fit
-well; geometry fits need the soft-visibility renderer, which comes with
-ROADMAP item A12.
+well; geometry (sphere centres and radii, triangle vertices) is dominated
+by silhouette terms that it misses: fit it with ``soft=True``, which
+renders with soft visibility (``tracer/soft.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .scene import Scene, get_leaf, replace_leaves
 from .scene.sky import KIND_HDR
 from .tracer.diffhit import make_grad_hit_fn
 from .tracer.render import render_rows, resolve_device
+from .tracer.soft import render_soft
 
 
 def extract_params(scene: Scene, paths: Sequence[str]) -> dict:
@@ -58,70 +60,16 @@ def _kernel_scope(scene: Scene, param_paths) -> str | None:
     return reason
 
 
-def fit_scene(
-    target,
-    init_scene: Scene,
-    cfg: RenderConfig,
-    param_paths: Sequence[str] = ("spheres.center", "spheres.albedo"),
-    steps: int = 100,
-    learning_rate: float = 1e-2,
-    loss_fn: Callable | None = None,
-    seed: int = 0,
-    sample_new_noise: bool = True,
-    callback: Callable | None = None,
-    soft: bool = False,
-    param_mask: dict | None = None,
-    grad_backend: str = "auto",
-    checkpoint_path: str | None = None,
-    checkpoint_every: int = 10,
-    device=None,
-):
-    """Adam on the leaves at ``param_paths`` against ``target`` ((H, W, 3)
-    radiance at cfg's size).  Returns (fitted scene, losses per step).
-
-    loss_fn(img) defaults to the mean squared error to target.
-    sample_new_noise draws new Monte Carlo samples every step (step i uses
-    seed + i + 1); False keeps ``seed``, a deterministic objective.
-    callback(i, loss, scene) runs after each step.  param_mask multiplies
-    a parameter's gradient before the update ("group.field" -> tensor).
-    grad_backend: "kernel" renders with the forward megakernel and
-    differentiates with the backward megakernel, both under the "zero" NaN
-    policy and with value-independent flags (``specialize_flags(...,
-    conservative=True)``), since a step changes fuzz and aperture values;
-    a mesh scene takes the mesh megakernel and the mesh backward kernel the
-    same way (``specialize_mesh_flags(..., conservative=True)``), with the
-    mesh tables in the initial scene's plan, rebuilt from the moved
-    vertices every step (the plan is built once per fit).  The mesh route
-    fits any leaf but the triangles' materials (a step would break the
-    uniform material its scope needs); fitting those takes "plain".  An
-    HDR scene takes the HDR passes (K6 and K7, the JAX package's fused
-    pipeline: no forward render) the same way, with the first plan when it
-    has triangles; its scope is held on the initial scene, as in the JAX
-    package, and it fits ``sky.image`` besides; fitting another sky leaf
-    or the triangles' materials takes "plain".
-    "plain" is autograd of the plain per-sample tracer (cfg.early_stop
-    off); "auto" is "kernel" on CUDA for a scene in the kernels' scope and
-    "plain" otherwise.  An explicit "kernel" out of scope raises
-    ``NotImplementedError``.  ``device`` None means the card, and raises
-    when there is none.
-
-    checkpoint_path: the fit's state (the parameters, Adam's state, the
-    losses and the step count) is written there atomically every
-    ``checkpoint_every`` steps and after the last; a fit started again with
-    the same arguments resumes from it, and with ``sample_new_noise`` its
-    step-indexed seeds continue where they stopped.
-
-    Adam with torch's defaults performs optax.adam's update (both divide by
-    sqrt(v_hat) + eps).
-    """
+def _step_renderer(init_scene: Scene, cfg: RenderConfig, param_paths,
+                   soft: bool, beta: float, grad_backend: str, device):
+    """The route of a ``fit_scene`` step for these arguments (see there):
+    (render_fn, init_scene on the device), render_fn(scene, step_seed) the
+    image of a scene that holds the fit's parameters, differentiable in
+    them.  ``chip_smoke.py`` holds one step of the kernel route against
+    the same step of "plain" through it."""
     if soft:
-        raise NotImplementedError(
-            "soft-visibility fitting is not ported yet: ROADMAP item A12")
-    if checkpoint_every < 1:
-        raise ValueError("checkpoint_every must be at least 1")
-    if grad_backend not in ("auto", "kernel", "plain"):
-        raise ValueError(f"unknown grad_backend: {grad_backend}")
-    reason = _kernel_scope(init_scene, param_paths)
+        grad_backend = "soft"
+    reason = None if soft else _kernel_scope(init_scene, param_paths)
     hdr = init_scene.sky.kind == KIND_HDR
     device = resolve_device(device)
     if grad_backend == "auto":
@@ -133,13 +81,11 @@ def fit_scene(
     if grad_backend == "kernel" and reason is not None:
         raise NotImplementedError(reason)
     init_scene = init_scene.to(device)
-    target = torch.as_tensor(target, dtype=torch.float32, device=device)
-    if loss_fn is None:
-        def loss_fn(img):
-            return torch.mean((img - target) ** 2)
-
     dcfg = cfg.replace(early_stop=False)
-    if grad_backend == "kernel" and hdr:
+    if grad_backend == "soft":
+        def render_fn(scene, step_seed):
+            return render_soft(scene, dcfg, step_seed, beta, device=device)
+    elif grad_backend == "kernel" and hdr:
         from .kernels.intersect_mm import MESH_CHUNK
         from .kernels.megagrad import render_hdr_differentiable
         from .kernels.megamesh import specialize_mesh_flags
@@ -178,6 +124,80 @@ def fit_scene(
             return render_rows(scene, dcfg, 0, dcfg.height, step_seed,
                                hit_fn=make_grad_hit_fn(
                                    scene, dcfg.t_min, winner_backend="auto"))
+    return render_fn, init_scene
+
+
+def fit_scene(
+    target,
+    init_scene: Scene,
+    cfg: RenderConfig,
+    param_paths: Sequence[str] = ("spheres.center", "spheres.albedo"),
+    steps: int = 100,
+    learning_rate: float = 1e-2,
+    loss_fn: Callable | None = None,
+    seed: int = 0,
+    sample_new_noise: bool = True,
+    callback: Callable | None = None,
+    soft: bool = False,
+    beta: float = 80.0,
+    param_mask: dict | None = None,
+    grad_backend: str = "auto",
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 10,
+    device=None,
+):
+    """Adam on the leaves at ``param_paths`` against ``target`` ((H, W, 3)
+    radiance at cfg's size).  Returns (fitted scene, losses per step).
+
+    loss_fn(img) defaults to the mean squared error to target.
+    sample_new_noise draws new Monte Carlo samples every step (step i uses
+    seed + i + 1); False keeps ``seed``, a deterministic objective.
+    callback(i, loss, scene) runs after each step.  param_mask multiplies
+    a parameter's gradient before the update ("group.field" -> tensor).
+    grad_backend: "kernel" renders with the forward megakernel and
+    differentiates with the backward megakernel, both under the "zero" NaN
+    policy and with value-independent flags (``specialize_flags(...,
+    conservative=True)``), since a step changes fuzz and aperture values;
+    a mesh scene takes the mesh megakernel and the mesh backward kernel the
+    same way (``specialize_mesh_flags(..., conservative=True)``), with the
+    mesh tables in the initial scene's plan, rebuilt from the moved
+    vertices every step (the plan is built once per fit).  The mesh route
+    fits any leaf but the triangles' materials (a step would break the
+    uniform material its scope needs); fitting those takes "plain".  An
+    HDR scene takes the HDR passes (K6 and K7, the JAX package's fused
+    pipeline: no forward render) the same way, with the first plan when it
+    has triangles; its scope is held on the initial scene, as in the JAX
+    package, and it fits ``sky.image`` besides; fitting another sky leaf
+    or the triangles' materials takes "plain".
+    "plain" is autograd of the plain per-sample tracer (cfg.early_stop
+    off); "auto" is "kernel" on CUDA for a scene in the kernels' scope and
+    "plain" otherwise.  An explicit "kernel" out of scope raises
+    ``NotImplementedError``.  soft renders every step with
+    ``render_soft(scene, cfg, step_seed, beta)`` (soft visibility of
+    sharpness beta, autograd of torch ops; no kernel) and takes
+    precedence over grad_backend, as in the JAX package.  ``device`` None
+    means the card, and raises when there is none.
+
+    checkpoint_path: the fit's state (the parameters, Adam's state, the
+    losses and the step count) is written there atomically every
+    ``checkpoint_every`` steps and after the last; a fit started again with
+    the same arguments resumes from it, and with ``sample_new_noise`` its
+    step-indexed seeds continue where they stopped.
+
+    Adam with torch's defaults performs optax.adam's update (both divide by
+    sqrt(v_hat) + eps).
+    """
+    if checkpoint_every < 1:
+        raise ValueError("checkpoint_every must be at least 1")
+    if grad_backend not in ("auto", "kernel", "plain"):
+        raise ValueError(f"unknown grad_backend: {grad_backend}")
+    device = resolve_device(device)
+    render_fn, init_scene = _step_renderer(init_scene, cfg, param_paths,
+                                           soft, beta, grad_backend, device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    if loss_fn is None:
+        def loss_fn(img):
+            return torch.mean((img - target) ** 2)
 
     params = {p: v.detach().clone().requires_grad_()
               for p, v in extract_params(init_scene, param_paths).items()}

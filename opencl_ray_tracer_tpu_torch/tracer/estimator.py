@@ -34,15 +34,18 @@ def bounce_uniforms(seed, pixel_ids, sample_id, depth):
 
 
 def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3,
-          hit_fn=None):
+          hit_fn=None, first_bounce=0, throughput=None):
     """Trace a ray batch to the end of its paths; per-ray radiance (R,3).
     The loop ends after max_depth bounces or when no ray is alive.
 
     hit_fn(o, d) -> HitInfo replaces ``closest_hit`` (the winner-only
-    differentiable hit of ``diffhit.make_grad_hit_fn``)."""
+    differentiable hit of ``diffhit.make_grad_hit_fn``).  first_bounce
+    offsets the bounces' RNG slots (the soft renderer draws bounce 0's
+    itself); throughput (R,3) seeds the path throughput (default ones)."""
     r = o.shape[0]
     dev = o.device
-    throughput = torch.ones((r, 3), device=dev)
+    if throughput is None:
+        throughput = torch.ones((r, 3), device=dev)
     result = torch.zeros((r, 3), device=dev)
     miss_dir = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(r, 3)
     status = torch.zeros((r,), dtype=torch.int32, device=dev)
@@ -54,7 +57,7 @@ def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3,
              else closest_hit(scene, o, d, t_min))
         sc = scatter(d, h.normal, h.front_face, h.albedo, h.fuzz, h.ior,
                      h.mat_type, bounce_uniforms(seed, pixel_ids, sample_id,
-                                                 depth))
+                                                 depth + first_bounce))
         miss_now = alive & ~h.hit
         emit_now = alive & h.hit & sc.emitted
         absorb_now = alive & h.hit & sc.absorbed & ~sc.emitted

@@ -9,7 +9,10 @@
   channels (5e-3), and 40 random spheres (2e-2).  Both draw the same
   counter-RNG samples, so the paths agree but for ulps.
 - ``render_grad_sampled(grad_backend="plain")`` against JAX
-  ``render_grad_sampled(grad_backend="jnp")``: loss, image and gradients.
+  ``render_grad_sampled(grad_backend="jnp")``: loss, image and gradients
+  (JAX's recorded with the inputs they came from in
+  tests/goldens/torch_grad_refs.npz by ``tools/make_port_refs.py``, which
+  calls ``jax_references`` below; ``port_refs.load`` checks the inputs).
 - One finite-difference check of the albedo gradient on the port alone.
 
 Scenes cross over as numpy leaves (``scene_to_numpy``).
@@ -25,6 +28,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.scene import Sky as JSky
 from opencl_ray_tracer_tpu.tracer.render import (
     render_and_grad as jax_render_and_grad,
@@ -132,19 +136,28 @@ def test_render_and_grad_matches_jax(case):
         assert np.abs(got["sky.const_colour"]).max() > 0
 
 
+def jax_references() -> dict:
+    """JAX render_grad_sampled(grad_backend="jnp") of the reference scene:
+    its loss, image and gradient leaves with their inputs, keyed
+    "grad/sampled/<name>" (``tools/make_port_refs.py`` records them)."""
+    js, jcfg = ort.reference_scene(), ort.RenderConfig(**CFG)
+    loss, img, g = jax_render_grad_sampled(js, jcfg, jax_loss, seed=SEED,
+                                           grad_backend="jnp")
+    return port_refs.record("grad/sampled", js, jcfg, SEED, loss, img, g)
+
+
 def test_render_grad_sampled_plain_matches_jax():
     js = ort.reference_scene()
-    jl, jimg, jg = jax_render_grad_sampled(js, ort.RenderConfig(**CFG),
-                                           jax_loss, seed=SEED,
-                                           grad_backend="jnp")
+    jl, jimg, want = port_refs.load("grad/sampled", js,
+                                    ort.RenderConfig(**CFG), SEED)
     # chunks of 9 rows and 2 samples: two row chunks, two sample chunks
     tl, timg, tg = ot.render_grad_sampled(
         to_port(js), ot.RenderConfig(**CFG), torch_loss, seed=SEED,
         spp_chunk=2, row_chunk=9, grad_backend="plain", device="cpu")
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
-    diff = np.abs(timg.numpy() - np.asarray(jimg))
+    diff = np.abs(timg.numpy() - jimg)
     assert (diff > 1e-4).mean() < 0.005 and diff.mean() < 1e-4
-    assert_grads_close(scene_to_numpy(tg), scene_to_numpy(jg), 5e-3)
+    assert_grads_close(scene_to_numpy(tg), want, 5e-3)
 
 
 def test_render_and_grad_remat_and_full_fold_agree():

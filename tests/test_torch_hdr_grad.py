@@ -4,9 +4,12 @@
   the HDR emit pass, the texels' lookup, the image rebuilt from them, the
   consume pass and the texels' scatter; on CPU tensors the passes' plain
   versions) against JAX ``render_grad_sampled(grad_backend="jnp")``, its
-  own HDR tests' oracle: the README spheres at 3 spp and the mesh scene of
-  tests/test_megamesh.py at 10 spp (more than the JAX passes' 8-sample
-  window), 32x16, depth 4, under tests/test_megagrad.py's tolerances
+  own HDR tests' oracle (its loss, image and gradient recorded with the
+  inputs they came from in tests/goldens/torch_grad_refs.npz by
+  ``tools/make_port_refs.py``, which calls ``jax_references`` below;
+  ``port_refs.load`` checks the inputs): the README spheres at 3 spp and
+  the mesh scene of tests/test_megamesh.py at 10 spp (more than the JAX
+  passes' 8-sample window), 32x16, depth 4, under tests/test_megagrad.py's tolerances
   (max|a - b| / max|b|): sphere albedo 5e-3 (fused) and vertices 5e-4,
   ``sky.image`` 5e-3 with more than 99.9% of texels within 1e-6, the loss
   within 1e-4.  The
@@ -32,6 +35,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.io.hdr import tone_map
 from opencl_ray_tracer_tpu.io.obj import parse_obj
 from opencl_ray_tracer_tpu.io.procgen import make_sky_image, make_torus_obj
@@ -76,18 +80,25 @@ def _loss(img):
     return (img ** 2).mean()
 
 
-_JAX = {}
+def jax_references() -> dict:
+    """JAX render_grad_sampled(grad_backend="jnp") of every case: its loss,
+    image and gradient leaves with their inputs, keyed
+    "hdr_grad/<case>/<name>" (``tools/make_port_refs.py`` records them)."""
+    refs = {}
+    for name in CASES:
+        jscene, jcfg = _scene(ort, name), _cfg(ort, CASES[name])
+        loss, img, g = jax_render_grad_sampled(
+            jscene, jcfg, lambda im: jnp.mean(im ** 2), seed=0,
+            grad_backend="jnp")
+        refs.update(port_refs.record(f"hdr_grad/{name}", jscene, jcfg, 0,
+                                     loss, img, g))
+    return refs
 
 
 def _jax_grads(name):
-    """JAX render_grad_sampled(grad_backend="jnp"): loss, image, numpy
-    leaves of the gradient."""
-    if name not in _JAX:
-        loss, img, g = jax_render_grad_sampled(
-            _scene(ort, name), _cfg(ort, CASES[name]),
-            lambda im: jnp.mean(im ** 2), seed=0, grad_backend="jnp")
-        _JAX[name] = (float(loss), np.asarray(img), scene_to_numpy(g))
-    return _JAX[name]
+    """The recorded JAX loss, image and numpy leaves of the gradient."""
+    return port_refs.load(f"hdr_grad/{name}", _scene(ort, name),
+                          _cfg(ort, CASES[name]), 0)
 
 
 def _rel(a, b):

@@ -1,8 +1,12 @@
 """The port's mesh-scene gradients on the CPU against the JAX package's.
 
 - ``render_grad_sampled`` of the JAX package (``grad_backend="jnp"``, the
-  oracle its own mesh-gradient tests use) against three routes of the
-  port: ``render_grad_sampled(grad_backend="plain")``, ``render_grad_scene``
+  oracle its own mesh-gradient tests use; its loss, image and gradient
+  are recorded with the inputs they came from in
+  tests/goldens/torch_grad_refs.npz by ``tools/make_port_refs.py``, which
+  calls ``jax_references`` below; ``port_refs.load`` checks the inputs)
+  against three routes of the port:
+  ``render_grad_sampled(grad_backend="plain")``, ``render_grad_scene``
   through the mesh backward's wrapper (whose CPU path is its plain
   version, autograd of the plain wavefront with the winner hit in plane
   form) chained by ``tri_grads_to_scene``, and ``render_and_grad``.  The
@@ -43,6 +47,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.io.obj import parse_obj
 from opencl_ray_tracer_tpu.io.procgen import make_torus_obj
 from opencl_ray_tracer_tpu.scene import Sky as JSky
@@ -116,8 +121,22 @@ def _port_scene(jscene):
     return scene_from_numpy(scene_to_numpy(jscene), jscene.sky.kind)
 
 
+def jax_references() -> dict:
+    """JAX's loss, image and gradient leaves of every case with their
+    inputs, keyed "mesh_grad/<case>/<name>" (``tools/make_port_refs.py``
+    records them)."""
+    refs = {}
+    for case, (make, seed, _) in CASES.items():
+        jscene, jcfg = make(), ort.RenderConfig(**CFG)
+        loss, img, grads = jax_render_grad_sampled(
+            jscene, jcfg, _loss_jax, seed=seed, grad_backend="jnp")
+        refs.update(port_refs.record(f"mesh_grad/{case}", jscene, jcfg, seed,
+                                     loss, img, grads))
+    return refs
+
+
 def _assert_leaves_close(got, want, tol, name):
-    a, b = scene_to_numpy(got), scene_to_numpy(want)
+    a, b = scene_to_numpy(got), want
     errs = {k: float(np.abs(a[k] - b[k]).max())
             / max(float(np.abs(b[k]).max()), 1e-9) for k in tol}
     bad = {k: v for k, v in errs.items() if not v < tol[k]}
@@ -129,9 +148,9 @@ def test_mesh_grads_match_jax(case):
     make, seed, tol = CASES[case]
     jscene = make()
     jcfg = ort.RenderConfig(**CFG)
-    jloss, jimg, jgrads = jax_render_grad_sampled(jscene, jcfg, _loss_jax,
-                                                  seed=seed,
-                                                  grad_backend="jnp")
+    jloss, jimg, jgrads = port_refs.load(f"mesh_grad/{case}", jscene, jcfg,
+                                         seed)
+    assert jimg.shape == (jcfg.height, jcfg.width, 3)
     scene = _port_scene(jscene)
     cfg = ot.RenderConfig(**CFG)
     assert mg.supports_grad_mesh(scene, cfg)
@@ -155,8 +174,8 @@ def test_mesh_grads_match_jax(case):
 
     if case == "gradient_sky":
         # real vertex and material signal, as the JAX test asserts
-        assert np.abs(np.asarray(jgrads.triangles.p0)).max() > 0
-        assert np.abs(np.asarray(jgrads.triangles.albedo)).max() > 1e-6
+        assert np.abs(jgrads["triangles.p0"]).max() > 0
+        assert np.abs(jgrads["triangles.albedo"]).max() > 1e-6
         # the kernel route on CPU tensors: the mesh megakernel's and the
         # mesh backward's plain versions through MeshRenderFn
         launches = (mm.LAUNCHES, mg.MESH_LAUNCHES)

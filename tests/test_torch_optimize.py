@@ -9,6 +9,8 @@ which the albedo's (smooth, all of one sign here) do.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,10 +97,9 @@ def test_extract_insert_round_trip():
 def test_unported_options_raise():
     cfg = ot.RenderConfig(**CFG)
     target = torch.zeros((14, 24, 3))
-    with pytest.raises(NotImplementedError, match="A12"):
-        ot.fit_scene(target, ot.readme_scene(), cfg, soft=True, device="cpu")
-    # checkpointed fits are ported (tests/test_torch_checkpoint.py); a
-    # checkpoint interval below one step is refused
+    # soft fits (tests/test_torch_soft.py) and checkpointed fits
+    # (tests/test_torch_checkpoint.py) are ported; a checkpoint interval
+    # below one step and an unknown backend are refused
     with pytest.raises(ValueError, match="checkpoint_every"):
         ot.fit_scene(target, ot.readme_scene(), cfg,
                      checkpoint_path="fit.npz", checkpoint_every=0,
@@ -106,3 +107,30 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="grad_backend"):
         ot.fit_scene(target, ot.readme_scene(), cfg, grad_backend="pallas",
                      device="cpu")
+
+
+def test_inverse_rendering_example_runs(tmp_path, capsys):
+    """examples/inverse_rendering_torch.py in process at a tiny size: both
+    stages run, the masked spheres' centres stay where they were, and the
+    three images are written."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "examples"))
+    try:
+        import inverse_rendering_torch as example
+    finally:
+        sys.path.pop(0)
+    out = str(tmp_path / "demo")
+    run = example.main(["--cpu", "--steps", "1", "--size", "16", "--out",
+                        out])
+    for key in ("stage1_losses", "stage2_losses"):
+        assert len(run[key]) == 1 and np.isfinite(run[key][0])
+    start = run["init"].spheres.center
+    fitted = run["fitted"].spheres.center
+    others = [0, 2, 3, 4]
+    assert torch.equal(fitted[others], start[others])
+    assert fitted[1, 0] != start[1, 0]
+    assert float(start[1, 0] - run["true"].spheres.center[1, 0]) == \
+        pytest.approx(0.15)
+    for part in ("target", "init", "fitted"):
+        assert os.path.getsize(f"{out}_{part}.png") > 0
+    assert "stage 2: center (soft visibility)" in capsys.readouterr().out

@@ -100,7 +100,11 @@ def test_port_imports_no_jax():
             "opencl_ray_tracer_tpu_torch.kernels.intersect_mm, "
             "opencl_ray_tracer_tpu_torch.scene.builder, "
             "opencl_ray_tracer_tpu_torch.io.procgen, "
-            "opencl_ray_tracer_tpu_torch.io\n"
+            "opencl_ray_tracer_tpu_torch.io, "
+            "opencl_ray_tracer_tpu_torch.tracer.soft, "
+            "opencl_ray_tracer_tpu_torch.utils.profiling\n"
+            "sys.path.insert(0, 'examples')\n"
+            "import inverse_rendering_torch\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'opencl_ray_tracer_tpu' "
             "or m.startswith('opencl_ray_tracer_tpu.')]\n"
@@ -117,7 +121,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "inverse_rendering_torch.py")]
     for base, _, names in os.walk(os.path.join(ROOT,
                                                "opencl_ray_tracer_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
