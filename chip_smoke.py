@@ -245,13 +245,41 @@ Phases, each printing JSON lines on standard output:
    soft step whose samples fill one and two groups of ``SHADE_BATCH``
    candidate rays.
 28. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
-   window-mode keys and K3's to K7's the earlier design's time, and
-   the result line.  Each of phases 12 to 16, 21 to 23 and 27 prints its
-   seconds.
+   window-mode keys, K3's to K7's the earlier design's time, and every
+   entry its launches in phase 29's worlds (``sharded_launches``), and
+   the result line.  Each of phases 12 to 16, 21 to 23, 27 and 29 prints
+   its seconds.
+29. sharded (``parallel/`` over ``torch.distributed``; run before the
+   kernels line), each world's ranks started as processes of this script
+   (``--sharded-world``) under one deadline that kills every rank.
+   a. one rank under NCCL (``tcp://localhost``, a free port): the README
+   scene at ``README_BENCH`` through ``render_sharded``, bit for bit
+   ``render()``'s, and ``render_grad_sharded`` (K1, K4) against
+   ``render_grad_sampled`` (phase 5's README tolerance: 8e-2 per leaf, a
+   cosine above 0.9999), the minimum of 3 of each beside the other.
+   b. four ranks on the one card under gloo (the collectives stage CUDA
+   tensors through the host, their bytes printed; NCCL puts one rank on a
+   card): the README scene at ``README_BENCH`` on a 4x1 mesh (bit for bit
+   ``render()``) and a 2x2 mesh (the forward tolerance of phase 3);
+   ``render_grad_sharded`` of the README scene (K1, K4), the 576-triangle
+   torus under the gradient sky (K2, K5) and the flagship (K2, K6, K7) at
+   ``REFERENCE_DEFAULTS``, each after a warm-up call and against the
+   single-rank ``render_grad_sampled`` (the README's tolerance, the metal
+   mesh's 5e-3, phase 19's for the flagship); one kernel
+   ``make_train_step`` step on the README scene's albedo at
+   ``README_BENCH`` against the gradient of ``fit_scene``'s kernel route
+   for the same step (the README's tolerance, the loss within 1e-6); the
+   geometry ring's render of the 15,360-triangle torus at
+   ``REFERENCE_DEFAULTS``, once, K3 a ring step, against the replicated
+   plain route (``backend="jnp"``) under the forward tolerance.  Every
+   rank's results equal (digests); each section's kernels launched on
+   every rank; each rank's launches, staged bytes and seconds printed.
+   Four processes share one card, so its times are not scaling figures.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
-other than nvidia-smi, nvcc and the CLI of phase 26, all waited for.
+other than nvidia-smi, nvcc, the CLI of phase 26 and the ranks of phase
+29, all waited for (phase 29's killed at their deadline).
 """
 
 from __future__ import annotations
@@ -334,6 +362,8 @@ KERNELS = {"megakernel": ("megakernel", ()),
            "megagrad_k6_variants": ("megagrad", ("ORT_K6_VARIANTS",)),
            "intersect_mm_k3_variants": ("intersect_mm",
                                         ("ORT_K3_VARIANTS",))}
+# The sources of the main paths' libraries (KERNELS' first four).
+KERNELS_ON_PATHS = ("megakernel", "megagrad", "megamesh", "intersect_mm")
 # The instances of K1's measurement build (csrc/megakernel.cu kVariants),
 # in order: the earlier design (a pixel per thread, each branch drawing on
 # its own), its SIMT-counting instance and its timing cuts (each runs one
@@ -3306,6 +3336,429 @@ def soft_phases(dev) -> dict:
     return out
 
 
+# ---- 29. sharded: parallel/ over torch.distributed, its worlds as
+# subprocesses (one process a rank) ----
+
+# The kernels' launch counters, by kernel.
+def kernel_counts() -> dict:
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    return {"K1": mk.LAUNCHES, "K2": mm.LAUNCHES, "K3": im.LAUNCHES,
+            "K4": mg.LAUNCHES, "K5": mg.MESH_LAUNCHES,
+            "K6": mg.EMIT_LAUNCHES, "K7": mg.CONSUME_LAUNCHES}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count and the collectives' staged bytes set
+    to 0."""
+    from opencl_ray_tracer_tpu_torch.kernels import intersect_mm as im
+    from opencl_ray_tracer_tpu_torch.kernels import megagrad as mg
+    from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
+    from opencl_ray_tracer_tpu_torch.kernels import megamesh as mm
+    from opencl_ray_tracer_tpu_torch.parallel import mesh as pm
+    mk.LAUNCHES = mm.LAUNCHES = im.LAUNCHES = 0
+    mg.LAUNCHES = mg.MESH_LAUNCHES = mg.EMIT_LAUNCHES = 0
+    mg.CONSUME_LAUNCHES = 0
+    pm.STAGED_BYTES = 0
+
+
+def digest(*tensors) -> str:
+    """A digest of tensors' bytes: equal results on every rank."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def grads_digest(g) -> str:
+    from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
+    leaves = scene_to_numpy(g)
+    return digest(*(torch.as_tensor(leaves[k]) for k in sorted(leaves)))
+
+
+def counted(fn) -> tuple:
+    """fn() with the counts set to 0 just before and read just after:
+    (result, seconds, launches by kernel, bytes staged by the
+    collectives)."""
+    from opencl_ray_tracer_tpu_torch.parallel import mesh as pm
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, kernel_counts(), pm.STAGED_BYTES
+
+
+def mse_loss(img):
+    return (img ** 2).mean()
+
+
+def sharded_world_1(out: dict) -> None:
+    """29a, one rank under NCCL: the README scene at README_BENCH through
+    render_sharded and render_grad_sharded, beside render() and
+    render_grad_sampled() in the same process."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch import parallel as par
+    mesh = par.make_mesh()
+    out["describe"] = par.describe(mesh)
+    bench = ot.README_BENCH
+    readme = ot.readme_scene(16 / 9)
+    par.render_sharded(readme, bench, mesh)            # warm-up
+    ot.render_grad_sampled(readme, bench, mse_loss)    # warm-up, K4 loaded
+    runs = {}
+    for name, fn in (
+            ("render_sharded", lambda: par.render_sharded(readme, bench,
+                                                          mesh)),
+            ("render", lambda: ot.render(readme, bench)),
+            ("render_grad_sharded", lambda: par.render_grad_sharded(
+                readme, bench, mse_loss, mesh)),
+            ("render_grad_sampled", lambda: ot.render_grad_sampled(
+                readme, bench, mse_loss))):
+        best = None
+        for _ in range(3):
+            res, secs, launches, staged = counted(fn)
+            if best is None or secs < best[1]:
+                best = (res, secs, launches, staged)
+        runs[name] = best
+        out[name] = {"seconds": best[1], "launches": best[2],
+                     "staged_bytes": best[3]}
+    out["image_equal"] = bool(torch.equal(runs["render_sharded"][0],
+                                          runs["render"][0]))
+    _, img_g, gs = runs["render_grad_sharded"][0]
+    _, img_r, gr = runs["render_grad_sampled"][0]
+    rel, absd, cos = leaf_errors(gs, gr)
+    out["grad"] = {"rel_err": rel, "max_abs_err": absd, "cosine": cos,
+                   "image_equal": bool(torch.equal(img_g, img_r))}
+
+
+def sharded_world_4(out: dict, rank: int, device) -> None:
+    """29b, one of four ranks (on the one card under gloo, or on four
+    cards under NCCL, ``multi_card_phase``): the README scene's tile and
+    tile x sample renders at README_BENCH, the sharded gradients of the
+    README scene, the 576-triangle torus and the flagship at
+    REFERENCE_DEFAULTS, a kernel train step at README_BENCH and the
+    geometry ring's render of the 15,360-triangle torus; rank 0 then
+    computes the single-rank references on its card and compares."""
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch import parallel as par
+    from opencl_ray_tracer_tpu_torch.optimize import (_step_renderer,
+                                                      insert_params)
+    tile = par.make_mesh(n_tile=4, device=device)
+    grid = par.make_mesh(n_tile=2, n_sample=2, device=device)
+    out["describe"] = par.describe(tile)
+    bench, ref = ot.README_BENCH, ot.REFERENCE_DEFAULTS
+    readme = ot.readme_scene(16 / 9)
+    sections = out["sections"] = {}
+    kept = {}
+
+    def section(name, fn, key, warm=True):
+        """fn() counted, after one uncounted call when warm (its seconds
+        reported as the first call's: libraries loaded, tables built)."""
+        first = counted(fn)[1] if warm else None
+        res, secs, launches, staged = counted(fn)
+        kept[name] = res
+        sections[name] = {"seconds": secs, "first_call_seconds": first,
+                          "launches": launches, "staged_bytes": staged,
+                          "digest": key(res)}
+
+    section("readme_4x1", lambda: par.render_sharded(readme, bench, tile),
+            digest)
+    section("readme_2x2", lambda: par.render_sharded(readme, bench, grid),
+            digest)
+    grad_scenes = {"readme": readme, "torus_576": torus_scene(),
+                   "flagship": ot.flagship_scene(16 / 9)}
+    for name, scene in grad_scenes.items():
+        section(f"grad_{name}", lambda: par.render_grad_sharded(
+            scene, ref, mse_loss, tile),
+            lambda r: digest(r[1]) + grads_digest(r[2]))
+    # a kernel train step on the README scene's albedo from a perturbed
+    # start, against the gradient of fit_scene's kernel route for the same
+    # step (its render_fn, _step_renderer)
+    target = ot.render(readme, bench, seed=0, device=tile.device)
+    render_fn, init = _step_renderer(
+        dataclasses.replace(readme, spheres=dataclasses.replace(
+            readme.spheres, albedo=readme.spheres.albedo + 0.1)),
+        bench, ("spheres.albedo",), False, 80.0, "kernel", tile.device)
+    start = init.spheres.albedo.detach().clone()
+    params = {"spheres.albedo": start.clone().requires_grad_()}
+    opt = torch.optim.SGD(list(params.values()), lr=1.0)
+    step = par.make_train_step(
+        bench, tile, opt, lambda im, t: ((im - t) ** 2).mean(),
+        lambda p: insert_params(init, p), grad_backend="kernel",
+        template_scene=init)
+    # one step: a second would move the parameters again
+    section("train_step", lambda: step(params, target, 1),
+            lambda loss: digest(loss, params["spheres.albedo"]), warm=False)
+    move = (start - params["spheres.albedo"]).detach()
+    ring_scene = torus_scene(128, 60)
+    section("ring_15360", lambda: par.render_sharded(
+        ring_scene, ref, tile, geometry_ring=True), digest, warm=False)
+    if rank != 0:
+        return
+    # ---- the single-rank references, rank 0 alone ----
+    checks = out["checks"] = {}
+    single = ot.render(readme, bench, device=tile.device)
+    checks["readme_4x1_equal"] = bool(torch.equal(kept["readme_4x1"],
+                                                  single))
+    checks["readme_2x2"] = compare(kept["readme_2x2"], single)
+    for name, scene in grad_scenes.items():
+        loss, img, g = kept[f"grad_{name}"]
+        l2, i2, g2 = ot.render_grad_sampled(scene, ref, mse_loss,
+                                            device=tile.device)
+        c = {"loss_rel_err": abs(float(loss) - float(l2)) / float(l2),
+             "image": compare(img, i2)}
+        if name == "readme":
+            rel, absd, cos = leaf_errors(g, g2)
+            c.update(rel_err=rel, max_abs_err=absd, cosine=cos)
+        else:
+            c["rel_err"] = mesh_leaf_errors(
+                g, g2, SHARDED_GRAD_TOL[name].keys())
+        checks[f"grad_{name}"] = c
+    params = {"spheres.albedo": start.clone().requires_grad_()}
+    loss = ((render_fn(insert_params(init, params), 1) - target) ** 2).mean()
+    loss.backward()
+    want = params["spheres.albedo"].grad
+    a, b = move.double().ravel(), want.double().ravel()
+    checks["train_step"] = {
+        "loss_rel_err": abs(float(kept["train_step"]) - float(loss))
+        / float(loss),
+        "rel_err": float((a - b).abs().max() / b.abs().max()),
+        "cosine": float(a @ b / (a.norm() * b.norm()))}
+    plain = ot.render(ring_scene, ref.replace(backend="jnp"),
+                      device=tile.device)
+    checks["ring_15360"] = compare(kept["ring_15360"], plain)
+
+
+# Tolerances of phase 29's gradients against the single-rank
+# render_grad_sampled, per leaf, max|a - b| / max|b|: the README scene's
+# of tests/test_megagrad.py (fuzzy metal, with a cosine above 0.9999, as
+# phase 5), the metal mesh's (5e-3, phase 12) and the flagship's (phase
+# 19; its sharded image is K2's, the single rank's is rebuilt from K6, so
+# the two losses' image cotangents differ by K2's rounding).
+SHARDED_GRAD_TOL = {
+    "torus_576": {k: 5e-3 for k in GRAD_LEAVES + TRI_LEAVES},
+    "flagship": {"spheres.albedo": 5e-3, "triangles.p0": 5e-4,
+                 "triangles.p1": 5e-4, "triangles.p2": 5e-4,
+                 "triangles.albedo": 5e-3, "sky.image": 5e-3},
+}
+# The kernels each section of 29b must launch on every rank.
+SHARDED_KERNELS = {"readme_4x1": ("K1",), "readme_2x2": ("K1",),
+                   "grad_readme": ("K1", "K4"),
+                   "grad_torus_576": ("K2", "K5"),
+                   "grad_flagship": ("K2", "K6", "K7"),
+                   "train_step": ("K1", "K4"), "ring_15360": ("K3",)}
+
+
+def sharded_worker(argv) -> None:
+    """One rank of a phase-29 world: ``chip_smoke.py --sharded-world
+    {nccl1|gloo4|nccl4} RANK WORLD DIR [PORT]``; writes DIR/out_RANK.json.
+    nccl4's rank r takes card r (``LOCAL_RANK``, as under torchrun)."""
+    import datetime
+    import os
+    from opencl_ray_tracer_tpu_torch import parallel as par
+    name, rank, world, tmp = argv[:4]
+    rank, world = int(rank), int(world)
+    timeout = datetime.timedelta(seconds=300)
+    if name.startswith("nccl"):
+        os.environ["LOCAL_RANK"] = str(rank)
+        par.init_distributed(f"tcp://localhost:{argv[4]}", world, rank,
+                             timeout=timeout)
+    else:
+        par.init_distributed(f"file://{os.path.join(tmp, 'init')}", world,
+                             rank, device="cuda", backend="gloo",
+                             timeout=timeout)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    if name == "nccl1":
+        sharded_world_1(out)
+    else:
+        sharded_world_4(out, rank, "cuda" if name == "gloo4"
+                        else torch.device("cuda", rank))
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(tmp, f"out_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_world(name: str, world: int, tmp: str, timeout: float,
+              extra=()) -> tuple:
+    """Start the world's ranks as processes of this script, wait for all
+    with one deadline, kill every rank at it; (each rank's output,
+    seconds).  Fails unless every rank exits 0."""
+    import os
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    os.makedirs(tmp)
+    logs = [open(os.path.join(tmp, f"log_{r}.txt"), "w")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--sharded-world", name, str(r),
+         str(world), tmp, *extra], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=env) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"log_{r}.txt")) as f:
+                tail = f.read()[-3000:]
+            fail(f"sharded world {name}: rank {r} exited {p.returncode} "
+                 f"after {secs:.1f} s (limit {timeout} s):\n{tail}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, secs
+
+
+def check_world_4(outs: list, secs: float, phase: str,
+                  backend: str) -> None:
+    """Print a four-rank world's sections and fail unless its results
+    meet phase 29b's checks."""
+    checks = outs[0]["checks"]
+    for sec in outs[0]["sections"]:
+        per_rank = [o["sections"][sec] for o in outs]
+        emit({"phase": phase, "section": sec,
+              "note": ("four processes share one card: not scaling figures"
+                       if backend == "gloo" else "one card a rank"),
+              "seconds_by_rank": [r["seconds"] for r in per_rank],
+              "first_call_seconds_by_rank": [r["first_call_seconds"]
+                                             for r in per_rank],
+              "launches_by_rank": [r["launches"] for r in per_rank],
+              "staged_bytes_by_rank": [r["staged_bytes"] for r in per_rank],
+              "check": checks[sec if sec != "readme_4x1"
+                              else "readme_4x1_equal"]})
+        if len({r["digest"] for r in per_rank}) != 1:
+            fail(f"{phase}, {sec}: the ranks' results differ")
+        for r, res in enumerate(per_rank):
+            if any(res["launches"][k] < 1 for k in SHARDED_KERNELS[sec]):
+                fail(f"{phase}, {sec}: rank {r} launched {res['launches']}")
+    emit({"phase": f"{phase}_done", "seconds": secs,
+          "describe": outs[0]["describe"],
+          "backends": [o["backend"] for o in outs]})
+    if any(o["backend"] != backend or o["world"] != 4 for o in outs):
+        fail(f"{phase}: not four {backend} ranks")
+    if not checks["readme_4x1_equal"]:
+        fail(f"{phase}: the 4x1 image differs from render()")
+    check_close(f"{phase}: 2x2", checks["readme_2x2"])
+    check_close(f"{phase}: geometry ring, 15,360 triangles",
+                checks["ring_15360"])
+    g = checks["grad_readme"]
+    if not (max(g["rel_err"].values()) < 8e-2 and g["cosine"] > 0.9999
+            and g["loss_rel_err"] < 1e-6):
+        fail(f"{phase}: the README gradient: {g}")
+    for name, tol in SHARDED_GRAD_TOL.items():
+        g = checks[f"grad_{name}"]
+        bad = {k: v for k, v in g["rel_err"].items() if not v < tol[k]}
+        if bad or not g["loss_rel_err"] < 1e-4:
+            fail(f"{phase}: the {name} gradient: {g}")
+    t = checks["train_step"]
+    if not (t["rel_err"] < 8e-2 and t["cosine"] > 0.9999
+            and t["loss_rel_err"] < 1e-6):
+        fail(f"{phase}: the train step against fit_scene's: {t}")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multi_card_phase() -> None:
+    """Phase 29b's world as four NCCL ranks, one card each: ``python3 -c
+    'import chip_smoke; chip_smoke.multi_card_phase()'`` on a machine with
+    four cards (not part of ``main``, which needs one).  Builds the four
+    kernel libraries first."""
+    import os
+    import tempfile
+    from opencl_ray_tracer_tpu_torch.kernels import _build
+    if torch.cuda.device_count() < 4:
+        fail(f"multi_card_phase needs four cards, found "
+             f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(_build.build, KERNELS_ON_PATHS))
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        outs, secs = run_world("nccl4", 4, os.path.join(tmp, "nccl4"), 480,
+                               (str(free_port()),))
+    check_world_4(outs, secs, "sharded_nccl_4", "nccl")
+
+
+def sharded_phases(dev) -> dict:
+    """Phase 29 (see the module docstring): each kernel's launches over
+    the ranks of both worlds, by its entry name in the kernels line (K2's
+    mesh body from the torus's section, its HDR body from the
+    flagship's)."""
+    import os
+    import tempfile
+    t_all = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    # the ranks share the card with this process: hand back its cache
+    torch.cuda.empty_cache()
+
+    # ---- 29a. world 1 under NCCL ----
+    (w1,), secs = run_world("nccl1", 1, os.path.join(tmp.name, "nccl1"), 300,
+                            (str(free_port()),))
+    emit({"phase": "sharded_world_1", "size": "1280x720x250/d50",
+          "backend": w1["backend"], "world": w1["world"],
+          "seconds": secs, "image_equal": w1["image_equal"],
+          "grad": w1["grad"],
+          **{k: w1[k] for k in ("render_sharded", "render",
+                                "render_grad_sharded",
+                                "render_grad_sampled")}})
+    if w1["backend"] != "nccl" or w1["world"] != 1:
+        fail(f"sharded world 1: backend {w1['backend']}, world "
+             f"{w1['world']}")
+    if not w1["image_equal"]:
+        fail("sharded world 1: render_sharded differs from render()")
+    g = w1["grad"]
+    if not (max(g["rel_err"].values()) < 8e-2 and g["cosine"] > 0.9999
+            and g["image_equal"]):
+        fail(f"sharded world 1: render_grad_sharded against "
+             f"render_grad_sampled: {g}")
+    for name in ("render_sharded", "render_grad_sharded"):
+        launches = w1[name]["launches"]
+        need = ("K1", "K4") if "grad" in name else ("K1",)
+        if any(launches[k] < 1 for k in need):
+            fail(f"sharded world 1: {name} launched {launches}")
+
+    # ---- 29b. four ranks on the one card under gloo ----
+    outs, secs = run_world("gloo4", 4, os.path.join(tmp.name, "gloo4"), 480)
+    check_world_4(outs, secs, "sharded_world_4", "gloo")
+    tmp.cleanup()
+    emit({"phase": "sharded_done", "seconds": time.perf_counter() - t_all})
+
+    def total(k, sections=None):
+        n = sum(o["sections"][s]["launches"][k] for o in outs
+                for s in (sections or o["sections"]))
+        return n + (0 if sections else sum(
+            w1[name]["launches"][k]
+            for name in ("render_sharded", "render_grad_sharded")))
+
+    return {"sphere_megakernel": total("K1"),
+            "mesh_megakernel": total("K2", ("grad_torus_576",)),
+            "mesh_megakernel_hdr": total("K2", ("grad_flagship",)),
+            "closest_tri": total("K3"), "sphere_megagrad": total("K4"),
+            "mesh_megagrad": total("K5"), "hdr_emit": total("K6"),
+            "hdr_consume": total("K7")}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3712,6 +4165,7 @@ def main() -> None:
     windows = window_phases(dev, main_runs["readme"][1],
                             (target, init, losses))
     soft_phases(dev)
+    sharded_launches = sharded_phases(dev)
 
     # ---- 28. kernels line, result line ----
     r = full["readme"]
@@ -3766,6 +4220,7 @@ def main() -> None:
     }, *mesh_entries, mesh_grad_entry, *hdr_entries]
     for entry in kernels:
         entry.update(windows.get(entry["name"], {}))
+        entry["sharded_launches"] = sharded_launches[entry["name"]]
     # the walk's split: each kernel that walks the mesh, with the earlier
     # walk in the same call
     walk_of = {"mesh_megakernel": ("K2", ("mesh_576", "mesh_15360")),
@@ -3800,4 +4255,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-world"]:
+        sharded_worker(sys.argv[2:])
+    else:
+        main()

@@ -11,8 +11,9 @@ with ``render(progress=)``, or checkpointed in sample windows with
 ``render_grad_sampled``), soft-visibility rendering for geometry gradients
 (``render_soft``), fitting (``fit_scene``, with ``soft=True`` for
 geometry, which can checkpoint and resume), device traces
-(``utils.profiling.device_trace``) and the command line (``python -m
-opencl_ray_tracer_tpu_torch.cli``).
+(``utils.profiling.device_trace``), the command line (``python -m
+opencl_ray_tracer_tpu_torch.cli``) and renders, gradients and training
+steps sharded over several devices, one process each (``parallel``).
 """
 
 from .config import README_BENCH, REFERENCE_DEFAULTS, RenderConfig

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -578,43 +579,114 @@ def _planes(g_img, spp: int):
     return g[0], g[1], g[2]
 
 
+def _backward_cots(cam, sph, n_spheres: int, tab: MeshTables | None,
+                   cfg: RenderConfig, sky_kind: int, flags, planes, seed: int,
+                   n_pix: int, pix_offset: int = 0, sky_image=None,
+                   emitted=None, plain_chunks=None):
+    """(gcam, gsph, gtri, g_sky): the backward kernels' cotangents of the
+    tables for the cotangent planes (``_planes``) of n_pix pixels from
+    global pixel ``pix_offset``.  tab None, a sphere scene:
+    ``render_grad_tables`` (K4; with plain_chunks, a pair (pix_chunk,
+    spp_chunk), its plain version on any device), gtri and g_sky None.  An
+    HDR sky_kind: ``hdr_emit`` (K6) and ``hdr_lookup`` of sky_image, or
+    ``emitted``, their (emit, sky, flat) from a forward, then
+    ``hdr_sky_cot`` and ``hdr_consume`` (K7).  Any other:
+    ``render_grad_mesh_tables`` (K5), g_sky None."""
+    if tab is None:
+        args = (cam, sph, n_spheres, cfg, sky_kind, flags, *planes, seed,
+                n_pix, pix_offset)
+        if plain_chunks is None:
+            gcam, gsph = render_grad_tables(*args)
+        else:
+            gcam, gsph = render_grad_tables_plain(
+                *args, pix_chunk=plain_chunks[0], spp_chunk=plain_chunks[1])
+        return gcam, gsph, None, None
+    if sky_kind != KIND_HDR:
+        return (*render_grad_mesh_tables(cam, sph, n_spheres, tab, cfg,
+                                         sky_kind, flags, *planes, seed,
+                                         n_pix, pix_offset), None)
+    if emitted is None:
+        emit, _ = hdr_emit(cam, sph, n_spheres, tab, cfg, flags, seed, n_pix,
+                           pix_offset)
+        sky, flat = hdr_lookup(sky_image, emit)
+    else:
+        emit, sky, flat = emitted
+    g_sky = hdr_sky_cot(sky_image, emit, sky, flat, *planes,
+                        clamp=cfg.clamp_samples)
+    gcam, gsph, gtri = hdr_consume(cam, sph, n_spheres, tab, cfg, flags,
+                                   *planes, sky, seed, n_pix, pix_offset)
+    return gcam, gsph, gtri, g_sky
+
+
 def render_grad_scene(scene: Scene, cfg: RenderConfig, g_img, seed: int = 0,
                       flags=None):
     """Gradient Scene for the cotangent g_img (H, W, 3) of the mean image:
-    the table cotangents of ``render_grad_tables`` (with g_img / spp)
-    chained to the scene's leaves by ``table_grads_to_scene``; for a mesh
-    scene those of ``render_grad_mesh_tables``, whose triangle cotangents
-    ``tri_grads_to_scene`` adds; for an HDR scene the backward of
-    ``HdrRenderFn`` (K6, then K7 and the texels' scatter into
-    ``sky.image``).  Runs on the scene's device; flags default to
+    ``table_cots_rows`` over the whole image, chained to the scene's leaves
+    by ``grads_from_cots``.  Runs on the scene's device; flags default to
     ``specialize_flags(scene)`` (``specialize_mesh_flags`` for a mesh or
     HDR scene)."""
+    return grads_from_cots(scene, table_cots_rows(scene, cfg, g_img, seed,
+                                                  flags=flags))
+
+
+class TableCots(NamedTuple):
+    """The cotangents of a scene's kernel tables: the camera table's
+    (1, 128), the sphere table's (16, W), the triangles' (10, T_pad) in
+    ``plan``'s order (None without triangles) and the HDR sky image's
+    (H, W, 3) (None under another sky).  Cotangents of row blocks that
+    tile the image add up to the whole image's."""
+    gcam: torch.Tensor
+    gsph: torch.Tensor
+    gtri: torch.Tensor | None
+    g_sky: torch.Tensor | None
+    plan: object
+
+
+def table_cots_rows(scene: Scene, cfg: RenderConfig, g_rows, seed: int = 0,
+                    row_start: int = 0, flags=None, plan=None) -> TableCots:
+    """The table cotangents of the image rows from ``row_start`` on, for
+    their cotangent g_rows ((rows, W, 3), of the mean image), on the
+    scene's device: the backward kernels over those rows' pixels at their
+    global pixel offset (a sphere scene: ``render_grad_tables``, K4; a
+    mesh scene: ``render_grad_mesh_tables``, K5; an HDR scene:
+    ``hdr_emit`` (K6), the texels' lookup and scatter (``hdr_sky_cot``) and
+    ``hdr_consume`` (K7)), each with g_rows / spp.  The sharded gradient
+    runs one row block a rank and sums the blocks' cotangents.  flags as
+    ``render_grad_scene``'s; plan: the order of the mesh tables, by
+    default the scene's own."""
     reason = unsupported_grad_reason(scene)
     if reason is not None:
         raise NotImplementedError(reason)
-    if scene.sky.kind == KIND_HDR:
-        s = requiring_grad(scene)
-        img = render_hdr_differentiable(s, cfg, seed, flags)
-        leaves = float_leaves(s)
-        grads = torch.autograd.grad(img, list(leaves.values()), g_img,
-                                    allow_unused=True)
-        return gradient_scene(scene, dict(zip(leaves, grads)))
-    if scene.triangles.count > 0:
-        frozen = detached(scene)
-        tab = mesh_tables(frozen)
-        gcam, gsph, gtri = render_grad_mesh_tables(
-            mesh_camera_table(frozen), sphere_table(frozen),
-            scene.spheres.count, tab, cfg, scene.sky.kind,
-            flags if flags is not None else specialize_mesh_flags(frozen),
-            *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
-        return tri_grads_to_scene(scene, tab.plan, gtri,
-                                  table_grads_to_scene(scene, gcam, gsph))
-    gcam, gsph = render_grad_tables(
-        camera_table(scene), sphere_table(scene), scene.spheres.count, cfg,
-        scene.sky.kind,
-        flags if flags is not None else specialize_flags(scene),
-        *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
-    return table_grads_to_scene(scene, gcam, gsph)
+    s = detached(scene)
+    hdr = s.sky.kind == KIND_HDR
+    if not hdr and s.triangles.count == 0:
+        cam, tab = camera_table(s), None
+        flags = flags if flags is not None else specialize_flags(s)
+    else:
+        cam = mesh_camera_table(s)
+        tab = (mesh_tables(s, plan=plan) if s.triangles.count
+               else empty_tables(s.spheres.center.device))
+        flags = flags if flags is not None else specialize_mesh_flags(s)
+    gcam, gsph, gtri, g_sky = _backward_cots(
+        cam, sphere_table(s), s.spheres.count, tab, cfg, s.sky.kind, flags,
+        _planes(g_rows, cfg.spp), seed, g_rows.shape[0] * cfg.width,
+        row_start * cfg.width,
+        sky_image=s.sky.image.contiguous() if hdr else None)
+    plan = None if tab is None else tab.plan
+    return TableCots(gcam, gsph, None if plan is None else gtri, g_sky, plan)
+
+
+def grads_from_cots(scene: Scene, cots: TableCots) -> Scene:
+    """Gradient Scene from table cotangents: the camera's and spheres'
+    through the table builders (``table_grads_to_scene``), the triangles'
+    through ``tri_grads_to_scene`` and the sky image's as they are."""
+    grads = table_grads_to_scene(scene, cots.gcam, cots.gsph)
+    if cots.gtri is not None:
+        grads = tri_grads_to_scene(scene, cots.plan, cots.gtri, grads)
+    if cots.g_sky is not None:
+        grads = dataclasses.replace(grads, sky=dataclasses.replace(
+            grads.sky, image=grads.sky.image + cots.g_sky))
+    return grads
 
 
 def table_grads_to_scene(scene: Scene, gcam, gsph) -> Scene:
@@ -696,13 +768,10 @@ class SphereRenderFn(torch.autograd.Function):
     def backward(ctx, g_img):
         cam, sph = ctx.saved_tensors
         n_spheres, cfg, sky_kind, flags, seed, plain_chunks = ctx.args
-        args = (cam.detach(), sph.detach(), n_spheres, cfg, sky_kind, flags,
-                *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
-        if plain_chunks is None:
-            gcam, gsph = render_grad_tables(*args)
-        else:
-            gcam, gsph = render_grad_tables_plain(
-                *args, pix_chunk=plain_chunks[0], spp_chunk=plain_chunks[1])
+        gcam, gsph, _, _ = _backward_cots(
+            cam.detach(), sph.detach(), n_spheres, None, cfg, sky_kind, flags,
+            _planes(g_img, cfg.spp), seed, cfg.width * cfg.height,
+            plain_chunks=plain_chunks)
         return gcam, gsph, None, None, None, None, None, None
 
 
@@ -756,9 +825,9 @@ class MeshRenderFn(torch.autograd.Function):
     def backward(ctx, g_img):
         cam, sph, p0, p1, p2, ior = ctx.saved_tensors
         n_spheres, tab, cfg, sky_kind, flags, seed = ctx.args
-        gcam, gsph, gtri = render_grad_mesh_tables(
+        gcam, gsph, gtri, _ = _backward_cots(
             cam.detach(), sph.detach(), n_spheres, tab, cfg, sky_kind, flags,
-            *_planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
+            _planes(g_img, cfg.spp), seed, cfg.width * cfg.height)
         cots = tri_cotangents(p0, p1, p2, ior, tab.plan, gtri)
         return (gcam, gsph, *cots, None, None, None, None, None, None)
 
@@ -1053,14 +1122,11 @@ class HdrRenderFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img):
         cam, sph, p0, p1, p2, ior, image = ctx.saved_tensors
-        emit, sky, flat = ctx.stash
         n_spheres, tab, cfg, flags, seed = ctx.args
-        planes = _planes(g_img, cfg.spp)
-        g_sky = hdr_sky_cot(image, emit, sky, flat, *planes,
-                            clamp=cfg.clamp_samples)
-        gcam, gsph, gtri = hdr_consume(
-            cam.detach(), sph.detach(), n_spheres, tab, cfg, flags, *planes,
-            sky, seed, cfg.width * cfg.height)
+        gcam, gsph, gtri, g_sky = _backward_cots(
+            cam.detach(), sph.detach(), n_spheres, tab, cfg, KIND_HDR, flags,
+            _planes(g_img, cfg.spp), seed, cfg.width * cfg.height,
+            sky_image=image, emitted=ctx.stash)
         cots = ((None,) * 6 if tab.plan is None
                 else tri_cotangents(p0, p1, p2, ior, tab.plan, gtri))
         return (gcam, gsph, *cots, g_sky, None, None, None, None, None)

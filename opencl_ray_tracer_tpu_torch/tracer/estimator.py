@@ -34,14 +34,18 @@ def bounce_uniforms(seed, pixel_ids, sample_id, depth):
 
 
 def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3,
-          hit_fn=None, first_bounce=0, throughput=None):
+          hit_fn=None, first_bounce=0, throughput=None, any_alive=None):
     """Trace a ray batch to the end of its paths; per-ray radiance (R,3).
     The loop ends after max_depth bounces or when no ray is alive.
 
     hit_fn(o, d) -> HitInfo replaces ``closest_hit`` (the winner-only
     differentiable hit of ``diffhit.make_grad_hit_fn``).  first_bounce
     offsets the bounces' RNG slots (the soft renderer draws bounce 0's
-    itself); throughput (R,3) seeds the path throughput (default ones)."""
+    itself); throughput (R,3) seeds the path throughput (default ones).
+    any_alive(alive) -> bool decides whether the loop goes on (default:
+    any ray of this batch is alive); the geometry ring's renders take the
+    ring's decision (``parallel.mesh.any_over``), so that every rank of a
+    ring calls its hit_fn equally often."""
     r = o.shape[0]
     dev = o.device
     if throughput is None:
@@ -51,7 +55,8 @@ def trace(scene, o, d, pixel_ids, sample_id, seed, max_depth, t_min=1e-3,
     status = torch.zeros((r,), dtype=torch.int32, device=dev)
     for depth in range(max_depth):
         alive = status == ALIVE
-        if not bool(alive.any()):
+        if not (bool(alive.any()) if any_alive is None
+                else any_alive(alive)):
             break
         h = (hit_fn(o, d) if hit_fn is not None
              else closest_hit(scene, o, d, t_min))

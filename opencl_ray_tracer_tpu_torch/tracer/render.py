@@ -76,7 +76,7 @@ def triangle_hit_fn(scene: Scene, cfg: RenderConfig, expected_rays: int):
 def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
                 seed: int, hit_fn=None, remat: bool = False,
                 sample_offset: int = 0, spp: int | None = None,
-                mean: bool = True, acc0=None):
+                mean: bool = True, acc0=None, any_alive=None):
     """Plain-tracer render of n_rows rows from row_start on the scene's
     device: (n_rows, W, 3) mean radiance.  The RNG is keyed on global pixel
     ids, so row blocks compose into the full image exactly.
@@ -93,7 +93,9 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     without one, a scene with triangles takes ``triangle_hit_fn``.  remat
     recomputes each sample's bounce loop in the backward pass
     (``torch.utils.checkpoint``) instead of keeping it, for the per-sample
-    loop (cfg.early_stop False)."""
+    loop (cfg.early_stop False).  any_alive(mask) -> bool ends the bounce
+    loops (``estimator.trace``): the geometry ring's agrees over the
+    ring."""
     width = cfg.width
     n_samples = cfg.spp if spp is None else spp
     dev = scene.spheres.center.device
@@ -112,11 +114,12 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
     if cfg.early_stop:
         acc = render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                                     sample_offset, n_samples, frame=frame,
-                                    hit_fn=hit_fn, acc0=acc0)
+                                    hit_fn=hit_fn, acc0=acc0,
+                                    any_alive=any_alive)
     else:
         def sample_colour(o, d, s):
             return trace(scene, o, d, pixel_ids, s, seed, cfg.max_depth,
-                         t_min=cfg.t_min, hit_fn=hit_fn)
+                         t_min=cfg.t_min, hit_fn=hit_fn, any_alive=any_alive)
 
         acc = (torch.zeros((n_rows * width, 3), device=dev) if acc0 is None
                else acc0)

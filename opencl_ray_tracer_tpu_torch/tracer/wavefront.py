@@ -23,7 +23,8 @@ from .scatter import scatter
 
 def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
                           sample_offset, n_samples, frame=None,
-                          bounces=None, hit_fn=None, miss_fn=None, acc0=None):
+                          bounces=None, hit_fn=None, miss_fn=None, acc0=None,
+                          any_alive=None):
     """Radiance sum over n_samples samples per pixel, (R,3); divide by
     n_samples for the mean.  rows/cols/pixel_ids: (R,) int64.
 
@@ -40,7 +41,8 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
     miss_fn(d, sample, throughput, miss) -> (R,3) replaces the sky's
     radiance ``sky_colour(scene.sky, d)``: the HDR passes' plain versions
     record the misses (miss: the rays that miss now, sample: each ray's
-    sample id) or read given sky values there.
+    sample id) or read given sky values there.  any_alive(active) -> bool
+    decides whether the loop goes on, as in ``estimator.trace``.
 
     The loop is differentiable as it stands: autograd records the
     iterations that ran, so no fixed trip count is needed.
@@ -68,7 +70,8 @@ def render_rows_wavefront(scene, cfg, rows, cols, pixel_ids, seed,
 
     for _ in range(n_samples * cfg.max_depth + 1):
         active = sample < sample_end
-        if not bool(active.any()):
+        if not (bool(active.any()) if any_alive is None
+                else any_alive(active)):
             break
         if bounces is not None:
             bounces += active.sum()

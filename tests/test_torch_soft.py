@@ -5,13 +5,16 @@ on the CPU.
 Two scenes, each built in both packages: the README scene (five spheres,
 fuzzy metal) and tests/test_soft.py's one-triangle scene, at 16x9, 2 spp,
 depth 3.  One ``jax.jit`` of the loss's value and gradient per scene
-structure (a module-scope fixture) gives JAX's image, loss and gradient,
-at beta 40 and at beta 50000, where coverages inside a silhouette are
-exactly 1.0.
+structure gives JAX's image, loss and gradient, at beta 40 and at beta
+50000, where coverages inside a silhouette are exactly 1.0.
 Images: at most 0.2% of values off by more than 1e-4, means within 1e-4
 (tests/test_golden.py); gradients per leaf by max|a-b|/max|b| under
 tests/test_megagrad.py's tolerances (the README scene's fuzzy metal 8e-2,
-a Lambertian scene under the gradient sky 5e-3).
+a Lambertian scene under the gradient sky 5e-3).  JAX's images, losses
+and gradients, and its two soft fit steps, are recorded with the inputs
+they came from in tests/goldens/torch_grad_refs.npz by
+``tools/make_port_refs.py``, which calls ``jax_references`` below
+(``port_refs.load`` checks the inputs).
 """
 
 import jax
@@ -22,6 +25,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.optimize import extract_params as jax_extract
 from opencl_ray_tracer_tpu.optimize import fit_scene as jax_fit_scene
 from opencl_ray_tracer_tpu.optimize import insert_params as jax_insert
@@ -77,20 +81,73 @@ def _jax_loss(params, scene, seed, beta, target):
     return jnp.mean((img - target) ** 2), img
 
 
-@pytest.fixture(scope="module")
-def jax_soft():
-    """One jit of the loss's value and gradient, with the image beside
-    them; it compiles once per scene structure."""
-    return jax.jit(jax.value_and_grad(_jax_loss, has_aux=True))
+def _case_inputs(name, beta):
+    return {"beta": beta, "target": _target(), "paths": PATHS[name]}
 
 
-def _jax_case(value_and_grad, name, beta):
-    """JAX's loss, image and gradient leaves."""
-    scene = _scenes(name)[0]
-    (loss, img), g = value_and_grad(jax_extract(scene, PATHS[name]), scene,
-                                    jnp.uint32(SEED), beta, _target())
-    return float(loss), np.asarray(img), {k: np.asarray(v)
-                                          for k, v in g.items()}
+# The soft fit's configuration, keywords and mask: two Adam steps of the
+# triangle's vertices with only the apex unmasked.
+FIT_CFG = dict(CFG, spp=1)
+FIT_KW = dict(param_paths=PATHS["triangle"], steps=2, learning_rate=1e-2,
+              seed=5, soft=True, beta=40.0)
+FIT_MASK = {"triangles.p0": np.zeros((1, 3), np.float32),
+            "triangles.p1": np.zeros((1, 3), np.float32),
+            "triangles.p2": np.ones((1, 3), np.float32)}
+
+
+def _fit_target():
+    """The hard render of the triangle shifted by 0.15 in x, the port's."""
+    return ot.render(_triangle_scene(ot, shift_x=0.15),
+                     ot.RenderConfig(**FIT_CFG), seed=7,
+                     device="cpu").numpy()
+
+
+def _fit_inputs(target):
+    return {"target": target, "steps": FIT_KW["steps"],
+            "learning_rate": FIT_KW["learning_rate"], "beta": FIT_KW["beta"],
+            **{f"mask/{k}": v for k, v in FIT_MASK.items()}}
+
+
+def jax_references() -> dict:
+    """JAX's soft losses, images and gradients of both scenes at both
+    betas (one ``jax.jit`` of the loss's value and gradient, compiled
+    once per scene structure), keyed "soft/<scene>_beta_<beta>", and its
+    soft fit's losses and parameters, keyed "soft/fit", each with its
+    inputs (``tools/make_port_refs.py`` records them)."""
+    value_and_grad = jax.jit(jax.value_and_grad(_jax_loss, has_aux=True))
+    refs = {}
+    for name in PATHS:
+        scene = _scenes(name)[0]
+        for beta in BETAS:
+            (loss, img), g = value_and_grad(
+                jax_extract(scene, PATHS[name]), scene, jnp.uint32(SEED),
+                beta, _target())
+            refs.update(port_refs.record(
+                f"soft/{name}_beta_{beta}", scene, ort.RenderConfig(**CFG),
+                SEED, loss, img, outputs={f"grad/{k}": v
+                                          for k, v in g.items()},
+                inputs=_case_inputs(name, beta)))
+    target = _fit_target()
+    jinit = _triangle_scene(ort)
+    jscene, jlosses = jax_fit_scene(
+        jnp.asarray(target), jinit, ort.RenderConfig(**FIT_CFG),
+        param_mask={k: jnp.asarray(v) for k, v in FIT_MASK.items()},
+        **FIT_KW)
+    refs.update(port_refs.record(
+        "soft/fit", jinit, ort.RenderConfig(**FIT_CFG), FIT_KW["seed"],
+        outputs={"losses": np.asarray(jlosses, np.float32),
+                 **{f"param/{p}": jax_extract(jscene, [p])[p]
+                    for p in PATHS["triangle"]}},
+        inputs=_fit_inputs(target)))
+    return refs
+
+
+def _jax_case(name, beta):
+    """JAX's recorded loss, image and gradient leaves."""
+    loss, img, refs = port_refs.load(
+        f"soft/{name}_beta_{beta}", _scenes(name)[0],
+        ort.RenderConfig(**CFG), SEED, _case_inputs(name, beta))
+    return loss, img, {k[len("grad/"):]: v for k, v in refs.items()}
 
 
 def _port_case(name, beta):
@@ -136,12 +193,11 @@ def test_trace_offsets_match_jax():
 
 
 @pytest.mark.parametrize("name", sorted(PATHS))
-def test_render_soft_matches_jax(jax_soft, name):
-    """Images, losses and gradients of one scene at both betas: one test a
-    scene, so that one process compiles the scene's jit (xdist spreads
-    tests over processes)."""
+def test_render_soft_matches_jax(name):
+    """Images, losses and gradients of one scene at both betas against
+    JAX's recorded ones."""
     for beta in BETAS:
-        jloss, jimg, want = _jax_case(jax_soft, name, beta)
+        jloss, jimg, want = _jax_case(name, beta)
         tloss, timg, got = _port_case(name, beta)
         assert timg.shape == (CFG["height"], CFG["width"], 3)
         diff = np.abs(timg - jimg)
@@ -175,31 +231,22 @@ def test_coverage_reaches_one_at_high_beta():
 def test_soft_fit_two_steps_match_jax():
     """Two Adam steps of fit_scene(soft=True, beta=40) on the triangle's
     vertices with only the apex unmasked, towards the shifted triangle's
-    hard render: losses to 1e-4 relative, vertices to 1e-4, the masked
-    vertices unchanged."""
-    cfg = dict(CFG, spp=1)
-    target = ot.render(_triangle_scene(ot, shift_x=0.15),
-                       ot.RenderConfig(**cfg), seed=7, device="cpu").numpy()
+    hard render, against JAX's recorded fit: losses to 1e-4 relative,
+    vertices to 1e-4, the masked vertices unchanged."""
+    target = _fit_target()
     jinit = _triangle_scene(ort)
-    paths = PATHS["triangle"]
-    mask = {"triangles.p0": np.zeros((1, 3), np.float32),
-            "triangles.p1": np.zeros((1, 3), np.float32),
-            "triangles.p2": np.ones((1, 3), np.float32)}
-    kw = dict(param_paths=paths, steps=2, learning_rate=1e-2, seed=5,
-              soft=True, beta=40.0)
-    jscene, jlosses = jax_fit_scene(
-        jnp.asarray(target), jinit, ort.RenderConfig(**cfg),
-        param_mask={k: jnp.asarray(v) for k, v in mask.items()}, **kw)
+    _, _, refs = port_refs.load("soft/fit", jinit,
+                                ort.RenderConfig(**FIT_CFG), FIT_KW["seed"],
+                                _fit_inputs(target))
     tinit = scene_from_numpy(scene_to_numpy(jinit), jinit.sky.kind)
     tscene, tlosses = ot.fit_scene(
-        torch.tensor(target), tinit, ot.RenderConfig(**cfg),
-        param_mask={k: torch.tensor(v) for k, v in mask.items()},
-        device="cpu", **kw)
-    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
-    for p in paths:
+        torch.tensor(target), tinit, ot.RenderConfig(**FIT_CFG),
+        param_mask={k: torch.tensor(v) for k, v in FIT_MASK.items()},
+        device="cpu", **FIT_KW)
+    np.testing.assert_allclose(tlosses, refs["losses"], rtol=1e-4)
+    for p in PATHS["triangle"]:
         np.testing.assert_allclose(extract_params(tscene, [p])[p].numpy(),
-                                   np.asarray(jax_extract(jscene, [p])[p]),
-                                   atol=1e-4)
+                                   refs[f"param/{p}"], atol=1e-4)
     for p in ("triangles.p0", "triangles.p1"):
         assert torch.equal(extract_params(tscene, [p])[p],
                            extract_params(tinit, [p])[p])
