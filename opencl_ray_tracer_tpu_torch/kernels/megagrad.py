@@ -168,9 +168,10 @@ def unsupported_grad_mesh_reason(scene: Scene) -> str | None:
 
 def unsupported_grad_hdr_reason(scene: Scene) -> str | None:
     """Why the HDR passes (K6, K7) do not cover this scene, or None: they
-    take the mesh megakernel's HDR scenes (0 to 128 spheres, triangles or
-    none, texels and albedos of at most 1), the JAX package's
-    ``supports_grad_hdr``."""
+    take the mesh megakernel's HDR scenes (0 to 128 spheres, triangles of
+    one material in gating boxes or none), with any texels and albedos:
+    the image and both cotangents take each sample's clamp, where the JAX
+    package's ``supports_grad_hdr`` also needs them at most 1."""
     if scene.sky.kind != KIND_HDR:
         return "the HDR backward kernels (K6, K7) take an HDR sky"
     reason = unsupported_mesh_reason(scene)
@@ -1139,10 +1140,9 @@ def render_hdr_differentiable(scene: Scene, cfg: RenderConfig,
     triangles through K7's cotangents and the sky image through the
     texels' scatter.  flags default to ``specialize_mesh_flags(scene)``;
     plan, the order of the mesh tables, to the scene's own (a fit passes
-    its first plan).  The caller holds the scene to ``supports_grad_hdr``
-    (a fit holds its initial scene: a step may carry a texel past 1, which
-    the passes still compute exactly, the image and both cotangents taking
-    the clamp where the sky term exceeds 1)."""
+    its first plan).  The caller holds the scene to ``supports_grad_hdr``;
+    the image and both cotangents take the clamp where a sky term exceeds
+    1."""
     frozen = detached(scene)
     t = scene.triangles
     tab = (mesh_tables(frozen, plan=plan) if t.count

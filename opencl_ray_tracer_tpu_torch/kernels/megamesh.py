@@ -10,16 +10,17 @@ signature: the wavefront tracer over the scene the tables hold, with
 ``intersect_mm.closest_tri_plain`` as the triangle hit, in the same plan
 order.  The wrapper runs it for tensors on the CPU and nowhere else.
 
-A scene is in scope (``supports_mesh``, the JAX package's conditions) when
-it has at most 128 spheres and either triangles of one uniform material
-(the reference gives each mesh one, ``utility.cpp:99``) in one or more
-gating boxes under a gradient or constant sky, or an HDR sky, with or
-without triangles, whose texels and albedos are at most 1.  Under those
-bounds a sample's sky term thr * sky is at most 1, so the clamp before the
-average leaves it as it is: the JAX kernel defers the lookup to records it
-sums afterwards, and the CUDA kernel looks the texel up where the ray
-misses, which gives the same sum.  The mesh material rides in camera-table
-slots ``C_MA_R`` .. ``C_M_INVIOR`` and the flags.  ``mesh_inputs`` keeps
+A scene is in scope (``supports_mesh``) when it has at most 128 spheres
+and either triangles of one uniform material (the reference gives each
+mesh one, ``utility.cpp:99``) in one or more gating boxes under a gradient
+or constant sky, or an HDR sky, with or without such triangles.  The JAX
+package's HDR body also needs texels and albedos of at most 1: it defers
+the lookup to records it sums afterwards, past the clamp before the
+average, so a sky term above 1 would escape the clamp.  The CUDA kernel
+looks the texel up where the ray misses and clamps the sample's term as
+for any other sky, so it takes any texels and albedos.  The mesh
+material rides in camera-table slots ``C_MA_R`` .. ``C_M_INVIOR`` and the
+flags.  ``mesh_inputs`` keeps
 the kernel's inputs of the last few scenes, keyed by a digest of every
 leaf, so that rendering a scene again reads it to the host and hashes it,
 and builds nothing.
@@ -96,16 +97,6 @@ def unsupported_mesh_reason(scene: Scene) -> str | None:
             return "the mesh megakernel takes triangles in gating boxes"
         if _mesh_uniform_material(scene) is None:
             return "the mesh megakernel takes one uniform mesh material"
-    if hdr:
-        # the clamp before the average must leave every sky term as it is
-        bounds = (("the HDR sky", scene.sky.image),
-                  ("a sphere albedo", scene.spheres.albedo),
-                  ("a triangle albedo", scene.triangles.albedo))
-        for what, x in bounds:
-            if x.numel() and float(x.detach().max()) > 1.0:
-                return (f"the mesh megakernel's HDR body takes texels and "
-                        f"albedos of at most 1: {what} exceeds 1 (tone-map "
-                        "the sky)")
     return None
 
 

@@ -4,8 +4,8 @@
 it routes as the JAX package's ``render`` does (``kernel_route``): with
 ``cfg.backend`` "auto" or "pallas", a scene in the mesh megakernel's scope
 (triangles of one material in gating boxes, at most 128 spheres; or an
-HDR sky with texels and albedos of at most 1, with or without triangles)
-goes through it, a sphere scene in the sphere megakernel's scope through
+HDR sky, with or without such triangles, whose texels and albedos may
+exceed 1, unlike JAX's HDR body) goes through it, a sphere scene in the sphere megakernel's scope through
 that; every other scene, and every scene under another backend, goes
 through the plain tracer below (``render_rows``) on the card, whose
 triangle hit is the closest-triangle kernel from 256 triangles.  Nothing
@@ -143,8 +143,9 @@ def render_rows(scene: Scene, cfg: RenderConfig, row_start: int, n_rows: int,
 def kernel_route(scene: Scene, cfg: RenderConfig) -> str | None:
     """The kernel ``render`` takes on the card: "megamesh", "megakernel",
     or None for the plain tracer.  An HDR scene takes the mesh
-    megakernel's HDR body when it is in its scope (``supports_mesh``), as
-    in the JAX package, and the plain tracer otherwise."""
+    megakernel's HDR body when it is in its scope (``supports_mesh``, as
+    in the JAX package but for texels and albedos above 1, which the CUDA
+    kernel takes), and the plain tracer otherwise."""
     from ..kernels.megakernel import supports
     from ..kernels.megamesh import supports_mesh
     if cfg.backend in ("auto", "pallas"):
@@ -299,7 +300,7 @@ def render_grad_sampled(scene: Scene, cfg: RenderConfig, loss_fn,
         emit pass (K6), the texels' lookup, the image rebuilt from them,
         and the consume pass (K7) with the texels' scatter into
         ``sky.image``; no forward render runs.  For scenes in their scope
-        (``supports_grad_hdr``: texels and albedos at most 1);
+        (``supports_grad_hdr``: the mesh megakernel's, any texels);
       - "plain": as for mesh scenes.
     "auto" is "kernel" on CUDA and "plain" on the CPU; on CUDA a mesh or
     HDR scene outside the kernels' scope takes "plain".

@@ -7,7 +7,8 @@
   albedo and radius gradient: fuzzy-metal chains are ill-conditioned in
   f32), an emissive sphere whose albedo (2.5, 0.9, 2.5) clamps two
   channels (5e-3), and 40 random spheres (2e-2).  Both draw the same
-  counter-RNG samples, so the paths agree but for ulps.
+  counter-RNG samples, so the paths agree but for ulps.  JAX's losses and
+  gradients are recorded with their inputs (below).
 - ``render_grad_sampled(grad_backend="plain")`` against JAX
   ``render_grad_sampled(grad_backend="jnp")``: loss, image and gradients
   (JAX's recorded with the inputs they came from in
@@ -109,26 +110,18 @@ def stacked_cosine(got: dict, want: dict) -> float:
     return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
 
 
-# The JAX side differentiates the whole closest-hit fold (its
-# fast_hit=False): the same gradients as its winner-only hit
-# (tests/test_diffhit.py), at a fraction of the compile time.  One jit for
-# every case: scenes of the same structure (the reference scene's cases
-# under a gradient sky) share its compile.
-_jax_render_and_grad = jax.jit(lambda js: jax_render_and_grad(
-    js, ort.RenderConfig(**CFG), jax_loss, seed=SEED, fast_hit=False))
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_render_and_grad_matches_jax(case):
     make, rtol = CASES[case]
     js = make()
     cfg = ot.RenderConfig(**CFG)
-    jl, jg = _jax_render_and_grad(js)
+    jl, _, want = port_refs.load(f"grad/render_and_grad/{case}", js,
+                                 ort.RenderConfig(**CFG), SEED)
     tl, tg = ot.render_and_grad(to_port(js), cfg, torch_loss, seed=SEED,
                                 device="cpu")
     assert tg.spheres.mat_type is None
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
-    got, want = scene_to_numpy(tg), scene_to_numpy(jg)
+    got = scene_to_numpy(tg)
     assert_grads_close(got, want, rtol)
     if case == "readme":
         assert stacked_cosine(got, want) > 0.9999
@@ -137,13 +130,30 @@ def test_render_and_grad_matches_jax(case):
 
 
 def jax_references() -> dict:
-    """JAX render_grad_sampled(grad_backend="jnp") of the reference scene:
-    its loss, image and gradient leaves with their inputs, keyed
-    "grad/sampled/<name>" (``tools/make_port_refs.py`` records them)."""
-    js, jcfg = ort.reference_scene(), ort.RenderConfig(**CFG)
+    """JAX render_and_grad of every case (its loss and gradient leaves,
+    keyed "grad/render_and_grad/<case>/<name>"), and JAX
+    render_grad_sampled(grad_backend="jnp") of the reference scene (its
+    loss, image and gradient leaves, keyed "grad/sampled/<name>"), each
+    with its inputs (``tools/make_port_refs.py`` records them).  The JAX
+    render_and_grad differentiates the whole closest-hit fold (its
+    fast_hit=False): the same gradients as its winner-only hit
+    (tests/test_diffhit.py), at a fraction of the compile time; scenes of
+    the same structure share one jit."""
+    jcfg = ort.RenderConfig(**CFG)
+    render_and_grad = jax.jit(lambda js: jax_render_and_grad(
+        js, jcfg, jax_loss, seed=SEED, fast_hit=False))
+    refs = {}
+    for case, (make, _) in CASES.items():
+        js = make()
+        loss, g = render_and_grad(js)
+        refs.update(port_refs.record(f"grad/render_and_grad/{case}", js,
+                                     jcfg, SEED, loss, grads=g))
+    js = ort.reference_scene()
     loss, img, g = jax_render_grad_sampled(js, jcfg, jax_loss, seed=SEED,
                                            grad_backend="jnp")
-    return port_refs.record("grad/sampled", js, jcfg, SEED, loss, img, g)
+    refs.update(port_refs.record("grad/sampled", js, jcfg, SEED, loss, img,
+                                 g))
+    return refs
 
 
 def test_render_grad_sampled_plain_matches_jax():

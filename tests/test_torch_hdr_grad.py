@@ -7,14 +7,17 @@
   own HDR tests' oracle (its loss, image and gradient recorded with the
   inputs they came from in tests/goldens/torch_grad_refs.npz by
   ``tools/make_port_refs.py``, which calls ``jax_references`` below;
-  ``port_refs.load`` checks the inputs): the README spheres at 3 spp and
+  ``port_refs.load`` checks the inputs): the README spheres at 3 spp, the
+  same under twice the sky (texels up to 2: the image and both
+  cotangents take the clamp where a sky term exceeds 1, a scene the JAX
+  package's HDR kernels do not take) and
   the mesh scene of tests/test_megamesh.py at 10 spp (more than the JAX
   passes' 8-sample window), 32x16, depth 4, under tests/test_megagrad.py's tolerances
   (max|a - b| / max|b|): sphere albedo 5e-3 (fused) and vertices 5e-4,
   ``sky.image`` 5e-3 with more than 99.9% of texels within 1e-6, the loss
   within 1e-4.  The
   geometry's gradients are zero on both sides: the nearest-texel lookup
-  is constant in the direction.  On the README case,
+  is constant in the direction.  On the two README cases,
   ``render_grad_scene`` on JAX's image cotangent (the two passes alone,
   the JAX package's ``_grad_scene_hdr_jit``) takes the non-fused
   tolerance, 1e-4 on the albedo, and the plain route, and
@@ -22,8 +25,10 @@
 - ``hdr_emit``'s plain version against the port's plain render: the image
   rebuilt from its records is the render's.
 - ``fit_scene`` of ``sky.image`` through the HDR kernels' route follows the
-  JAX package's fit history for two steps.
-- The scope and the wrappers' argument checks.
+  JAX package's fit history for two steps (JAX's losses and the target it
+  rendered recorded with their inputs, as above).
+- The scope (any texels, unlike the JAX package's) and the wrappers'
+  argument checks.
 """
 
 import dataclasses
@@ -49,7 +54,7 @@ from opencl_ray_tracer_tpu_torch.scene import scene_to_numpy
 torch.set_num_threads(1)
 
 SKY = tone_map(make_sky_image(64, 32))
-CASES = {"readme": 3, "mesh": 10}
+CASES = {"bright": 3, "readme": 3, "mesh": 10}
 # The share of sky-image values within 1e-6 of JAX's: tests/test_megagrad.py's
 # 99.9% in both cases.  In the mesh case the oracle itself is not more
 # stable than that: tests/hdr_texel_flips.py traces the JAX route's two forms
@@ -59,10 +64,12 @@ CASES = {"readme": 3, "mesh": 10}
 # sin, cos and cube root taken from glibc on the CPU (``_fp``), as XLA:CPU
 # takes them, the port is 0 misses from the while form and 1 from the scan
 # at both seeds (about 6 of 6,144 values each).
-TEXELS_WITHIN = {"readme": 0.999, "mesh": 0.999}
+TEXELS_WITHIN = {"bright": 0.999, "readme": 0.999, "mesh": 0.999}
 
 
 def _scene(mod, name, sky=SKY):
+    if name == "bright":
+        return _scene(mod, "readme", sky * 2.0)
     if name == "readme":
         return dataclasses.replace(mod.readme_scene(), sky=mod.Sky.hdr(sky))
     tris, aabb = parse_obj(make_torus_obj(12, 8), scale=(0.5, 0.5, 0.5),
@@ -92,7 +99,30 @@ def jax_references() -> dict:
             grad_backend="jnp")
         refs.update(port_refs.record(f"hdr_grad/{name}", jscene, jcfg, 0,
                                      loss, img, g))
+    refs.update(_jax_sky_fit())
     return refs
+
+
+# the sky-image fit's configuration, its initial sky's gain and its fit
+FIT_CFG = dict(width=24, height=14, spp=2, max_depth=4)
+FIT_GAIN = 0.8
+FIT = dict(param_paths=("sky.image",), steps=2, learning_rate=1e-2, seed=4,
+           sample_new_noise=False)
+
+
+def _jax_sky_fit() -> dict:
+    """JAX fit_scene's two steps of ``sky.image`` towards the README
+    scene's render from its sky times FIT_GAIN: the target and losses with
+    their inputs, keyed "hdr_grad/sky_fit/<name>"."""
+    cfg = ort.RenderConfig(**FIT_CFG)
+    target = ort.render(_scene(ort, "readme"), cfg, seed=11)
+    jinit = _scene(ort, "readme", SKY * FIT_GAIN)
+    _, losses = jax_fit_scene(target, jinit, cfg, grad_backend="jnp", **FIT)
+    return port_refs.record(
+        "hdr_grad/sky_fit", jinit, cfg, FIT["seed"],
+        outputs={"target": target, "losses": np.asarray(losses, np.float64)},
+        inputs={"learning_rate": FIT["learning_rate"], "steps": FIT["steps"],
+                "target_seed": 11})
 
 
 def _jax_grads(name):
@@ -177,24 +207,21 @@ def test_render_and_grad_under_hdr():
 
 
 def test_sky_image_fit_matches_jax():
-    cfg = dict(width=24, height=14, spp=2, max_depth=4)
-    true = _scene(ort, "readme")
-    target = np.asarray(ort.render(true, ort.RenderConfig(**cfg), seed=11))
-    jinit = _scene(ort, "readme", SKY * 0.8)
-    _, jlosses = jax_fit_scene(
-        jnp.asarray(target), jinit, ort.RenderConfig(**cfg),
-        param_paths=("sky.image",), steps=2, learning_rate=1e-2, seed=4,
-        sample_new_noise=False, grad_backend="jnp")
+    _, _, refs = port_refs.load(
+        "hdr_grad/sky_fit", _scene(ort, "readme", SKY * FIT_GAIN),
+        ort.RenderConfig(**FIT_CFG), FIT["seed"],
+        inputs={"learning_rate": FIT["learning_rate"], "steps": FIT["steps"],
+                "target_seed": 11})
+    target, jlosses = refs["target"], refs["losses"]
     before = (mg.EMIT_LAUNCHES, mg.CONSUME_LAUNCHES)
     fitted, losses = ot.fit_scene(
-        torch.tensor(target), _scene(ot, "readme", SKY * 0.8),
-        ot.RenderConfig(**cfg), param_paths=("sky.image",), steps=2,
-        learning_rate=1e-2, seed=4, sample_new_noise=False,
-        grad_backend="kernel", device="cpu")
+        torch.tensor(target), _scene(ot, "readme", SKY * FIT_GAIN),
+        ot.RenderConfig(**FIT_CFG), grad_backend="kernel", device="cpu",
+        **FIT)
     assert (mg.EMIT_LAUNCHES, mg.CONSUME_LAUNCHES) == before
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     assert losses[1] < losses[0]
-    moved = fitted.sky.image - torch.tensor(SKY * 0.8)
+    moved = fitted.sky.image - torch.tensor(SKY * FIT_GAIN)
     # two Adam steps move a texel by at most twice the learning rate
     assert float(moved.abs().max()) == pytest.approx(2e-2, rel=1e-2)
 
@@ -205,16 +232,21 @@ def test_hdr_grad_scope_and_checks():
     assert mg.supports_grad_hdr(scene, cfg)
     assert mg.unsupported_grad_reason(scene) is None
     assert "K6 and K7" in mg.unsupported_grad_mesh_reason(scene)
-    bright = _scene(ot, "mesh", SKY * 2.0)
-    assert "at most 1" in mg.unsupported_grad_hdr_reason(bright)
+    # texels above 1 are in scope; a mixed mesh material is not
+    assert mg.unsupported_grad_hdr_reason(_scene(ot, "mesh", SKY * 2.0)) \
+        is None
+    t = scene.triangles
+    mixed = dataclasses.replace(scene, triangles=dataclasses.replace(
+        t, fuzz=torch.linspace(0.0, 0.5, t.count)))
+    assert "uniform" in mg.unsupported_grad_hdr_reason(mixed)
     assert "HDR sky" in mg.unsupported_grad_hdr_reason(ot.readme_scene())
     # explicit "kernel" routes out of scope raise before the device is
     # touched; "auto" there takes the plain route
-    with pytest.raises(NotImplementedError, match="at most 1"):
-        ot.render_grad_sampled(bright, cfg, _loss, grad_backend="kernel",
+    with pytest.raises(NotImplementedError, match="uniform"):
+        ot.render_grad_sampled(mixed, cfg, _loss, grad_backend="kernel",
                                device="cuda")
-    with pytest.raises(NotImplementedError, match="at most 1"):
-        ot.fit_scene(torch.zeros((16, 32, 3)), bright, cfg,
+    with pytest.raises(NotImplementedError, match="uniform"):
+        ot.fit_scene(torch.zeros((16, 32, 3)), mixed, cfg,
                      param_paths=("sky.image",), grad_backend="kernel",
                      device="cuda")
     for paths, match in ((("sky.const_colour",), "sky.const_colour"),

@@ -136,23 +136,27 @@ def test_scope():
     assert mg.supports_grad(ot.readme_scene(), cfg)
     assert mg.supports_grad(ot.book_cover_scene(n_random=196), cfg)
     assert not mg.supports_grad(ot.book_cover_scene(n_random=300), cfg)
-    # an HDR sky of texels at most 1 takes the HDR passes (K6, K7); a
-    # brighter one is out of the kernels' scope, and an explicit kernel
-    # route refuses it, naming the bound, before touching the device
+    # an HDR sky takes the HDR passes (K6, K7), texels above 1 too; more
+    # than 128 spheres under it are out of the kernels' scope, and an
+    # explicit kernel route refuses them, naming the bound, before
+    # touching the device
     hdr = dataclasses.replace(ot.readme_scene(),
                               sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     assert mg.unsupported_grad_reason(hdr) is None
     assert mg.supports_grad_hdr(hdr, cfg)
     bright = dataclasses.replace(
         hdr, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
-    assert "at most 1" in mg.unsupported_grad_reason(bright)
+    assert mg.unsupported_grad_reason(bright) is None
+    crowded = dataclasses.replace(ot.book_cover_scene(n_random=196),
+                                  sky=bright.sky)
+    assert "128" in mg.unsupported_grad_reason(crowded)
     # the forward kernel takes 128 spheres: on CUDA the kernel route of the
     # gradient refuses more, before touching the device
     with pytest.raises(NotImplementedError, match="1 to 128"):
         ot.render_grad_sampled(ot.book_cover_scene(n_random=196), cfg, loss,
                                device="cuda")
-    with pytest.raises(NotImplementedError, match="at most 1"):
-        ot.fit_scene(torch.zeros((10, 16, 3)), bright, cfg,
+    with pytest.raises(NotImplementedError, match="128"):
+        ot.fit_scene(torch.zeros((10, 16, 3)), crowded, cfg,
                      param_paths=("sky.image",), grad_backend="kernel",
                      device="cuda")
 

@@ -5,7 +5,10 @@
   tolerance of tests/test_megakernel.py: both draw the same pcg4d streams,
   so images agree sample for sample up to fp rounding, and only pixels
   whose samples cross a discrete event (hit/miss, absorb) under an ulp of
-  difference move, by O(1/spp).
+  difference move, by O(1/spp).  The interpret-mode images are read from
+  tests/goldens/torch_grad_refs.npz with the scenes, configurations and
+  seed they came from (``jax_references``; ``python
+  tools/make_port_refs.py megakernel`` records them).
 - The CUDA kernel against its plain version on the card is in
   test_torch_kernels_gpu.py, which imports no JAX.
 - Routing: the wrapper takes the plain path for CPU tensors and only
@@ -21,6 +24,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.kernels import render_pallas
 from opencl_ray_tracer_tpu.scene import Sky as JSky
 from opencl_ray_tracer_tpu_torch.kernels import megakernel as mk
@@ -56,11 +60,24 @@ def plain_image(scene, cfg, seed, device="cpu"):
     return torch.stack([r, g, b], -1).reshape(cfg.height, cfg.width, 3)
 
 
+def jax_references() -> dict:
+    """The Pallas megakernel's image of every case in interpret mode with
+    its inputs, keyed "megakernel/<case>/img" (``tools/make_port_refs.py``
+    records them)."""
+    refs = {}
+    for case, (make, kw) in CASES.items():
+        jscene, jcfg = make(ort), ort.RenderConfig(**CFG, **kw)
+        img = render_pallas(jscene, jcfg, seed=0, interpret=True)
+        refs.update(port_refs.record(f"megakernel/{case}", jscene, jcfg, 0,
+                                     img=img))
+    return refs
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_matches_pallas_interpret(case):
     make, kw = CASES[case]
-    want = np.asarray(render_pallas(make(ort), ort.RenderConfig(**CFG, **kw),
-                                    seed=0, interpret=True))
+    _, want, _ = port_refs.load(f"megakernel/{case}", make(ort),
+                                ort.RenderConfig(**CFG, **kw), 0)
     got = plain_image(make(ot), ot.RenderConfig(**CFG, **kw), 0).numpy()
     assert got.shape == want.shape
     assert_images_close(got, want)
@@ -111,15 +128,15 @@ def test_render_needs_cuda_by_default(monkeypatch):
 def test_unsupported_scenes_raise_on_cuda():
     from opencl_ray_tracer_tpu_torch.tracer.render import kernel_route
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
-    # an HDR sky never takes the sphere megakernel: texels at most 1 take
-    # the mesh megakernel's HDR body, brighter ones the plain tracer
+    # an HDR sky never takes the sphere megakernel: it takes the mesh
+    # megakernel's HDR body, texels above 1 too
     hdr = dataclasses.replace(ot.readme_scene(),
                               sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     assert "HDR body" in mk.unsupported_reason(hdr)
     assert kernel_route(hdr, cfg) == "megamesh"
     bright = dataclasses.replace(
         hdr, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
-    assert kernel_route(bright, cfg) is None
+    assert kernel_route(bright, cfg) == "megamesh"
     # more spheres than the kernel takes: the plain tracer on the card, as
     # the JAX package's render() takes its jnp tracer
     many = ot.book_cover_scene(n_random=200)

@@ -467,14 +467,14 @@ def test_mesh_grad_scope():
     many = dataclasses.replace(scene, spheres=ot.book_cover_scene(
         n_random=196).spheres)
     assert "128" in mg.unsupported_grad_mesh_reason(many)
-    # an HDR sky takes the HDR passes (K6, K7), not K5, within the mesh
-    # megakernel's HDR bounds
+    # an HDR sky takes the HDR passes (K6, K7), not K5, texels above 1
+    # too
     hdr = dataclasses.replace(scene, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     assert mg.unsupported_grad_reason(hdr) is None
     assert "K6 and K7" in mg.unsupported_grad_mesh_reason(hdr)
     bright = dataclasses.replace(
         scene, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
-    assert "at most 1" in mg.unsupported_grad_reason(bright)
+    assert mg.unsupported_grad_reason(bright) is None
     assert mg.unsupported_grad_reason(scene) is None
     assert mg.supports_grad(ot.readme_scene(), cfg)
 

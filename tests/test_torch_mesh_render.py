@@ -5,7 +5,9 @@
   ``ort.render``, under that file's ``_compare`` tolerance: at most 0.5%
   of pixels off by more than 1e-3, more than 99% within 1e-4, means within
   2e-3 (the same pcg4d streams; only samples that cross a discrete event
-  under an ulp of difference move).
+  under an ulp of difference move).  JAX's image is recorded with its
+  inputs in tests/goldens/torch_grad_refs.npz (``jax_references``;
+  ``python tools/make_port_refs.py mesh_render`` records it).
 - ``render_mesh_plain``, the mesh megakernel's plain version, on that
   scene's tables against the port's plain render, and the three triangle
   forms of the plain tracer against each other, under the same tolerance.
@@ -28,6 +30,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.io.obj import parse_obj
 from opencl_ray_tracer_tpu.io.procgen import make_torus_obj
 from opencl_ray_tracer_tpu.kernels import megamesh as jmm
@@ -67,9 +70,17 @@ def _port_image():
     return _IMAGES["port"]
 
 
+def jax_references() -> dict:
+    """JAX ``ort.render`` of the mesh scene with its inputs, keyed
+    "mesh_render/render/img" (``tools/make_port_refs.py`` records it)."""
+    jscene, jcfg = _mesh_scene(ort), ort.RenderConfig(**CFG)
+    return port_refs.record("mesh_render/render", jscene, jcfg, 0,
+                            img=ort.render(jscene, jcfg, seed=0))
+
+
 def test_render_cpu_matches_jax():
-    want = np.asarray(ort.render(_mesh_scene(ort), ort.RenderConfig(**CFG),
-                                 seed=0))
+    _, want, _ = port_refs.load("mesh_render/render", _mesh_scene(ort),
+                                ort.RenderConfig(**CFG), 0)
     got = _port_image()
     assert got.shape == (32, 48, 3) and not torch.isnan(got).any()
     assert_images_close(got.numpy(), want)
@@ -151,14 +162,14 @@ def test_scope_needs_one_material_and_a_box():
         boxes=ot.BoundingBoxes(scene.boxes.box_min.expand(40, 3),
                                scene.boxes.box_max.expand(40, 3)))
     assert kernel_route(many, cfg) == "megamesh"
-    # an HDR sky: the mesh megakernel's HDR body for texels at most 1, the
-    # plain tracer for brighter ones
+    # an HDR sky: the mesh megakernel's HDR body, for texels at most 1 and
+    # for brighter ones (the JAX package's takes the plain tracer there)
     hdr = dataclasses.replace(scene, sky=ot.Sky.hdr(torch.ones((4, 8, 3))))
     assert kernel_route(hdr, cfg) == "megamesh"
     bright = dataclasses.replace(
         scene, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
-    assert kernel_route(bright, cfg) is None
-    assert "at most 1" in mm.unsupported_mesh_reason(bright)
+    assert kernel_route(bright, cfg) == "megamesh"
+    assert mm.unsupported_mesh_reason(bright) is None
 
 
 @pytest.mark.parametrize("material", ["metal", "dielectric", "emissive"])
@@ -208,16 +219,20 @@ def test_mesh_inputs_are_cached_by_content():
 
 def test_gradients_refuse_mesh_scenes():
     """Mesh and HDR gradients are ported (tests/test_torch_mesh_grad.py,
-    tests/test_torch_hdr_grad.py); an explicit "kernel" route refuses an
-    HDR sky brighter than 1, naming the bound, the fit of a sky leaf the
-    HDR kernels do not take, and a mesh of more than one material, before
-    anything moves to the card (this machine has none)."""
+    tests/test_torch_hdr_grad.py); an explicit "kernel" route refuses a
+    mesh of more than one material under an HDR sky (brighter than 1,
+    which the HDR kernels take), naming the bound, the fit of a sky leaf
+    the HDR kernels do not take, and a mesh of more than one material,
+    before anything moves to the card (this machine has none)."""
     scene = _mesh_scene(ot, sky=ot.Sky.hdr(torch.full((4, 8, 3), 2.0)))
+    t = scene.triangles
+    scene = dataclasses.replace(scene, triangles=dataclasses.replace(
+        t, fuzz=torch.linspace(0.0, 0.5, t.count)))
     cfg = ot.RenderConfig(width=8, height=4, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="at most 1"):
+    with pytest.raises(NotImplementedError, match="HDR scope.*uniform"):
         ot.render_grad_sampled(scene, cfg, lambda im: im.mean(),
                                grad_backend="kernel", device="cuda")
-    with pytest.raises(NotImplementedError, match="at most 1"):
+    with pytest.raises(NotImplementedError, match="HDR scope.*uniform"):
         ot.fit_scene(torch.zeros((4, 8, 3)), scene, cfg,
                      param_paths=("sky.image",), grad_backend="kernel",
                      device="cuda")

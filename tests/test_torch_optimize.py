@@ -5,7 +5,10 @@ target rendered from the true scene, on the plain route: the losses agree
 to 1e-4 relative, and the albedos to 1e-4.  Adam's first step moves every
 parameter by the learning rate times the sign of its gradient, so the
 comparison holds when the two gradients agree in sign and roughly in size,
-which the albedo's (smooth, all of one sign here) do.
+which the albedo's (smooth, all of one sign here) do.  JAX's two steps
+(the target JAX renders, its losses and the fitted albedo) are recorded
+with their inputs in tests/goldens/torch_grad_refs.npz (``python
+tools/make_port_refs.py optimize``, ``jax_references`` below).
 """
 
 import dataclasses
@@ -19,6 +22,7 @@ import torch
 
 import opencl_ray_tracer_tpu as ort
 import opencl_ray_tracer_tpu_torch as ot
+import port_refs
 from opencl_ray_tracer_tpu.optimize import fit_scene as jax_fit_scene
 from opencl_ray_tracer_tpu_torch.optimize import (extract_params,
                                                   insert_params)
@@ -37,12 +41,31 @@ def _problem():
     return target, init
 
 
-def test_two_steps_match_jax():
+def jax_references() -> dict:
+    """JAX fit_scene's two steps from ``_problem()`` (its losses and the
+    fitted albedo) with their inputs, keyed "optimize/two_steps/<name>"
+    (``tools/make_port_refs.py`` records them)."""
     target, jinit = _problem()
     jscene, jlosses = jax_fit_scene(
         jnp.asarray(target), jinit, ort.RenderConfig(**CFG),
         param_paths=("spheres.albedo",), steps=2, learning_rate=1e-2,
         seed=4, grad_backend="jnp")
+    return port_refs.record(
+        "optimize/two_steps", jinit, ort.RenderConfig(**CFG), 4,
+        outputs={"target": target,
+                 "losses": np.asarray(jlosses, np.float64),
+                 "albedo": jscene.spheres.albedo},
+        inputs={"learning_rate": 1e-2, "steps": 2})
+
+
+def test_two_steps_match_jax():
+    true = ort.readme_scene()
+    jinit = dataclasses.replace(true, spheres=dataclasses.replace(
+        true.spheres, albedo=true.spheres.albedo + 0.1))
+    _, _, refs = port_refs.load(
+        "optimize/two_steps", jinit, ort.RenderConfig(**CFG), 4,
+        inputs={"learning_rate": 1e-2, "steps": 2})
+    target, jlosses, jalbedo = refs["target"], refs["losses"], refs["albedo"]
     seen = []
     tscene, tlosses = ot.fit_scene(
         torch.tensor(target), scene_from_numpy(scene_to_numpy(jinit),
@@ -52,8 +75,8 @@ def test_two_steps_match_jax():
         callback=lambda i, loss, s: seen.append((i, loss)), device="cpu")
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
     assert [i for i, _ in seen] == [0, 1] and seen[1][1] == tlosses[1]
-    np.testing.assert_allclose(tscene.spheres.albedo.numpy(),
-                               np.asarray(jscene.spheres.albedo), atol=1e-4)
+    np.testing.assert_allclose(tscene.spheres.albedo.numpy(), jalbedo,
+                               atol=1e-4)
     # everything else is untouched
     np.testing.assert_array_equal(tscene.spheres.center.numpy(),
                                   np.asarray(jinit.spheres.center))

@@ -104,7 +104,8 @@ def test_port_imports_no_jax():
             "opencl_ray_tracer_tpu_torch.tracer.soft, "
             "opencl_ray_tracer_tpu_torch.utils.profiling\n"
             "sys.path.insert(0, 'examples')\n"
-            "import inverse_rendering_torch\n"
+            "import inverse_rendering_torch, fit_mesh_vertices_torch, "
+            "fit_sky_image_torch, reference_scene_render_torch\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'opencl_ray_tracer_tpu' "
             "or m.startswith('opencl_ray_tracer_tpu.')]\n"
@@ -121,8 +122,10 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "inverse_rendering_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "examples", n)
+              for n in sorted(os.listdir(os.path.join(ROOT, "examples")))
+              if n.endswith("_torch.py")]
     for base, _, names in os.walk(os.path.join(ROOT,
                                                "opencl_ray_tracer_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]

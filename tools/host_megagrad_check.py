@@ -21,8 +21,8 @@ hand-derived adjoints before a kernel's first run on the card.  The cases
 are chip_smoke.py's mesh cases on a 192-triangle torus (the reference
 mesh material, a Lambertian mesh, a metal mesh under a constant sky, no
 spheres, a dielectric, an emitter, 40 gating boxes), two sphere scenes,
-and under an HDR sky the reference mesh, the README spheres and an
-emissive sphere.  With --earlier, K5, K6 and K7 run as their earlier
+and under an HDR sky the reference mesh (also under twice the sky, where
+the clamp cuts sky terms), the README spheres and an emissive sphere.  With --earlier, K5, K6 and K7 run as their earlier
 design (the megagrad template's mesh instances, a pixel per thread), which
 must count the same bounces and triangle tests.
 
@@ -273,6 +273,7 @@ def cases():
         "readme_spheres": ot.readme_scene(),
         "reference_spheres": ot.reference_scene(),
         "hdr_mesh": torus(sky=ot.Sky.hdr(SKY)),
+        "hdr_bright_mesh": torus(sky=ot.Sky.hdr(SKY * 2.0)),
         "hdr_readme_spheres": dataclasses.replace(ot.readme_scene(),
                                                   sky=ot.Sky.hdr(SKY)),
         "hdr_emissive_sphere": dataclasses.replace(ot.reference_scene(),

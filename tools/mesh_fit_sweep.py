@@ -16,15 +16,19 @@ With ``--mesh jax_test`` it runs tests/test_megagrad.py's vertex fit
 instead: the 48-triangle torus of that file's ``_mesh_scene`` (scale 0.5,
 near the camera), from every p0 moved by 0.02 back towards the target
 rendered from the true mesh (seed 7), as ``chip_smoke.py`` phase 15 does.
+``--repeats N`` runs each fit N times: the backward kernels add their
+cotangents with float atomics, so the sums, and the fit that follows them,
+can differ between runs on the card.
 
     python tools/mesh_fit_sweep.py [--device cuda] [--mesh reference|jax_test]
-        [--width 1280 --height 720]
+        [--width 1280 --height 720] [--steps 5] [--repeats 1]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -98,12 +102,13 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=1280)
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=1)
     args = ap.parse_args()
     cfg = ot.REFERENCE_DEFAULTS.replace(width=args.width, height=args.height)
     for name, target, init, seed, rates in fits(args.mesh, cfg, args.device):
         for paths in (("triangles.p0",),
                       ("triangles.p0", "triangles.p1", "triangles.p2")):
-            for lr in rates:
+            for lr, repeat in itertools.product(rates, range(args.repeats)):
                 t0 = time.perf_counter()
                 _, losses = ot.fit_scene(target, init, cfg, param_paths=paths,
                                          steps=args.steps, learning_rate=lr,
@@ -111,10 +116,11 @@ def main() -> None:
                                          device=args.device)
                 print(json.dumps({
                     "mesh": args.mesh, "target": name, "params": paths,
-                    "learning_rate": lr,
+                    "learning_rate": lr, "repeat": repeat,
                     "size": f"{cfg.width}x{cfg.height}x{cfg.spp}"
                             f"/d{cfg.max_depth}",
                     "losses": losses, "falls": losses[-1] < losses[0],
+                    "last_over_first": losses[-1] / losses[0],
                     "seconds": time.perf_counter() - t0}), flush=True)
 
 
